@@ -1,0 +1,77 @@
+"""The port stands alone: no JAX and nothing of ``repro`` in its import
+graph, and its entry points default to the GPU instead of quietly running
+on the CPU."""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.data import build_federated, make_image_dataset, \
+    pathological_split
+from repro_torch.fl.base import to_device_data
+from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
+from repro_torch.models.small import MLR
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_imports_with_jax_and_reference_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        "import repro_torch, repro_torch.convert\n"
+        "import repro_torch.fl.rwsadmm_trainer, repro_torch.fl.simulation\n"
+        "import repro_torch.kernels.rwsadmm_update.ops\n"
+        "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+        "               for m, v in sys.modules.items() if v is not None)\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+
+
+def test_default_device_is_cuda():
+    imgs, labels = make_image_dataset(80, shape=(4, 4, 1), seed=0)
+    fed = build_federated(imgs, labels, pathological_split(labels, 4))
+    data = to_device_data(fed, "cpu")
+    if torch.cuda.is_available():
+        assert repro_torch.resolve_device().type == "cuda"
+        with pytest.raises(ValueError, match="data lives on"):
+            RWSADMMTrainer(MLR((4, 4, 1)), data)
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        repro_torch.resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_device_data(fed)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RWSADMMTrainer(MLR((4, 4, 1)), data)
+    assert np.isfinite(RWSADMMTrainer(MLR((4, 4, 1)), data,
+                                      device="cpu").params_bytes())
