@@ -6,8 +6,8 @@ Phases (each prints its own line; any failure exits non-zero):
 
 1. device — needs CUDA; prints the card's name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions.
-2. build — builds every kernel of the main path from ``src/repro_torch``
-   with ``nvcc`` (one process per source, started together).
+2. build — builds the main path's kernel from ``src/repro_torch`` with
+   ``nvcc``.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card at the main path's shapes, and times both beside the bound.
 4. main path — single-walker RWSADMM through ``run_simulation`` on the
@@ -28,6 +28,7 @@ import os
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -83,21 +84,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 # ---------------------------------------------------------------------------
-def phase_build() -> dict:
-    """Build every kernel source of the main path, one nvcc per source,
-    all started together."""
-    from concurrent.futures import ThreadPoolExecutor
-
+def phase_build() -> Path:
+    """Build the main path's one kernel source with nvcc."""
     from repro_torch.kernels.rwsadmm_update import ops as zone_ops
 
-    jobs = {"zone_update": zone_ops.build}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(jobs)) as pool:
-        futures = {k: pool.submit(b) for k, b in jobs.items()}
-        libs = {k: f.result() for k, f in futures.items()}
-    log(f"build: {len(libs)} kernel(s) in {time.perf_counter() - t0:.2f} s "
-        f"({', '.join(os.path.basename(str(p)) for p in libs.values())})")
-    return libs
+    lib = zone_ops.build()
+    log(f"build: 1 kernel in {time.perf_counter() - t0:.2f} s ({lib.name})")
+    return lib
 
 
 def zone_inputs(zone: int, n: int, live: int, seed: int, device):
@@ -191,8 +185,9 @@ def build_main_path(device, seed: int):
     parts = pathological_split(labels, MAIN["n_clients"], seed=seed)
     data = to_device_data(build_federated(imgs, labels, parts), device)
     model = CNN((32, 32, 3))   # c1=16, c2=32, fc=512: the paper's widths
-    # β = 100 (the paper tunes β ∈ {10, 100} per dataset): at β = 10 the
-    # closed-form step (1/β) diverges on this CNN in both packages.
+    # β = 100 departs from the paper's β = 10 (docs/algorithm.md): at
+    # β = 10 the closed-form step diverges on this make_cifar_like
+    # stand-in in both packages (tests/test_torch_beta_probe.py, PERF.md).
     hp = RWSADMMHparams(beta=100.0)
     log(f"data: {MAIN['n_samples']} CIFAR-shaped samples over "
         f"{MAIN['n_clients']} clients, x_train {tuple(data.x_train.shape)} "

@@ -20,7 +20,7 @@ from .core.tree import ParamLayout
 
 def _walk(tree: Mapping, prefix: str = ""):
     for key in sorted(tree):
-        path = f"{prefix}/{key}" if prefix else str(key)
+        path = f"{prefix}.{key}" if prefix else str(key)
         if isinstance(tree[key], Mapping):
             yield from _walk(tree[key], path)
         else:
@@ -30,7 +30,7 @@ def _walk(tree: Mapping, prefix: str = ""):
 def state_from_reference(ref_params: Mapping, device=None
                          ) -> dict[str, torch.Tensor]:
     """Nested reference dict → ``{"conv1.w": tensor, ...}`` (fp32)."""
-    return {ParamLayout.module_name(path): torch.as_tensor(
+    return {path: torch.as_tensor(
                 np.array(leaf, np.float32), device=device)
             for path, leaf in _walk(ref_params)}
 
@@ -58,7 +58,7 @@ def flat_from_reference(ref_params: Mapping, layout: ParamLayout,
 def flat_to_reference(flat: torch.Tensor, layout: ParamLayout
                       ) -> dict[str, dict]:
     """Flat ``(P,)`` vector → nested dict of numpy arrays."""
-    return state_to_reference(layout.views(flat, module_names=True))
+    return state_to_reference(layout.views(flat))
 
 
 def load_reference(module: torch.nn.Module, ref_params: Mapping) -> None:

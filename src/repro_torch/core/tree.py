@@ -6,9 +6,10 @@ call. The port holds them flat from the start: client x and z as one
 ``(n, P)`` fp32 buffer each, the token y as ``(P,)``. A
 :class:`ParamLayout` names the leaves and hands out per-leaf views.
 
-Leaf order is ``jax.tree_util.tree_leaves`` order on the reference's
-nested param dict — keys sorted at every level (``conv1/b``,
-``conv1/w``, ``conv2/b``, …) — so a flat vector here equals
+Leaves are keyed by ``nn.Module`` parameter names (``conv1.w``). Their
+order is ``jax.tree_util.tree_leaves`` order on the reference's nested
+param dict — keys sorted at every level (``conv1.b``, ``conv1.w``,
+``conv2.b``, …) — so a flat vector here equals
 ``repro.core.tree.flatten`` of the same params element for element.
 """
 from __future__ import annotations
@@ -20,15 +21,11 @@ import torch
 
 
 class ParamLayout:
-    """Ordered leaf names and shapes of one model's parameters.
-
-    Names are ``/``-joined paths of the nested dict (``"conv1/w"``);
-    :meth:`module_name` maps them to ``nn.Module`` parameter names
-    (``"conv1.w"``).
-    """
+    """Ordered leaf names (``nn.Module`` parameter names, ``"conv1.w"``)
+    and shapes of one model's parameters."""
 
     def __init__(self, shapes: Mapping[str, tuple[int, ...]]):
-        names = sorted(shapes, key=lambda k: tuple(k.split("/")))
+        names = sorted(shapes, key=lambda k: tuple(k.split(".")))
         self.names: tuple[str, ...] = tuple(names)
         self.shapes: tuple[tuple[int, ...], ...] = tuple(
             tuple(int(d) for d in shapes[k]) for k in names)
@@ -40,15 +37,10 @@ class ParamLayout:
 
     @classmethod
     def from_module(cls, module: torch.nn.Module) -> "ParamLayout":
-        return cls({name.replace(".", "/"): tuple(p.shape)
+        return cls({name: tuple(p.shape)
                     for name, p in module.named_parameters()})
 
-    @staticmethod
-    def module_name(name: str) -> str:
-        return name.replace("/", ".")
-
-    def views(self, flat: torch.Tensor, *, module_names: bool = False
-              ) -> dict[str, torch.Tensor]:
+    def views(self, flat: torch.Tensor) -> dict[str, torch.Tensor]:
         """Per-leaf views of ``flat`` (shape ``(..., P)``): leaf ``k``
         becomes ``(..., *shape_k)``. No copy when ``flat`` is contiguous."""
         lead = flat.shape[:-1]
@@ -56,18 +48,16 @@ class ParamLayout:
         out = {}
         for name, shape, off, size in zip(self.names, self.shapes,
                                           self.offsets, self.sizes):
-            key = self.module_name(name) if module_names else name
-            out[key] = flat[..., off:off + size].view(*lead, *shape)
+            out[name] = flat[..., off:off + size].view(*lead, *shape)
         return out
 
     def flatten(self, leaves: Mapping[str, torch.Tensor],
                 batch_dims: int = 0) -> torch.Tensor:
-        """Concatenate leaves (keyed by leaf or module name) into one
-        ``(..., P)`` tensor in layout order."""
+        """Concatenate leaves (keyed by name) into one ``(..., P)``
+        tensor in layout order."""
         parts = []
         for name, shape in zip(self.names, self.shapes):
-            leaf = leaves[name] if name in leaves \
-                else leaves[self.module_name(name)]
+            leaf = leaves[name]
             lead = tuple(leaf.shape[:batch_dims])
             assert tuple(leaf.shape[batch_dims:]) == shape, (
                 name, tuple(leaf.shape), shape)

@@ -198,7 +198,7 @@ class TrainerBase:
         """Per-client training loss and gradient at the zone's rows.
         ``x``: ``(Z, P)`` flat params; returns ``(losses (Z,), g (Z, P))``."""
         xb, yb = gather_batch(self.data, clients, idx)
-        params = self.layout.views(x, module_names=True)
+        params = self.layout.views(x)
         grads, losses = self._grad_zone(params, xb, yb, keep)
         return losses, self.layout.flatten(grads, batch_dims=1)
 
@@ -226,12 +226,12 @@ class TrainerBase:
             pers = self.personalized_params(state, rows)
             if pers is not None:
                 a, l_ = self._eval_stacked(
-                    self.layout.views(pers, module_names=True), *cols)
+                    self.layout.views(pers), *cols)
                 pers_acc.append(a)
                 pers_loss.append(l_)
             if glob is not None:
                 a, l_ = self._eval_shared(
-                    self.layout.views(glob, module_names=True), *cols)
+                    self.layout.views(glob), *cols)
                 glob_acc.append(a)
                 glob_loss.append(l_)
         if pers_acc:

@@ -18,7 +18,6 @@ import os
 import shutil
 import subprocess
 import tempfile
-import threading
 from pathlib import Path
 
 import torch
@@ -32,7 +31,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _lib = None
-_lib_lock = threading.Lock()
 
 
 def find_nvcc() -> str:
@@ -78,15 +76,14 @@ def build() -> Path:
 
 def _library():
     global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            fn = lib.rwsadmm_zone_update
-            fn.argtypes = ([ctypes.c_void_p] * 9
-                           + [ctypes.c_int, ctypes.c_longlong]
-                           + [ctypes.c_float] * 4 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            _lib = lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        fn = lib.rwsadmm_zone_update
+        fn.argtypes = ([ctypes.c_void_p] * 9
+                       + [ctypes.c_int, ctypes.c_longlong]
+                       + [ctypes.c_float] * 4 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _lib = lib
     return _lib
 
 

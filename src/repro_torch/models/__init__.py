@@ -1,2 +1,2 @@
 """The paper's small FL models (MLR, MLP, CNN) as ``nn.Module``s."""
-from .small import CNN, MLP, MLR, SmallModel, get_model  # noqa: F401
+from .small import CNN, MLP, MLR, SmallModel  # noqa: F401

@@ -12,10 +12,11 @@ layout, so flat parameter vectors and inputs compare directly:
 * conv weights are HWIO ``(5, 5, c_in, c_out)`` and dense weights
   ``(n_in, n_out)``; the conv permutes its weight to OIHW as a view.
 
-Parameter names are ``<layer>.w`` / ``<layer>.b`` (``<layer>/w`` in the
-flat layout, ``core/tree.py``). Dropout draws from an explicit
-``torch.Generator``, or takes keep masks drawn by the caller (per-client
-gradients under ``vmap`` draw them outside); ``train=False`` turns it off.
+Parameter names are ``<layer>.w`` / ``<layer>.b``, the keys of the flat
+layout (``core/tree.py``). Dropout takes keep masks that the caller draws
+with :meth:`SmallModel.draw_keep` from an explicit ``torch.Generator``
+(per-client gradients under ``vmap`` draw them outside); ``train=False``
+turns it off.
 """
 from __future__ import annotations
 
@@ -59,7 +60,7 @@ class _Conv5(nn.Module):
 
 
 class SmallModel(nn.Module):
-    """Common interface: ``forward(x, *, train, generator, keep)`` and
+    """Common interface: ``forward(x, *, train, keep)`` and
     :meth:`init_params`, which draws a fresh parameter dict (module
     names, CPU, fp32) from a generator without touching the module."""
 
@@ -111,7 +112,7 @@ class MLR(SmallModel):
         self.linear = _Dense(math.prod(input_shape), n_classes, scale=0.01)
         self._finish_init()
 
-    def forward(self, x, *, train=False, generator=None, keep=None):
+    def forward(self, x, *, train=False, keep=None):
         return self.linear(x.reshape(x.shape[0], -1))
 
 
@@ -126,7 +127,7 @@ class MLP(SmallModel):
         self.out = _Dense(hidden, n_classes)
         self._finish_init()
 
-    def forward(self, x, *, train=False, generator=None, keep=None):
+    def forward(self, x, *, train=False, keep=None):
         x = x.reshape(x.shape[0], -1)
         x = torch.relu(self.fc1(x))
         x = torch.relu(self.fc2(x))
@@ -153,9 +154,7 @@ class CNN(SmallModel):
         (h, w), (c1, fc) = self.hw, self.widths
         return ((batch, c1, h // 2, w // 2), (batch, fc))
 
-    def forward(self, x, *, train=False, generator=None, keep=None):
-        if train and keep is None and generator is not None:
-            keep = self.draw_keep(x.shape[0], generator, x.device)
+    def forward(self, x, *, train=False, keep=None):
         drop = train and keep is not None
         x = x.permute(0, 3, 1, 2)                       # NHWC → NCHW
         x = F.max_pool2d(torch.relu(self.conv1(x)), 2)
@@ -167,17 +166,6 @@ class CNN(SmallModel):
         if drop:                                        # 50% before the head
             x = _dropout(x, keep[1], self.keep_probs[1])
         return self.out(x)
-
-
-def get_model(name: str, input_shape, n_classes: int = 10) -> SmallModel:
-    name = name.lower()
-    if name == "mlr":
-        return MLR(input_shape, n_classes)
-    if name == "mlp":
-        return MLP(input_shape, n_classes)
-    if name == "cnn":
-        return CNN(input_shape, n_classes)
-    raise ValueError(f"unknown small model {name!r}")
 
 
 # ------------------------------------------------------------- losses -----

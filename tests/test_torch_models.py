@@ -86,7 +86,7 @@ def test_masked_loss_and_accuracy_match(kind):
 def test_flat_layout_matches_reference_flatten(kind):
     _, port, params, *_ = _setup(kind, "mnist", seed=1)
     layout = ParamLayout.from_module(port)
-    paths = ["/".join(k.key for k in path) for path, _ in
+    paths = [".".join(k.key for k in path) for path, _ in
              jax.tree_util.tree_flatten_with_path(params)[0]]
     assert list(layout.names) == paths
     ref_flat = np.asarray(rtree.flatten(params))
@@ -135,8 +135,10 @@ def test_dropout_keep_rate_and_scaling():
         assert bool(((out == 0) | (out == 1.0 / p)).all())
         assert abs(float(out.mean()) - 1.0) < 1e-2   # 1/keep rescaling
     x = torch.randn(8, 32, 32, 3)
-    a = model(x, train=True, generator=torch.Generator().manual_seed(1))
-    b = model(x, train=True, generator=torch.Generator().manual_seed(1))
+    a = model(x, train=True,
+              keep=model.draw_keep(8, torch.Generator().manual_seed(1), "cpu"))
+    b = model(x, train=True,
+              keep=model.draw_keep(8, torch.Generator().manual_seed(1), "cpu"))
     assert torch.equal(a, b)
     assert not torch.equal(a, model(x, train=False))
     assert torch.equal(model(x, train=False), model(x))
