@@ -2,23 +2,33 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its own line; any failure exits non-zero):
+Phases (each prints its own lines; any failure exits non-zero):
 
 1. device — needs CUDA; prints the card's name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions.
-2. build — builds the main path's kernel from ``src/repro_torch`` with
-   ``nvcc``.
-3. kernels — holds each kernel against its plain PyTorch version on the
-   card at the main path's shapes, and times both beside the bound.
-4. main path — single-walker RWSADMM through ``run_simulation`` on the
+2. build — builds the kernels from ``src/repro_torch`` with ``nvcc`` (one
+   source, one shared library, three kernels).
+3. kernels — holds each kernel (``zone_update``, ``multizone_update``,
+   ``fused_update``) against its plain PyTorch version on the card at the
+   paths' shapes, padded slots and an idle walker included, and times
+   both beside the bound.
+4. single-walker path — RWSADMM through ``run_simulation`` on the
    paper's CIFAR-10 CNN at full width (P = 1,068,266), n = 100 clients,
    zone 8, batch 20, ``closed_form`` + ``engine="scan_fused"``; checks
    finite losses, the accuracy report and that the zone kernel ran once
    per round; then ``eager`` from the same seed and weights must agree
    with ``scan_fused``.
+5. fleet path — the same model and data under a K = 3 walker fleet in
+   simultaneous mode (``sync_every=10``): 50 wall steps of ``scan_fused``
+   with one multi-zone launch each, steady times per engine, a profile,
+   eager vs ``scan_fused``; then a round-robin fleet whose 12 rounds each
+   launch the zone kernel.
+6. single-client op — one client's update through ``ops.fused_update``
+   at the CNN's width, launched once.
 
-Ends with a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line and, last,
-``{"ok": true, "device": {...}}``. Imports nothing of JAX or ``repro``.
+Ends with a ``{"kernels": [...]}`` line, the paths' summaries, the
+``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
@@ -37,8 +47,12 @@ HBM_BYTES_PER_S = {"pcie": 2.0e12, "sxm": 3.35e12}
 FP32_FLOP_PER_S = 67e12
 
 ENGINES = ("eager", "scan", "scan_fused")
+P_CNN = 1_068_266
 MAIN = dict(n_samples=12_000, n_clients=100, zone=8, batch=20, rounds=50,
             eager_rounds=5, seed=0)
+# benchmarks/fleet_scaling.py's fleet: K = 3 walkers, rendezvous every 10.
+FLEET = dict(n_walkers=3, sync_every=10, wall_steps=50, eager_steps=5,
+             rr_rounds=12)
 # Eager vs scan_fused after a few rounds: the plain and kernel updates
 # agree to the last bit or so per round, and those ulps feed the next
 # rounds' gradients (cuDNN's backward is not bitwise reproducible), so
@@ -83,93 +97,186 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _wrappers():
+    from repro_torch.kernels.rwsadmm_update import ops
+
+    return {"zone_update": ops.zone_fused_update,
+            "multizone_update": ops.multizone_fused_update,
+            "fused_update": ops.fused_update}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def zero_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
 # ---------------------------------------------------------------------------
 def phase_build() -> Path:
-    """Build the main path's one kernel source with nvcc."""
-    from repro_torch.kernels.rwsadmm_update import ops as zone_ops
+    """Build the one kernel source (all three kernels) with nvcc."""
+    from repro_torch.kernels.rwsadmm_update import ops
 
     t0 = time.perf_counter()
-    lib = zone_ops.build()
-    log(f"build: 1 kernel in {time.perf_counter() - t0:.2f} s ({lib.name})")
+    lib = ops.build()
+    log(f"build: 3 kernels from 1 source in {time.perf_counter() - t0:.2f} s "
+        f"({lib.name})")
     return lib
 
 
-def zone_inputs(zone: int, n: int, live: int, seed: int, device):
-    """Random zone-update inputs on the card: slot 0 has x = y (warm
-    init, sgn(0)), slots ≥ ``live`` are padding."""
+def update_inputs(walkers: int, zone: int, n: int, live, seed: int, device):
+    """Random multi-zone inputs on the card: x (K, Z, N), z, g, y (K, N),
+    mask (K, Z) with ``live[k]`` live slots for walker k (0: an idle
+    walker), κ. Walker 0's slot 0 has x = y (warm init, sgn(0))."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(seed)
-    x, z, g = (torch.randn(zone, n, generator=gen, device=device)
+    x, z, g = (torch.randn(walkers, zone, n, generator=gen, device=device)
                for _ in range(3))
-    y = torch.randn(n, generator=gen, device=device)
+    y = torch.randn(walkers, n, generator=gen, device=device)
     z.mul_(0.01)
-    x[0] = y
-    mask = torch.zeros(zone, device=device)
-    mask[:live] = 1.0
+    x[0, 0] = y[0]
+    mask = torch.zeros(walkers, zone, device=device)
+    for k, n_live in enumerate(live):
+        mask[k, :n_live] = 1.0
     kappa = torch.tensor([0.001], device=device)
     return x, z, y, g, mask, kappa
 
 
-def check_zone_kernel(zone: int, n: int, live: int, hp, device, name: str,
-                      time_it: bool) -> dict:
+def agreement(x, z, y, mask, got, want) -> dict:
+    """Kernel outputs ``got`` against the plain version's ``want``, all
+    in multi-zone form (x/z (K, Z, N), y (K, N), mask (K, Z))."""
     import torch
 
-    from repro_torch.kernels.rwsadmm_update import ops
-    from repro_torch.kernels.rwsadmm_update.ref import zone_fused_update_ref
-
-    x, z, y, g, mask, kappa = zone_inputs(zone, n, live, seed=zone * 7 + n,
-                                          device=device)
-    kw = dict(beta=hp.beta, eps_half=hp.eps_half, n_total=100.0)
-    xk, zk, yk = ops.zone_fused_update(x, z, y, g, mask, kappa, **kw)
-    torch.cuda.synchronize()
-    xp, zp, yp = zone_fused_update_ref(x, z, y, g, mask, kappa, **kw)
+    (xk, zk, yk), (xp, zp, yp) = got, want
     err = {k: float((a - b).abs().max()) for k, a, b in
            (("x", xk, xp), ("z", zk, zp), ("y", yk, yp))}
-    live_rows = mask > 0
-    flips = int((torch.sign(y - xk[live_rows])
-                 != torch.sign(y - xp[live_rows])).any(dim=0).sum())
-    pad_exact = bool(torch.equal(xk[~live_rows], x[~live_rows])
-                     and torch.equal(zk[~live_rows], z[~live_rows]))
-    ok_xz = all(torch.allclose(a, b, atol=KERNEL_TOL, rtol=KERNEL_TOL)
-                for a, b in ((xk, xp), (zk, zp)))
-    if flips:
-        flip_pos = (torch.sign(y - xk[live_rows])
-                    != torch.sign(y - xp[live_rows])).any(dim=0)
-        ok_y = torch.allclose(yk[~flip_pos], yp[~flip_pos],
-                              atol=KERNEL_TOL, rtol=KERNEL_TOL)
+    live = (mask > 0).unsqueeze(-1)
+    ref_y = y.unsqueeze(1)
+    flip = ((torch.sign(ref_y - xk) != torch.sign(ref_y - xp))
+            & live).any(dim=1)                             # (K, N)
+    pad = ~live.expand_as(x)
+    idle = mask.sum(dim=1) == 0
+    row = {"err": err, "sign_flips": int(flip.sum()),
+           "padded_slots_exact": bool(torch.equal(xk[pad], x[pad])
+                                      and torch.equal(zk[pad], z[pad])),
+           "idle_walkers": int(idle.sum()),
+           "idle_walkers_exact": bool(torch.equal(yk[idle], y[idle]))}
+    row["ok"] = (row["padded_slots_exact"] and row["idle_walkers_exact"]
+                 and all(torch.allclose(a, b, atol=KERNEL_TOL,
+                                        rtol=KERNEL_TOL)
+                         for a, b in ((xk, xp), (zk, zp)))
+                 and torch.allclose(yk[~flip], yp[~flip], atol=KERNEL_TOL,
+                                    rtol=KERNEL_TOL))
+    return row
+
+
+def as_multizone(kernel: str, x, z, y):
+    """A kernel's (x, z, y) in multi-zone form: (K, Z, N), (K, Z, N),
+    (K, N)."""
+    if kernel == "zone_update":
+        return x[None], z[None], y[None]
+    if kernel == "fused_update":
+        return x.view(1, 1, -1), z.view(1, 1, -1), y.view(1, -1)
+    return x, z, y
+
+
+def check_kernel(kernel: str, walkers: int, zone: int, n: int, live, hp,
+                 device, card: str, time_it: bool) -> dict:
+    """One kernel against its plain version at one shape, optionally
+    timed beside its bound. ``zone_update`` runs walker 0's rows,
+    ``fused_update`` walker 0's slot 0 (no mask)."""
+    import torch
+
+    from repro_torch.kernels.rwsadmm_update import ref
+
+    x, z, y, g, mask, kappa = update_inputs(walkers, zone, n, live,
+                                            seed=97 * walkers + zone * 7 + n,
+                                            device=device)
+    kw = dict(beta=hp.beta, eps_half=hp.eps_half, n_total=100.0)
+    if kernel == "multizone_update":
+        args = (x, z, y, g, mask, kappa)
+        plain = ref.multizone_fused_update_ref
+        shape = f"K={walkers} Z={zone} N={n} live={list(live)}"
+    elif kernel == "zone_update":
+        args = (x[0], z[0], y[0], g[0], mask[0], kappa)
+        plain = ref.zone_fused_update_ref
+        mask = mask[:1]
+        shape = f"Z={zone} N={n} live={live[0]}"
     else:
-        ok_y = torch.allclose(yk, yp, atol=KERNEL_TOL, rtol=KERNEL_TOL)
-    row = {"shape": f"Z={zone} N={n} live={live}", "err": err,
-           "sign_flips": flips, "padded_slots_exact": pad_exact}
+        # x = y on the first quarter: warm init, sgn(0) = 0 there.
+        x[0, 0, : n // 4] = y[0, : n // 4]
+        args = (x[0, 0], z[0, 0], y[0], g[0, 0], kappa)
+        plain = ref.fused_update_ref
+        mask = mask.new_ones(1, 1)
+        shape = f"N={n}"
+    launch = _wrappers()[kernel]
+    got = launch(*args, **kw)
+    torch.cuda.synchronize()
+    want = plain(*args, **kw)
+    row = agreement(*as_multizone(kernel, *args[:3]), mask,
+                    as_multizone(kernel, *got), as_multizone(kernel, *want))
+    row["shape"] = shape
     if time_it:
-        launches = ops.zone_fused_update.launches
-        row["ms"] = cuda_time_ms(
-            lambda: ops.zone_fused_update(x, z, y, g, mask, kappa, **kw), 50)
-        row["plain_ms"] = cuda_time_ms(
-            lambda: zone_fused_update_ref(x, z, y, g, mask, kappa, **kw), 10)
-        ops.zone_fused_update.launches = launches   # timing is not the path
-        # Read x, z (every slot), g (live slots only: a padded slot's
-        # output is its input) and y; write x⁺, z⁺ and y⁺. All slots
-        # live: (5Z + 2)·N·4 bytes.
-        bytes_moved = (4 * zone + live + 2) * n * 4
-        flops = 34 * zone * n + 2 * n   # elementwise fp32 ops per round
-        rate, rate_src = hbm_rate(name)
+        row["ms"] = cuda_time_ms(lambda: launch(*args, **kw), 50)
+        row["plain_ms"] = cuda_time_ms(lambda: plain(*args, **kw), 10)
+        if kernel == "fused_update":
+            # Read x, z, y, g; write x⁺, z⁺, y⁺.
+            bytes_moved, flops = 7 * n * 4, 30 * n
+        else:
+            # Per walker: read x, z (every slot), g (live slots only: a
+            # padded slot's output is its input) and y; write x⁺, z⁺ and
+            # y⁺. All slots live: K·(5Z + 2)·N·4 bytes.
+            lives = [int(v) for v in mask.sum(dim=1).tolist()]
+            bytes_moved = sum(4 * zone + n_live + 2 for n_live in lives) \
+                * n * 4
+            flops = len(lives) * (34 * zone + 2) * n   # fp32 elementwise
+        rate, rate_src = hbm_rate(card)
         bytes_ms = bytes_moved / rate * 1e3
         ops_ms = flops / FP32_FLOP_PER_S * 1e3
         row.update(bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bound_rate=rate_src, bytes=bytes_moved)
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    log(f"kernel zone_update {row['shape']}: max_abs_err {err} sign_flips "
-        f"{flips} padded_exact {pad_exact}"
+    log(f"kernel {kernel} {row['shape']}: max_abs_err {row['err']} "
+        f"sign_flips {row['sign_flips']} padded_exact "
+        f"{row['padded_slots_exact']} idle_walkers {row['idle_walkers']} "
+        f"idle_exact {row['idle_walkers_exact']}"
         + (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} bound_ms "
            f"{row['bound_ms']:.4f} ({row['bound_by']}, {row['bound_rate']}) "
            f"share {row['share_of_bound']:.3f}" if time_it else ""))
-    if not (ok_xz and ok_y and pad_exact):
-        raise AssertionError(f"zone_update disagrees with its plain version "
+    if not row["ok"]:
+        raise AssertionError(f"{kernel} disagrees with its plain version "
                              f"at {row['shape']}: {row}")
     return row
+
+
+def phase_kernels(hp, device, card: str) -> dict:
+    """Every kernel at the paths' shapes; the first row of each is timed."""
+    z8 = MAIN["zone"]
+    return {
+        "zone_update": [
+            check_kernel("zone_update", 1, z8, P_CNN, (z8,), hp, device,
+                         card, time_it=True),
+            check_kernel("zone_update", 1, z8, P_CNN, (6,), hp, device, card,
+                         time_it=False),
+            check_kernel("zone_update", 1, 3, 100_003, (2,), hp, device,
+                         card, time_it=False)],
+        "multizone_update": [
+            check_kernel("multizone_update", 3, z8, P_CNN, (z8, z8, z8), hp,
+                         device, card, time_it=True),
+            check_kernel("multizone_update", 3, z8, P_CNN, (z8, 0, 5), hp,
+                         device, card, time_it=False),
+            check_kernel("multizone_update", 2, 3, 100_003, (1, 3), hp,
+                         device, card, time_it=False)],
+        "fused_update": [
+            check_kernel("fused_update", 1, 1, P_CNN, (1,), hp, device, card,
+                         time_it=True),
+            check_kernel("fused_update", 1, 1, 100_003, (1,), hp, device,
+                         card, time_it=False)],
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -203,15 +310,60 @@ def make_trainer(model, data, hp, device, seed):
                           seed=seed, device=device)
 
 
-def phase_main_path(device) -> dict:
+def make_fleet(model, data, hp, device, seed, mode="simultaneous"):
+    from repro_torch.fl.fleet_trainer import FleetRWSADMMTrainer
+
+    return FleetRWSADMMTrainer(
+        model, data, hp, n_walkers=FLEET["n_walkers"],
+        sync_every=FLEET["sync_every"], fleet_mode=mode,
+        batch_size=MAIN["batch"], zone_size=MAIN["zone"],
+        solver="closed_form", seed=seed, device=device)
+
+
+def check_run(res, rounds: int, label: str) -> tuple[list, float]:
+    """Finite losses for every round, a finite personalized accuracy and
+    round metrics that follow the schema."""
+    from repro_torch.fl.base import validate_round_metrics
+
+    validate_round_metrics(res.round_metrics)
+    losses = [m["train_loss"] for m in res.round_metrics]
+    if len(losses) != rounds or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite or missing losses: "
+                             f"{losses}")
+    acc = res.final.get("acc_personalized")
+    if acc is None or not math.isfinite(acc):
+        raise AssertionError(f"{label}: no personalized accuracy: "
+                             f"{res.final}")
+    return losses, acc
+
+
+def drive(trainer, rounds: int, seed: int, expect: dict, label: str):
+    """One ``run_simulation`` of ``scan_fused`` with every launch count
+    set to 0 just before and read just after; the counts must equal
+    ``expect``."""
     import torch
 
-    from repro_torch.fl.base import validate_round_metrics
     from repro_torch.fl.simulation import run_simulation
-    from repro_torch.kernels.rwsadmm_update import ops
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    res = run_simulation(trainer, rounds=rounds, eval_every=rounds,
+                         seed=seed, engine="scan_fused")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if counts != expect:
+        raise AssertionError(f"{label}: kernel launches {counts}, expected "
+                             f"{expect}")
+    losses, acc = check_run(res, rounds, label)
+    return res, counts, peak, losses, acc
+
+
+def phase_main_path(device, model, data, hp) -> dict:
+    from repro_torch.fl.simulation import run_simulation
 
     seed = MAIN["seed"]
-    model, data, hp = build_main_path(device, seed)
     trainer = make_trainer(model, data, hp, device, seed)
     log(f"model: cnn (32, 32, 3) P = {trainer.layout.size:,} "
         f"({trainer.params_bytes() / 1e6:.2f} MB fp32)")
@@ -220,51 +372,125 @@ def phase_main_path(device) -> dict:
     run_simulation(make_trainer(model, data, hp, device, seed + 1),
                    rounds=3, eval_every=3, seed=seed + 1,
                    engine="scan_fused")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
     rounds = MAIN["rounds"]
-    ops.zone_fused_update.launches = 0
-    res = run_simulation(trainer, rounds=rounds, eval_every=rounds,
-                         seed=seed, engine="scan_fused")
-    torch.cuda.synchronize()
-    launches = ops.zone_fused_update.launches
-    peak = torch.cuda.max_memory_allocated()
-
-    validate_round_metrics(res.round_metrics)
-    losses = [m["train_loss"] for m in res.round_metrics]
-    if len(losses) != rounds or not all(math.isfinite(v) for v in losses):
-        raise AssertionError(f"non-finite or missing losses: {losses}")
-    acc = res.final.get("acc_personalized")
-    if acc is None or not math.isfinite(acc):
-        raise AssertionError(f"no personalized accuracy: {res.final}")
-    if launches != rounds:
-        raise AssertionError(f"zone kernel launched {launches} times in "
-                             f"{rounds} rounds")
+    res, counts, peak, losses, acc = drive(
+        trainer, rounds, seed,
+        {"zone_update": rounds, "multizone_update": 0, "fused_update": 0},
+        "single-walker path")
     log(f"main path: {rounds} rounds scan_fused in {res.wall_time_s:.3f} s "
         f"= {rounds / res.wall_time_s:.2f} rounds/s (one eval included), "
-        f"peak allocated {peak / 2**30:.3f} GiB, zone kernel launches "
-        f"{launches}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
-        f"acc_personalized {acc:.4f} ± "
-        f"{res.final['acc_personalized_std']:.4f}, acc_global "
+        f"peak allocated {peak / 2**30:.3f} GiB, kernel launches {counts}, "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, acc_personalized "
+        f"{acc:.4f} ± {res.final['acc_personalized_std']:.4f}, acc_global "
         f"{res.final['acc_global']:.4f}")
-    steady = time_steady_rounds(trainer)
-    compare_eager(model, data, hp, device)
-    return {"launches": launches, "rounds_per_s": rounds / res.wall_time_s,
+    steady = time_steady_rounds(trainer, "round")
+    compare_eager(lambda: make_trainer(model, data, hp, device, seed),
+                  MAIN["eager_rounds"],
+                  lambda s: {"x": s.clients.x, "z": s.clients.z,
+                             "y": s.server.y, "kappa": s.server.kappa},
+                  "rounds")
+    return {"launches": counts["zone_update"],
+            "rounds_per_s": rounds / res.wall_time_s,
             "peak_gib": peak / 2**30, "acc_personalized": acc, **steady}
 
 
-def time_steady_rounds(trainer) -> dict:
-    """Steady ms/round of each engine on a warm trainer (no schedule, no
-    eval inside the timed region; eager plans its rounds inside), the
-    evaluation's own time, and a profile of a few scan_fused rounds
-    (device busy share, top kernels)."""
-    import numpy as np
+def phase_fleet(device, model, data, hp) -> dict:
+    """The K = 3 simultaneous fleet on the full-width CNN, then a
+    round-robin fleet on the zone kernel."""
+    from repro_torch.fl.simulation import run_simulation
+
+    seed = MAIN["seed"]
+    k = FLEET["n_walkers"]
+    run_simulation(make_fleet(model, data, hp, device, seed + 1),
+                   rounds=3, eval_every=3, seed=seed + 1,
+                   engine="scan_fused")                  # warm-up
+    fleet = make_fleet(model, data, hp, device, seed)
+    steps = FLEET["wall_steps"]
+    res, counts, peak, losses, acc = drive(
+        fleet, steps, seed,
+        {"zone_update": 0, "multizone_update": steps, "fused_update": 0},
+        "fleet path")
+    zones = [m["zone"] for m in res.round_metrics]
+    log(f"fleet path: K={k} simultaneous, sync_every {FLEET['sync_every']}, "
+        f"{steps} wall steps scan_fused in {res.wall_time_s:.3f} s = "
+        f"{steps / res.wall_time_s:.2f} wall steps/s "
+        f"({sum(zones) / res.wall_time_s:.1f} client updates/s; one eval "
+        f"included), peak allocated {peak / 2**30:.3f} GiB, kernel launches "
+        f"{counts}, live slots per step {min(zones)}..{max(zones)} of "
+        f"{k * MAIN['zone']}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"acc_personalized {acc:.4f} ± "
+        f"{res.final['acc_personalized_std']:.4f}, acc_global "
+        f"{res.final['acc_global']:.4f}, fleet hitting time "
+        f"{fleet.fleet_hitting_time()}")
+    steady = time_steady_rounds(fleet, "wall step")
+    compare_eager(lambda: make_fleet(model, data, hp, device, seed),
+                  FLEET["eager_steps"],
+                  lambda s: {"x": s.base.clients.x, "z": s.base.clients.z,
+                             "tokens": s.tokens,
+                             "kappa": s.base.server.kappa},
+                  "wall steps")
+
+    rr = make_fleet(model, data, hp, device, seed, mode="roundrobin")
+    rounds = FLEET["rr_rounds"]
+    rr_res, rr_counts, _, rr_losses, rr_acc = drive(
+        rr, rounds, seed,
+        {"zone_update": rounds, "multizone_update": 0, "fused_update": 0},
+        "round-robin fleet")
+    log(f"round-robin fleet: K={k}, {rounds} rounds scan_fused in "
+        f"{rr_res.wall_time_s:.3f} s, kernel launches {rr_counts}, loss "
+        f"{rr_losses[0]:.4f} -> {rr_losses[-1]:.4f}, acc_personalized "
+        f"{rr_acc:.4f}")
+    return {"launches": counts["multizone_update"],
+            "wall_steps_per_s": steps / res.wall_time_s,
+            "client_updates_per_s": sum(zones) / res.wall_time_s,
+            "peak_gib": peak / 2**30, "acc_personalized": acc,
+            "rr_zone_launches": rr_counts["zone_update"], **steady}
+
+
+def phase_single_client(device, model, data, hp) -> int:
+    """One client's update through ``ops.fused_update`` at the CNN's
+    width: the client's gradient at its x on one minibatch, then x, z and
+    a token updated in one launch. Returns the launches counted."""
     import torch
 
     from repro_torch.kernels.rwsadmm_update import ops
+    from repro_torch.kernels.rwsadmm_update.ref import fused_update_ref
 
-    launches = ops.zone_fused_update.launches
+    trainer = make_trainer(model, data, hp, device, MAIN["seed"])
+    state = trainer.init_state(MAIN["seed"])
+    client = torch.tensor([3], device=device)
+    batch, keep = trainer.zone_batch_indices(client, seed=11)
+    _, grads = trainer.zone_loss_and_grad(state.clients.x[client], client,
+                                          batch, keep)
+    args = (state.clients.x[3], state.clients.z[3], state.server.y,
+            grads[0], state.server.kappa)
+    kw = dict(beta=hp.beta, eps_half=hp.eps_half,
+              n_total=float(trainer.n_clients))
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out = ops.fused_update(*args, **kw)
+    torch.cuda.synchronize()
+    launches = launch_counts()["fused_update"]
+    want = fused_update_ref(*args, **kw)
+    equal = all(torch.equal(a, b) for a, b in zip(out, want))
+    log(f"single-client op: fused_update on client 3 (N = "
+        f"{args[0].numel():,}): launches {launches}, equal to its plain "
+        f"version {equal}, finite {all(bool(t.isfinite().all()) for t in out)}")
+    if launches != 1 or not all(bool(t.isfinite().all()) for t in out):
+        raise AssertionError("fused_update did not run once to a finite "
+                             "result")
+    return launches
+
+
+def time_steady_rounds(trainer, unit: str) -> dict:
+    """Steady ms per round (per wall step for the simultaneous fleet) of
+    each engine on a warm trainer (no schedule, no eval inside the timed
+    region; eager plans its rounds inside), the evaluation's own time,
+    and a profile of a few scan_fused rounds (device busy share, top
+    kernels)."""
+    import numpy as np
+    import torch
+
     times: dict[str, list[float]] = {e: [] for e in ENGINES}
     n = 30
     for rep in range(3):          # engines in turn, so drift hits all alike
@@ -272,7 +498,7 @@ def time_steady_rounds(trainer) -> dict:
             rng = np.random.default_rng(rep)
             state = trainer.init_state(0)
             if engine == "eager":
-                trainer.round(state, 0, rng)        # plan + warm round 0
+                state, _ = trainer.round(state, 0, rng)   # plan + warm
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 for r in range(1, n + 1):
@@ -296,67 +522,93 @@ def time_steady_rounds(trainer) -> dict:
     sched = trainer.schedule(rounds, np.random.default_rng(2), start_round=1)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
+        start.record()
         trainer.run_chunk(state, sched, engine="scan_fused")
+        end.record()
         torch.cuda.synchronize()
-    ops.zone_fused_update.launches = launches
     # Kernel rows only (op rows would count the same device time twice).
-    kernels = {e.key: e.self_device_time_total / rounds / 1e3
-               for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0}
-    busy_ms = sum(kernels.values())
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    kernels = {e.key: e.self_device_time_total / rounds / 1e3 for e in rows}
+    out["kernel_ms_per_round"] = sum(kernels.values())
+    out["kernel_launches_per_round"] = sum(e.count for e in rows) / rounds
+    # Busy time is the union of the kernels' intervals: kernels on cuDNN's
+    # own streams may overlap, so their summed time can exceed the
+    # window. Its share is taken against the unprofiled steady round time
+    # above and against the profiled window's own elapsed time.
+    spans = [e for e in prof.events() if e.device_type == cuda]
+    busy_ms = union_ms([(e.time_range.start, e.time_range.end)
+                        for e in spans]) / 1e3 / rounds
+    out["kernel_streams"] = len({e.device_resource_id for e in spans})
     out["device_ms_per_round"] = busy_ms
-    # Busy share against the unprofiled steady round time above.
     out["busy_share"] = busy_ms / out["scan_fused_round_ms"]
+    out["profiled_round_ms"] = start.elapsed_time(end) / rounds
+    out["busy_share_profiled"] = busy_ms / out["profiled_round_ms"]
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log("steady ms/round (median of 3 runs of 30 rounds; runs): " + ", ".join(
+    log(f"steady ms/{unit} (median of 3 runs of {n}; runs): " + ", ".join(
         f"{e} {out[e + '_round_ms']:.3f} "
         f"({' '.join(f'{t:.3f}' for t in out[e + '_round_ms_runs'])})"
         for e in ENGINES)
         + f"; evaluate over {trainer.n_clients} clients {out['eval_s']:.3f} s")
-    log(f"profile: scan_fused kernels take {busy_ms:.3f} device ms per "
-        f"round over {len(kernels)} kernel names, busy share "
-        f"{out['busy_share']:.3f} of the {out['scan_fused_round_ms']:.3f} ms "
-        f"steady round; top (ms/round): "
+    log(f"profile: scan_fused kernels take {out['kernel_ms_per_round']:.3f} "
+        f"device ms per {unit} in {out['kernel_launches_per_round']:.1f} "
+        f"launches over {len(kernels)} kernel names on "
+        f"{out['kernel_streams']} stream(s); the device is busy "
+        f"{busy_ms:.3f} ms per {unit}, busy share {out['busy_share']:.3f} "
+        f"of the {out['scan_fused_round_ms']:.3f} ms steady {unit} and "
+        f"{out['busy_share_profiled']:.3f} of the profiled window's "
+        f"{out['profiled_round_ms']:.3f} ms per {unit}; top (ms/{unit}): "
         + "; ".join(f"{k[:70]} {v:.4f}" for k, v in top))
     return out
 
 
-def compare_eager(model, data, hp, device) -> None:
+def union_ms(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, reach = 0.0, -math.inf
+    for start, end in sorted(spans):
+        if end > reach:
+            total += end - max(start, reach)
+            reach = end
+    return total
+
+
+def compare_eager(make, steps: int, leaves, unit: str) -> None:
     """A few eager rounds (plain update) against scan_fused (kernel) from
-    the same seed and weights."""
+    the same seed and weights; ``leaves`` names the state's tensors."""
     import numpy as np
     import torch
 
-    from repro_torch.kernels.rwsadmm_update import ops
-
-    k = MAIN["eager_rounds"]
     seed = MAIN["seed"]
-    eager = make_trainer(model, data, hp, device, seed)
+    eager = make()
     rng = np.random.default_rng(seed)
     s_e = eager.init_state(seed)
-    for r in range(k):
+    for r in range(steps):
         s_e, _ = eager.round(s_e, r, rng)
-    fused = make_trainer(model, data, hp, device, seed)
+    fused = make()
     rng = np.random.default_rng(seed)
-    s_f = fused.init_state(seed)
-    launches = ops.zone_fused_update.launches
-    s_f, _ = fused.run_chunk(s_f, fused.schedule(k, rng), "scan_fused")
-    ops.zone_fused_update.launches = launches
+    s_f, _ = fused.run_chunk(fused.init_state(seed),
+                             fused.schedule(steps, rng), "scan_fused")
     torch.cuda.synchronize()
-    diff = {"x": float((s_e.clients.x - s_f.clients.x).abs().max()),
-            "z": float((s_e.clients.z - s_f.clients.z).abs().max()),
-            "y": float((s_e.server.y - s_f.server.y).abs().max()),
-            "kappa": float((s_e.server.kappa - s_f.server.kappa).abs())}
-    log(f"eager vs scan_fused after {k} rounds: max_abs_diff {diff} "
+    a, b = leaves(s_e), leaves(s_f)
+    diff = {k: float((a[k] - b[k]).abs().max()) for k in a}
+    log(f"eager vs scan_fused after {steps} {unit}: max_abs_diff {diff} "
         f"(atol {EAGER_ATOL})")
     if not all(v <= EAGER_ATOL for v in diff.values()):
         raise AssertionError(f"eager and scan_fused disagree: {diff}")
 
 
 # ---------------------------------------------------------------------------
+SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
+REPLACES = {"zone_update": "src/repro/kernels/rwsadmm_update/kernel.py:176",
+            "multizone_update":
+                "src/repro/kernels/rwsadmm_update/kernel.py:147",
+            "fused_update": "src/repro/kernels/rwsadmm_update/kernel.py:51"}
+
+
 def main() -> int:
     import torch
 
@@ -365,7 +617,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.kernels.rwsadmm_update import ops
+    from repro_torch.kernels.rwsadmm_update import ops  # noqa: F401
 
     device = torch.device("cuda")
     name = torch.cuda.get_device_name(0)
@@ -376,39 +628,30 @@ def main() -> int:
         f"{torch.version.cuda} | TF32 off")
 
     phase_build()
+    model, data, hp = build_main_path(device, MAIN["seed"])
+    rows = phase_kernels(hp, device, name)
+    main = phase_main_path(device, model, data, hp)
+    fleet = phase_fleet(device, model, data, hp)
+    single = phase_single_client(device, model, data, hp)
 
-    from repro_torch.core.rwsadmm import RWSADMMHparams
-
-    hp = RWSADMMHparams(beta=100.0)   # the main path's (phase_main_path)
-    p_cnn = 1_068_266
-    main_row = check_zone_kernel(MAIN["zone"], p_cnn, MAIN["zone"], hp,
-                                 device, name, time_it=True)
-    others = [check_zone_kernel(MAIN["zone"], p_cnn, 6, hp, device, name,
-                                time_it=False),
-              check_zone_kernel(3, 100_003, 2, hp, device, name,
-                                time_it=False)]
-
-    main = phase_main_path(device)
-
-    kernels = [{
-        "name": "zone_update",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu",
-        "replaces": "src/repro/kernels/rwsadmm_update/kernel.py:176",
-        "launches": main["launches"],
-        "max_abs_err": max(max(r["err"].values())
-                           for r in [main_row] + others),
-        "ms": main_row["ms"],
-        "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"],
-        "bound_by": main_row["bound_by"],
-        "library_ms": None,
-        "share_of_bound": main_row["share_of_bound"],
-        "sign_flips": sum(r["sign_flips"] for r in [main_row] + others),
-        "shape": main_row["shape"],
-    }]
+    launches = {"zone_update": main["launches"],
+                "multizone_update": fleet["launches"],
+                "fused_update": single}
+    kernels = []
+    for kernel, checks in rows.items():
+        timed = checks[0]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": SOURCE,
+            "replaces": REPLACES[kernel], "launches": launches[kernel],
+            "max_abs_err": max(max(r["err"].values()) for r in checks),
+            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+            "library_ms": None, "share_of_bound": timed["share_of_bound"],
+            "sign_flips": sum(r["sign_flips"] for r in checks),
+            "shape": timed["shape"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"main_path": main}))
+    log(json.dumps({"fleet_path": fleet}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -7,6 +7,10 @@ and the RWSADMM state holds them flat in ``core/tree.py`` layout order.
 These helpers take any array-likes (numpy, or the reference's arrays via
 ``np.asarray``) and return numpy on the way back, so neither package has
 to import the other.
+
+The walker fleet uses them unchanged: it starts from the same flat
+``(P,)`` params (``FleetRWSADMMTrainer.init_state(params=...)``), and its
+``(K, P)`` token stack is that vector repeated per walker.
 """
 from __future__ import annotations
 

@@ -180,3 +180,155 @@ def zone_schedule(dyn_graph, walker: RandomWalkServer, rounds: int,
         graphs, positions, zone_size, rng)
     return ZoneSchedule(idx=idx, mask=mask, n_i=n_i, keys=seeds,
                         clients=positions.astype(np.int32), active=active)
+
+
+# ---------------------------------------------------------------------------
+# Fleet schedules: K mobile servers in one precomputed window. Round-robin
+# mode serves one walker's zone per round (the walkers take turns);
+# simultaneous mode moves all K walkers every wall step and serves K
+# disjoint zones at once.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetZoneSchedule(ZoneSchedule):
+    """R precomputed fleet rounds (see :class:`ZoneSchedule`).
+
+    Round-robin mode keeps the base-class shapes and adds:
+
+    walker: (R,) int32 — the active walker per round, or None.
+    sync:   (R,) float32 — 1.0 where a rendezvous (token averaging)
+            follows the round, 0.0 otherwise.
+
+    Simultaneous mode gains a walker axis: idx/mask are (R, K, Z) and
+    clients/n_i/active are (R, K).
+    """
+
+    walker: np.ndarray | None = None
+    sync: np.ndarray | None = None
+    mode: str = "roundrobin"
+
+    @property
+    def zone_size(self) -> int:
+        return int(self.idx.shape[-1])
+
+
+def plan_fleet_zone_round(graph: ClientGraph, positions: np.ndarray,
+                          zone_size: int, rng: np.random.Generator
+                          ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """K zone plans for one simultaneous wall step: (idx (K, Z), mask
+    (K, Z), n_i (K,)).
+
+    Walkers plan in index order and a client claimed by an earlier walker
+    is left out of later walkers' zones (lowest walker index wins), so
+    the K zones are pairwise disjoint and the round's scatter-add has no
+    duplicate live ids. A walker whose own position was already claimed
+    serves whatever unclaimed neighbors remain, possibly none: an
+    all-padding row, the walker idles."""
+    k_walkers = len(positions)
+    idx = np.zeros((k_walkers, zone_size), np.int32)
+    mask = np.zeros((k_walkers, zone_size), np.float32)
+    n_i = np.zeros((k_walkers,), np.float32)
+    taken = np.zeros(graph.n, dtype=bool)
+    for k, i_k in enumerate(positions):
+        i_k = int(i_k)
+        zone = graph.neighborhood(i_k)
+        zone = zone[~taken[zone]]
+        n_i[k] = len(zone)
+        if len(zone) > zone_size:
+            if taken[i_k]:
+                active = rng.choice(zone, size=zone_size, replace=False)
+            else:
+                others = zone[zone != i_k]
+                pick = rng.choice(others, size=zone_size - 1, replace=False)
+                active = np.concatenate([[i_k], pick])
+        else:
+            active = zone
+        mask[k, : len(active)] = 1.0
+        idx[k, : len(active)] = active
+        taken[active] = True
+    return idx, mask, n_i
+
+
+def fleet_zone_schedule(dyn_graph, walkers: Sequence[RandomWalkServer],
+                        rounds: int, zone_size: int,
+                        rng: np.random.Generator, *, start_round: int = 0,
+                        sync_every: int = 20, mode: str = "roundrobin"
+                        ) -> FleetZoneSchedule:
+    """Precompute ``rounds`` fleet rounds: active walker, per-walker walk
+    positions, zone plan(s), rendezvous (sync) mask and seeds. Consumes
+    ``dyn_graph``, each walker's RNG and the shared ``rng`` exactly as
+    the eager fleet rounds would, so chunks compose.
+
+    Round-robin: walker ``(start_round + r) % K`` serves round r; for the
+    first K rounds of a run the graph holds still and nobody moves
+    (every vehicle starts parked at a client), then the graph advances
+    per round and the active walker steps.
+
+    Simultaneous: every walker moves every wall step and
+    :func:`plan_fleet_zone_round` forms K disjoint zones per round."""
+    k_walkers = len(walkers)
+    if mode == "roundrobin":
+        lead = min(max(k_walkers - start_round, 0), rounds)
+    elif mode == "simultaneous":
+        lead = 1 if start_round == 0 else 0
+    else:
+        raise ValueError(
+            f"mode must be roundrobin|simultaneous, got {mode!r}")
+    parked_graphs = [dyn_graph.current()] * lead   # before it advances
+    stepped = (dyn_graph.schedule(rounds - lead, include_current=False)
+               if rounds > lead else [])
+    graphs = parked_graphs + stepped
+    sync = _sync_mask(start_round, rounds, sync_every)
+
+    if mode == "roundrobin":
+        active_walker = ((start_round + np.arange(rounds))
+                         % k_walkers).astype(np.int32)
+        positions = np.empty((rounds,), np.int64)
+        for k, w in enumerate(walkers):
+            # Each walker's RNG is its own, so grouping the rounds by
+            # walker replays the per-round order exactly.
+            mine = np.flatnonzero(active_walker == k)
+            parked = mine[mine < lead]
+            if len(parked):
+                assert w.position is not None, "call reset() first"
+                positions[parked] = w.position
+            moving = mine[mine >= lead]
+            if len(moving):
+                positions[moving] = w.walk_schedule(
+                    [graphs[r] for r in moving], advance_first=True)
+        idx, mask, n_i, seeds, active = _plan_rounds(
+            graphs, positions, zone_size, rng)
+        return FleetZoneSchedule(
+            idx=idx, mask=mask, n_i=n_i, keys=seeds,
+            clients=positions.astype(np.int32), active=active,
+            walker=active_walker, sync=sync, mode=mode)
+
+    positions = np.empty((rounds, k_walkers), np.int64)
+    for k, w in enumerate(walkers):
+        if lead:
+            assert w.position is not None, "call reset() first"
+            positions[0, k] = w.position
+        if rounds > lead:
+            positions[lead:, k] = w.walk_schedule(stepped,
+                                                  advance_first=True)
+    z = zone_size
+    idx = np.zeros((rounds, k_walkers, z), np.int32)
+    mask = np.zeros((rounds, k_walkers, z), np.float32)
+    n_i = np.zeros((rounds, k_walkers), np.float32)
+    seeds = np.zeros((rounds,), np.int64)
+    for r in range(rounds):
+        idx[r], mask[r], n_i[r] = plan_fleet_zone_round(
+            graphs[r], positions[r], z, rng)
+        seeds[r] = round_key_seed(rng)
+    return FleetZoneSchedule(
+        idx=idx, mask=mask, n_i=n_i, keys=seeds,
+        clients=positions.astype(np.int32),
+        active=mask.sum(axis=2).astype(np.int32), sync=sync, mode=mode)
+
+
+def _sync_mask(start_round: int, rounds: int, sync_every: int) -> np.ndarray:
+    """(R,) float32 rendezvous mask: 1.0 after rounds where
+    ``(rnd + 1) % sync_every == 0``, the eager fleet's trigger."""
+    rs = start_round + np.arange(rounds)
+    return ((rs + 1) % max(int(sync_every), 1) == 0).astype(np.float32)

@@ -143,6 +143,23 @@ def zone_round_masked(clients: ClientState, y_prev, grads, mask,
     return ClientState(x=keep_x, z=keep_z), y_new
 
 
+def multizone_round_masked(clients: ClientState, ys, grads, mask,
+                           hp: RWSADMMHparams, kappa, n_total):
+    """K simultaneous zone rounds (fleet mode): :func:`zone_round_masked`
+    over a leading walker axis. ``clients``/``grads`` are ``(K, Z, P)``,
+    ``ys`` the ``(K, P)`` token stack, ``mask`` ``(K, Z)``. Each walker
+    folds only its own zone into its own token; the caller keeps the K
+    zones disjoint (``markov.plan_fleet_zone_round``). The plain oracle
+    of ``ops.multizone_fused_update``."""
+    new, c_new, c_old = client_round(clients, ys.unsqueeze(1), grads, hp,
+                                     kappa)
+    m = mask.unsqueeze(-1)
+    keep_x = m * new.x + (1.0 - m) * clients.x
+    keep_z = m * new.z + (1.0 - m) * clients.z
+    y_new = ys + torch.sum(m * (c_new - c_old), dim=1) / n_total
+    return ClientState(x=keep_x, z=keep_z), y_new
+
+
 def server_round_done(server: ServerState, y_new,
                       hp: RWSADMMHparams) -> ServerState:
     """Advance the server token: store y, decay κ (Algorithm 1)."""

@@ -30,8 +30,8 @@ REQUIRED_ROUND_KEYS = ("round", "comm_bytes")
 #: canonical host-side types of the known metric keys (bool is not an int)
 ROUND_METRIC_TYPES: dict[str, type] = {
     "round": int, "comm_bytes": int, "client": int, "zone": int,
-    "n_i": int, "staleness_max": int, "train_loss": float, "kappa": float,
-    "staleness_p50": float,
+    "n_i": int, "walker": int, "staleness_max": int, "train_loss": float,
+    "kappa": float, "staleness_p50": float, "clients": tuple,
 }
 
 

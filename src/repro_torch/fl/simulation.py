@@ -11,6 +11,9 @@ communication totals and wall time.
 Both engines emit ``round_metrics`` under one schema
 (``fl.base.normalize_round_metrics`` / ``validate_round_metrics``).
 The trainer fixes the device (cuda unless it was built for the CPU).
+A ``FleetRWSADMMTrainer`` runs through the same calls: its own
+``round``/``schedule``/``run_chunk``/``chunk_round_metrics`` carry the
+walker axis, and ``evaluate`` sees the fleet-mean token.
 """
 from __future__ import annotations
 
