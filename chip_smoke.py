@@ -6,12 +6,16 @@ Phases (each prints its own lines; any failure exits non-zero):
 
 1. device — needs CUDA; prints the card's name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions.
-2. build — builds the kernels from ``src/repro_torch`` with ``nvcc`` (one
-   source, one shared library, three kernels).
-3. kernels — holds each kernel (``zone_update``, ``multizone_update``,
-   ``fused_update``) against its plain PyTorch version on the card at the
-   paths' shapes, padded slots and an idle walker included, and times
-   both beside the bound.
+2. build — builds the kernels from ``src/repro_torch`` with ``nvcc``, one
+   process per source, all at once (three sources, five kernels), and
+   prints ptxas's registers and spills for the model-zoo kernels.
+3. kernels — holds each kernel against its plain PyTorch version on the
+   card at the paths' shapes and at odd ones, and times both beside the
+   bound: ``zone_update``, ``multizone_update``, ``fused_update`` (padded
+   slots and an idle walker included), ``rglru_scan`` (bit for bit) and
+   ``flash_decode`` (fp32 at 1e-5, bf16 at atol 1e-3 + rtol 1e-2; lengths
+   below S, a window, and one ``scaled_dot_product_attention`` call timed
+   as the yardstick).
 4. single-walker path — RWSADMM through ``run_simulation`` on the
    paper's CIFAR-10 CNN at full width (P = 1,068,266), n = 100 clients,
    zone 8, batch 20, ``closed_form`` + ``engine="scan_fused"``; checks
@@ -25,6 +29,14 @@ Phases (each prints its own lines; any failure exits non-zero):
    launch the zone kernel.
 6. single-client op — one client's update through ``ops.fused_update``
    at the CNN's width, launched once.
+7. serve path — RecurrentGemma-9B at full width (bf16, seeded random
+   weights) through ``launch/serve.py``: prefill 4 × 2040 tokens (one
+   ``rglru_scan`` launch per RG-LRU layer, 26) and 15 greedy decode steps
+   (one ``flash_decode`` launch per local layer and step, 180; the rings
+   wrap at step 8); then the decode logits against a teacher-forced
+   ``apply`` over the same 2056 tokens, a profiled prefill and decode
+   step, and the same generation and check in fp32, where the bound is
+   tight enough to fail a fault in the ring.
 
 Ends with a ``{"kernels": [...]}`` line, the paths' summaries, the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. Imports
@@ -98,11 +110,14 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def _wrappers():
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
     from repro_torch.kernels.rwsadmm_update import ops
 
     return {"zone_update": ops.zone_fused_update,
             "multizone_update": ops.multizone_fused_update,
-            "fused_update": ops.fused_update}
+            "fused_update": ops.fused_update,
+            "rglru_scan": rglru_scan, "flash_decode": flash_decode}
 
 
 def launch_counts() -> dict:
@@ -115,15 +130,26 @@ def zero_launch_counts() -> None:
 
 
 # ---------------------------------------------------------------------------
-def phase_build() -> Path:
-    """Build the one kernel source (all three kernels) with nvcc."""
-    from repro_torch.kernels.rwsadmm_update import ops
+def phase_build() -> list[Path]:
+    """Build every kernel source with nvcc, one process per source, all
+    started together; print what ptxas says of the kernels that ask it."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.rglru_scan import ops as rg_ops
+    from repro_torch.kernels.rwsadmm_update import ops as rw_ops
 
     t0 = time.perf_counter()
-    lib = ops.build()
-    log(f"build: 3 kernels from 1 source in {time.perf_counter() - t0:.2f} s "
-        f"({lib.name})")
-    return lib
+    with ThreadPoolExecutor(3) as pool:
+        libs = list(pool.map(lambda ops: ops.build(),
+                             (rw_ops, rg_ops, fd_ops)))
+    log(f"build: 5 kernels from 3 sources in "
+        f"{time.perf_counter() - t0:.2f} s ({', '.join(l.name for l in libs)})")
+    for lib in libs:
+        for line in Path(f"{lib}.log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {lib.name.split('-')[0]}: {line.strip()}")
+    return libs
 
 
 def update_inputs(walkers: int, zone: int, n: int, live, seed: int, device):
@@ -159,7 +185,8 @@ def agreement(x, z, y, mask, got, want) -> dict:
             & live).any(dim=1)                             # (K, N)
     pad = ~live.expand_as(x)
     idle = mask.sum(dim=1) == 0
-    row = {"err": err, "sign_flips": int(flip.sum()),
+    row = {"err": err, "max_abs_err": max(err.values()),
+           "sign_flips": int(flip.sum()),
            "padded_slots_exact": bool(torch.equal(xk[pad], x[pad])
                                       and torch.equal(zk[pad], z[pad])),
            "idle_walkers": int(idle.sum()),
@@ -345,6 +372,7 @@ def drive(trainer, rounds: int, seed: int, expect: dict, label: str):
 
     from repro_torch.fl.simulation import run_simulation
 
+    expect = {name: expect.get(name, 0) for name in _wrappers()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
@@ -602,11 +630,386 @@ def compare_eager(make, steps: int, leaves, unit: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
+# RecurrentGemma-9B serving (the model zoo's slice): its two kernels and
+# the full-width path.
+LM_ARCH = "recurrentgemma-9b"
+SERVE = dict(batch=4, prompt=2040, gen=16, seed=0)
+# Flash decode vs its plain masked softmax, as (atol, rtol). Both compute
+# in fp32 and differ only in the order of the sums (~1e-6 relative), then
+# round the output to the inputs' type. fp32: the reference's 1e-5
+# (tests/test_kernels.py). bf16: the two fp32 results may round one bf16
+# ulp apart (at most 2^-7 of the value), so rtol 1e-2, and atol 1e-3 for
+# outputs near zero. At the serving shape the outputs have an RMS of
+# ~0.036 (softmax over 2048 N(0, 1) scores) and the kernel reads
+# ~2.4e-4; a dropped 128-key block moves them by ~1e-2. One key more or
+# fewer moves them by ~1e-3, which the fp32 rows at 1e-5 catch.
+FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 1e-2)}
+# Decode logits vs a teacher-forced ``apply`` over the same 2056 tokens,
+# relative RMS error per position. In bf16 the two paths round the same
+# math at different places (cuBLAS tiles a 1-token product otherwise than
+# a 2040-token one, the flash kernel sums in another order than the
+# chunked softmax), and those ulps (2^-8 relative) compound over 38
+# layers: the H100 reads 1.42-1.64e-2. 5e-2 leaves 3x room over that; it
+# fails arithmetic in a coarser type or a fault of order one, but not a
+# fault in the ring: with random weights the attention spreads over ~2048
+# keys, so a key more, fewer or stale, or a RoPE position one too far,
+# read 1.66-1.90e-2 on the H100 (tests/test_torch_teacher_probe.py). The
+# fp32 pass holds the ring: there the paths agree to float rounding
+# (3.5e-6 on the H100), and those four faults read 2.7e-4 (one key too
+# many before the wrap) to 7.8e-3; 1e-4 lies between.
+TEACHER_REL_RMS = {"bfloat16": 5e-2, "float32": 1e-4}
+
+
+def _rel_rms(got, want) -> float:
+    return float((got.float() - want.float()).norm() / want.float().norm())
+
+
+def lm_kernel_bound(nbytes: int, flops: int, card: str) -> dict:
+    rate, rate_src = hbm_rate(card)
+    bytes_ms = nbytes / rate * 1e3
+    ops_ms = flops / FP32_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(bytes_ms, ops_ms), bytes=nbytes,
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                bound_rate=rate_src)
+
+
+def check_rglru_scan(shape, device, card: str, time_it: bool) -> dict:
+    """The scan kernel against its plain loop: bit for bit."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
+
+    gen = torch.Generator(device=device).manual_seed(sum(shape))
+    a = torch.sigmoid(torch.randn(shape, generator=gen, device=device))
+    b = torch.randn(shape, generator=gen, device=device)
+    got = rglru_scan(a, b)
+    torch.cuda.synchronize()
+    want = rglru_scan_ref(a, b)
+    row = {"shape": "B={} S={} D={}".format(*shape),
+           "max_abs_err": float((got - want).abs().max()),
+           "bitwise": bool(torch.equal(got, want))}
+    if time_it:
+        bsz, s, d = shape
+        row["ms"] = cuda_time_ms(lambda: rglru_scan(a, b), 20)
+        row["plain_ms"] = cuda_time_ms(lambda: rglru_scan_ref(a, b), 2,
+                                       warmup=1)
+        # Read a and b, write h, fp32; a multiply and an add per element.
+        row.update(lm_kernel_bound(3 * bsz * s * d * 4, 2 * bsz * s * d,
+                                   card))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"kernel rglru_scan {row['shape']}: max_abs_err "
+        f"{row['max_abs_err']} bitwise {row['bitwise']}"
+        + (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} bound_ms "
+           f"{row['bound_ms']:.4f} ({row['bound_by']}, {row['bound_rate']}) "
+           f"share {row['share_of_bound']:.3f} library none"
+           if time_it else ""))
+    if not row["bitwise"]:
+        raise AssertionError(f"rglru_scan differs from its plain loop: {row}")
+    return row
+
+
+def check_flash_decode(b, h, kv, hd, s, lengths, window, dtype: str, device,
+                       card: str, time_it: bool) -> dict:
+    """The flash-decode kernel against the plain masked softmax; timed
+    beside its bound and one SDPA call on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode.ops import flash_decode
+    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+
+    tdt = getattr(torch, dtype)
+    gen = torch.Generator(device=device).manual_seed(b * s + h + hd)
+    q = torch.randn(b, h, hd, generator=gen, device=device).to(tdt)
+    k, v = (torch.randn(b, s, kv, hd, generator=gen, device=device).to(tdt)
+            for _ in range(2))
+    length = torch.tensor(lengths, dtype=torch.int32, device=device)
+    got = flash_decode(q, k, v, length, window=window)
+    torch.cuda.synchronize()
+    want = flash_decode_ref(q, k, v, length, window=window)
+    atol, rtol = FLASH_TOL[dtype]
+    row = {"shape": f"B={b} H={h} K={kv} hd={hd} S={s} length={lengths} "
+                    f"window={window} {dtype}",
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "atol": atol, "rtol": rtol,
+           "ok": bool(torch.allclose(got.float(), want.float(), atol=atol,
+                                     rtol=rtol))}
+    if time_it:
+        row["ms"] = cuda_time_ms(
+            lambda: flash_decode(q, k, v, length, window=window), 200)
+        row["plain_ms"] = cuda_time_ms(
+            lambda: flash_decode_ref(q, k, v, length, window=window), 20)
+        # SDPA with GQA and the same length mask: the yardstick only.
+        pos = torch.arange(s, device=device)
+        valid = pos[None] < length[:, None]
+        if window is not None:
+            valid &= pos[None] >= length[:, None] - window
+        mask = valid[:, None, None, :]
+        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  enable_gqa=True)
+        row["library_ms"] = cuda_time_ms(sdpa, 200)
+        row["library_max_abs_err"] = float(
+            (sdpa()[:, :, 0].float() - want.float()).abs().max())
+        # The valid keys' K and V rows, q and the output, read or written
+        # once; QK and PV are two multiply-adds per element.
+        n_valid = int(valid.sum())
+        elem = q.element_size()
+        row.update(lm_kernel_bound(
+            2 * n_valid * kv * hd * elem + 2 * b * h * hd * elem,
+            4 * n_valid * (h // kv) * kv * hd, card))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"kernel flash_decode {row['shape']}: max_abs_err "
+        f"{row['max_abs_err']:.3g} (atol {atol}, rtol {rtol})"
+        + (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} sdpa_ms "
+           f"{row['library_ms']:.4f} (max_abs_err "
+           f"{row['library_max_abs_err']:.3g}) bound_ms "
+           f"{row['bound_ms']:.5f} ({row['bound_by']}, {row['bound_rate']}) "
+           f"share {row['share_of_bound']:.3f}" if time_it else ""))
+    if not row["ok"]:
+        raise AssertionError(f"flash_decode disagrees with its plain "
+                             f"version: {row}")
+    return row
+
+
+def phase_lm_kernels(device, card: str) -> dict:
+    """Both model-zoo kernels at the serving path's shapes (timed first
+    rows) and at odd ones: S and D tails, G = 7, a short hd, lengths
+    below S, a window."""
+    full_len = [2048] * 4
+    return {
+        "rglru_scan": [
+            check_rglru_scan((4, 2040, 4096), device, card, time_it=True),
+            check_rglru_scan((2, 1000, 130), device, card, time_it=False)],
+        "flash_decode": [
+            check_flash_decode(4, 16, 1, 256, 2048, full_len, None,
+                               "bfloat16", device, card, time_it=True),
+            check_flash_decode(4, 16, 1, 256, 2048, [2048, 2041, 1000, 1],
+                               None, "bfloat16", device, card, False),
+            check_flash_decode(4, 16, 1, 256, 2048, full_len, None,
+                               "float32", device, card, False),
+            check_flash_decode(4, 16, 1, 256, 2048, [2048, 2041, 1000, 1],
+                               None, "float32", device, card, False),
+            check_flash_decode(2, 7, 1, 32, 1000, [1000, 611], 300,
+                               "bfloat16", device, card, False),
+            check_flash_decode(2, 7, 1, 32, 1000, [999, 130], None,
+                               "float32", device, card, False),
+            check_flash_decode(3, 8, 2, 64, 1000, [1000, 513, 77], 128,
+                               "float32", device, card, False)],
+    }
+
+
+def phase_serve(device) -> dict:
+    """RecurrentGemma-9B at full width, bf16, seeded random weights:
+    prefill 4 × 2040 tokens and 15 greedy decode steps through
+    ``launch/serve.py``, the local rings wrapping at decode step 8; then
+    the decode logits against a teacher-forced ``apply``, a profile, and
+    the generation and check again in fp32."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model, random_batch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = serve.load_model(LM_ARCH, device=device, seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    kinds = [blk.kind for blk in model.layers]
+    log(f"serve: {LM_ARCH} {cfg.n_layers} layers ({kinds.count('rglru')} "
+        f"rglru, {kinds.count('local')} local), d {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {n_params:,} params ({cfg.param_count():,} by "
+        f"param_count), {cfg.dtype}, init {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    bsz, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    max_len = prompt + gen
+    batch = random_batch(cfg, bsz, prompt, seed=SERVE["seed"], device=device)
+    # Warm-up (cuBLAS handles and plans, the allocator), uncounted.
+    for _ in serve.generate(model, {"tokens": batch["tokens"][:, :64]}, 2,
+                            66):
+        pass
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    steps = serve.generate(model, batch, gen, max_len)
+    first = next(steps)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = launch_counts()
+    rest = list(steps)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_rglru, n_local = kinds.count("rglru"), kinds.count("local")
+    want_prefill = {n: 0 for n in _wrappers()} | {"rglru_scan": n_rglru}
+    want_total = want_prefill | {"flash_decode": n_local * (gen - 1)}
+    log(f"serve: prefill {bsz}x{prompt} in {t_prefill * 1e3:.1f} ms, "
+        f"{gen - 1} decode steps in {(t_total - t_prefill) * 1e3:.1f} ms "
+        f"({(t_total - t_prefill) / (gen - 1) * 1e3:.2f} ms per step), "
+        f"{bsz * gen / t_total:.1f} tok/s over the whole call, peak "
+        f"allocated {peak / 2**30:.2f} GiB, launches after prefill "
+        f"{after_prefill}, after decode {counts}")
+    if after_prefill != want_prefill or counts != want_total:
+        raise AssertionError(f"serve launches: after prefill {after_prefill} "
+                             f"(want {want_prefill}), after decode {counts} "
+                             f"(want {want_total})")
+    ids = torch.cat([first[0]] + [tok for tok, _ in rest], dim=1)
+    logits = torch.stack([first[1]] + [lg for _, lg in rest], dim=1)
+    if tuple(ids.shape) != (bsz, gen) or not bool(logits.isfinite().all()):
+        raise AssertionError(f"serve: ids {tuple(ids.shape)}, finite logits "
+                             f"{bool(logits.isfinite().all())}")
+
+    teacher = teacher_forced_errors(model, batch["tokens"], ids, logits)
+    del logits
+    row = {"prefill_ms": t_prefill * 1e3,
+           "decode_ms_per_step": (t_total - t_prefill) / (gen - 1) * 1e3,
+           "tok_per_s": bsz * gen / t_total, "peak_gib": peak / 2**30,
+           "launches": {"rglru_scan": counts["rglru_scan"],
+                        "flash_decode": counts["flash_decode"]},
+           "ids_row0": ids[0].tolist(),
+           "teacher": {cfg.dtype: teacher}}
+    log(f"serve: ids row 0 {row['ids_row0']}")
+    hold_teacher(teacher, cfg.dtype, prompt + gen)
+
+    # Where a step's time goes: one profiled prefill, then three profiled
+    # decode steps after a warm one (uncounted: launch counts are read
+    # above).
+    prefill = make_prefill_step(model, max_len)
+    step = make_serve_step(model)
+    tok, _, cache = prefill(batch)
+    tok, _, cache = step(cache, tok)
+    for label, fn, reps in (
+            ("prefill", lambda: prefill(batch), 1),
+            ("decode step", lambda: step(cache, tok), 3)):
+        row[label.replace(" ", "_") + "_profile"] = profile_breakdown(
+            fn, reps, label)
+
+    # The same path in fp32 (seeded weights of its own): decode and the
+    # teacher-forced apply agree to float rounding there, so this pass
+    # holds the ring's slots and lengths at full width.
+    del prefill, step, tok, cache, fn, model
+    torch.cuda.empty_cache()
+    model = build_model(dataclasses.replace(cfg, dtype="float32"),
+                        device=device).init(SERVE["seed"])
+    ids, logits = greedy(model, batch, gen, max_len)
+    row["teacher"]["float32"] = teacher = teacher_forced_errors(
+        model, batch["tokens"], ids, logits)
+    hold_teacher(teacher, "float32", prompt + gen)
+    return row
+
+
+def greedy(model, batch, gen: int, max_len: int):
+    """``launch/serve.py``'s ``generate``: ids (B, gen) and their logits
+    (B, gen, vocab)."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    ids, logits = zip(*serve.generate(model, batch, gen, max_len))
+    return torch.cat(ids, 1), torch.stack(logits, 1)
+
+
+def teacher_forced_errors(model, prompt, ids, logits) -> dict:
+    """Decode logits (B, gen, vocab) of the ids (B, gen) that followed
+    ``prompt`` (B, T) against one teacher-forced ``apply`` over
+    prompt + ids: the relative RMS error at each position, the largest
+    absolute error, the logits' RMS and the share of equal argmaxes."""
+    import torch
+
+    t, gen = prompt.shape[1], ids.shape[1]
+    with torch.no_grad():
+        full = model.apply({"tokens": torch.cat([prompt, ids], 1)})
+    forced = full[:, t - 1:t - 1 + gen].clone()
+    del full
+    per_pos = [_rel_rms(logits[:, j], forced[:, j]) for j in range(gen)]
+    return {"rel_rms": per_pos, "rel_rms_max": max(per_pos),
+            "max_abs": float((logits - forced).abs().max()),
+            "logit_rms": float(forced.pow(2).mean().sqrt()),
+            "argmax_agree": float((logits.argmax(-1) == forced.argmax(-1))
+                                  .float().mean())}
+
+
+def hold_teacher(teacher: dict, dtype: str, tokens: int) -> None:
+    bound = TEACHER_REL_RMS[dtype]
+    log(f"serve {dtype}: decode vs teacher-forced apply over {tokens} "
+        f"tokens: relative RMS error per position "
+        f"{' '.join(f'{e:.2e}' for e in teacher['rel_rms'])} (bound "
+        f"{bound}), max abs {teacher['max_abs']:.4g} on logits of RMS "
+        f"{teacher['logit_rms']:.3f}, argmax agreement "
+        f"{teacher['argmax_agree']:.3f}")
+    if not teacher["rel_rms_max"] <= bound:
+        raise AssertionError(f"{dtype} decode disagrees with teacher-forced "
+                             f"apply: {teacher['rel_rms']}")
+
+
+def profile_breakdown(fn, reps: int, label: str) -> dict:
+    """``fn`` run ``reps`` times under ``torch.profiler``: device time by
+    kernel class, the union of kernel intervals (busy) and the profiled
+    wall time, per rep."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / reps * 1e3
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    by_class: dict[str, float] = {}
+    for e in rows:
+        name = e.key.lower()
+        cls = ("flash_decode" if "flash_decode" in name else
+               "rglru_scan" if "rglru_scan" in name else
+               "matmul" if any(w in name for w in ("gemm", "gemv", "sm90",
+                                                    "cutlass", "xmma",
+                                                    "nvjet"))
+               else "other")
+        by_class[cls] = by_class.get(cls, 0.0) \
+            + e.self_device_time_total / reps / 1e3
+    spans = [e for e in prof.events() if e.device_type == cuda]
+    busy = union_ms([(e.time_range.start, e.time_range.end)
+                     for e in spans]) / 1e3 / reps
+    top = sorted(((e.self_device_time_total / reps / 1e3, e.key)
+                  for e in rows), reverse=True)[:6]
+    out = {"wall_ms": wall, "busy_ms": busy, "busy_share": busy / wall,
+           "kernel_ms": sum(by_class.values()), "by_class_ms": by_class,
+           "launches": sum(e.count for e in rows) / reps}
+    log(f"profile {label}: {wall:.2f} ms wall (profiled), device busy "
+        f"{busy:.2f} ms (share {busy / wall:.3f}), {out['launches']:.0f} "
+        f"kernel launches, kernel ms by class "
+        + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_class.items()))
+        + "; top: " + "; ".join(f"{k[:60]} {v:.3f}" for v, k in top))
+    return out
+
+
+# ---------------------------------------------------------------------------
+_RW_SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
+SOURCE = {"zone_update": _RW_SOURCE, "multizone_update": _RW_SOURCE,
+          "fused_update": _RW_SOURCE,
+          "rglru_scan": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+          "flash_decode":
+              "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"}
 REPLACES = {"zone_update": "src/repro/kernels/rwsadmm_update/kernel.py:176",
             "multizone_update":
                 "src/repro/kernels/rwsadmm_update/kernel.py:147",
-            "fused_update": "src/repro/kernels/rwsadmm_update/kernel.py:51"}
+            "fused_update": "src/repro/kernels/rwsadmm_update/kernel.py:51",
+            "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:49",
+            "flash_decode": "src/repro/kernels/flash_decode/kernel.py:82"}
 
 
 def main() -> int:
@@ -630,28 +1033,35 @@ def main() -> int:
     phase_build()
     model, data, hp = build_main_path(device, MAIN["seed"])
     rows = phase_kernels(hp, device, name)
+    rows.update(phase_lm_kernels(device, name))
     main = phase_main_path(device, model, data, hp)
     fleet = phase_fleet(device, model, data, hp)
     single = phase_single_client(device, model, data, hp)
+    del model, data
+    torch.cuda.empty_cache()
+    served = phase_serve(device)
 
     launches = {"zone_update": main["launches"],
                 "multizone_update": fleet["launches"],
-                "fused_update": single}
+                "fused_update": single, **served["launches"]}
     kernels = []
     for kernel, checks in rows.items():
         timed = checks[0]
-        kernels.append({
-            "name": kernel, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[kernel], "launches": launches[kernel],
-            "max_abs_err": max(max(r["err"].values()) for r in checks),
-            "ms": timed["ms"], "plain_ms": timed["plain_ms"],
-            "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
-            "library_ms": None, "share_of_bound": timed["share_of_bound"],
-            "sign_flips": sum(r["sign_flips"] for r in checks),
-            "shape": timed["shape"]})
+        row = {"name": kernel, "route": "cuda", "source": SOURCE[kernel],
+               "replaces": REPLACES[kernel], "launches": launches[kernel],
+               "max_abs_err": max(r["max_abs_err"] for r in checks),
+               "ms": timed["ms"], "plain_ms": timed["plain_ms"],
+               "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
+               "library_ms": timed.get("library_ms"),
+               "share_of_bound": timed["share_of_bound"],
+               "shape": timed["shape"]}
+        if "sign_flips" in timed:
+            row["sign_flips"] = sum(r["sign_flips"] for r in checks)
+        kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"main_path": main}))
     log(json.dumps({"fleet_path": fleet}))
+    log(json.dumps({"serve_path": served}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

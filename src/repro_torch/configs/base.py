@@ -1,0 +1,113 @@
+"""Architecture configs: the port's own copy of the JAX package's
+``ModelConfig`` (``hd``, ``pattern_repeats``, ``param_count()``,
+``reduced()``) and its registry, holding only what the port's ``LM``
+runs: global and local attention with standard RoPE, RG-LRU, a dense FFN
+and tied embeddings. Fields of the rest of the model zoo (MoE, frontends,
+encoders, mLSTM/sLSTM, learned positions, qkv bias) come with the slice
+that runs them (ROADMAP Queue 1 item 8).
+
+Only architectures whose model the port runs are registered;
+``get_config`` of any other raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    source: str = ""
+
+    # Layer mixing: the repeating unit of layer kinds; n_layers must be a
+    # multiple of len(layer_pattern). Kinds: "attn" (global), "local"
+    # (sliding window), "rglru" (Griffin recurrent).
+    layer_pattern: tuple[str, ...] = ("attn",)
+    window: int = 4096           # sliding-window size for "local" layers
+
+    head_dim: Optional[int] = None   # default d_model // n_heads
+    rope_theta: float = 1e4
+    norm_eps: float = 1e-6
+    act: str = "silu"            # mlp activation: silu (SwiGLU) | gelu
+
+    dtype: str = "bfloat16"
+
+    # ------------------------------------------------------------------
+    @property
+    def hd(self) -> int:
+        return self.head_dim or self.d_model // self.n_heads
+
+    @property
+    def pattern_repeats(self) -> int:
+        if self.n_layers % len(self.layer_pattern):
+            raise ValueError(f"{self.arch_id}: n_layers={self.n_layers} not "
+                             f"a multiple of pattern {self.layer_pattern}")
+        return self.n_layers // len(self.layer_pattern)
+
+    # -- parameter counting (analytic; checked against init in tests) ----
+    def param_count(self) -> int:
+        d, ff, v = self.d_model, self.d_ff, self.vocab
+        hd, h, kv = self.hd, self.n_heads, self.n_kv_heads
+        per_kind: dict[str, int] = {}
+        for kind in set(self.layer_pattern):
+            if kind in ("attn", "local"):
+                per_kind[kind] = d * h * hd + 2 * d * kv * hd + h * hd * d
+            elif kind == "rglru":
+                # in-proj ×2 + conv4 + r/i gates + out proj.
+                per_kind[kind] = 5 * d * d + 4 * d
+            else:
+                raise ValueError(kind)
+        n = sum(per_kind[kind] + 2 * d  # + norms
+                for kind in self.layer_pattern) * self.pattern_repeats
+        ffn = (3 * d * ff if self.act == "silu" else 2 * d * ff) if ff else 0
+        n += self.n_layers * (ffn + (2 * d if ffn else 0))
+        return int(n + v * d)  # + the tied embedding
+
+    # ------------------------------------------------------------------
+    def reduced(self) -> "ModelConfig":
+        """Smoke-test variant: same pattern, tiny dims, fp32."""
+        g = len(self.layer_pattern)
+        d = min(self.d_model, 256)
+        h = max(2, min(self.n_heads, 4))
+        return dataclasses.replace(
+            self,
+            arch_id=self.arch_id + "-reduced",
+            n_layers=g if g >= 2 else 2,
+            d_model=d,
+            n_heads=h,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)),
+            head_dim=d // h,
+            d_ff=min(self.d_ff, 512) if self.d_ff else 0,
+            vocab=min(self.vocab, 512),
+            window=min(self.window, 64),
+            dtype="float32",
+        )
+
+
+_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.arch_id] = cfg
+    return cfg
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    try:
+        return _REGISTRY[arch_id]
+    except KeyError as e:
+        raise ValueError(
+            f"arch {arch_id!r} is not in the port (it runs "
+            f"{sorted(_REGISTRY)}); the rest of the JAX package's model zoo "
+            f"is ROADMAP Queue 1 item 8") from e
+
+
+def list_archs() -> list[str]:
+    return sorted(_REGISTRY)

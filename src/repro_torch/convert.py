@@ -75,3 +75,53 @@ def load_reference(module: torch.nn.Module, ref_params: Mapping) -> None:
                                  f"{tuple(state[name].shape)}, module "
                                  f"{tuple(p.shape)}")
             p.copy_(state[name])
+
+
+# ------------------------------------------------------------- LM ---------
+# The reference LM's params: {"embed", "final_norm": {"scale"}, "layers":
+# tuple over pattern index gi of dicts whose leaves stack the pattern's
+# repeats on a leading axis}. The port's LM names layer
+# l = r·len(pattern) + gi as "layers.{l}.<path>".
+
+def _leaf_to_torch(leaf, device=None) -> torch.Tensor:
+    """An array-like as a tensor of the same dtype (bfloat16 through fp32,
+    which holds it exactly)."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.as_tensor(np.array(arr), device=device)
+
+
+def lm_state_from_reference(ref_params: Mapping, cfg, device=None
+                            ) -> dict[str, torch.Tensor]:
+    """Reference ``LM`` params (nested dict, array-like leaves) → the
+    port ``LM``'s ``state_dict``, each leaf in its own dtype."""
+    g = len(cfg.layer_pattern)
+    state = {"embed": _leaf_to_torch(ref_params["embed"], device)}
+    for path, leaf in _walk(ref_params["final_norm"], "final_norm"):
+        state[path] = _leaf_to_torch(leaf, device)
+    for gi, group in enumerate(ref_params["layers"]):
+        for path, leaf in _walk(group):
+            stacked = _leaf_to_torch(leaf, device)
+            for r in range(cfg.pattern_repeats):
+                state[f"layers.{r * g + gi}.{path}"] = stacked[r].clone()
+    return state
+
+
+def load_lm_reference(model: torch.nn.Module, ref_params: Mapping) -> None:
+    """Copy reference ``LM`` params into a port ``LM``, checking that both
+    hold the same names and shapes."""
+    state = lm_state_from_reference(ref_params, model.cfg)
+    own = dict(model.named_parameters())
+    if set(state) != set(own):
+        raise ValueError(f"reference and module names differ: only in the "
+                         f"reference {sorted(set(state) - set(own))}, only "
+                         f"in the module {sorted(set(own) - set(state))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            if tuple(state[name].shape) != tuple(p.shape):
+                raise ValueError(f"{name}: reference shape "
+                                 f"{tuple(state[name].shape)}, module "
+                                 f"{tuple(p.shape)}")
+            p.copy_(state[name])

@@ -7,74 +7,31 @@ per call. A CUDA tensor launches the kernel or raises; only tensors on
 the CPU take the plain version in :mod:`.ref`. Each wrapper counts its
 own kernel launches in ``<wrapper>.launches``.
 
-The kernels are built at first use with ``nvcc`` into a shared library with
-a plain C interface, under ``build/`` beside this file (listed in
-``.gitignore``), named by a hash of the source and flags so an edited
-source rebuilds. It is loaded with ``ctypes``.
+The kernels are built at first use by :func:`..._build.build` (``nvcc``
+into ``build/`` beside this file, loaded with ``ctypes``).
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
+from .. import _build
 from .ref import fused_update_ref, multizone_fused_update_ref, \
     zone_fused_update_ref
 
 _SOURCE = Path(__file__).parent / "csrc" / "zone_update.cu"
-_BUILD_DIR = Path(__file__).parent / "build"
 # -fmad=false: keep the plain version's rounding (see the source's note).
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+NVCC_FLAGS = (*_build.BASE_FLAGS, "-fmad=false", *_build.LIBRARY_FLAGS)
 
 _lib = None
 
 
-def find_nvcc() -> str:
-    """``nvcc`` from ``CUDA_HOME``/``CUDA_PATH``, ``PATH`` or
-    ``/usr/local/cuda``; raises if there is none."""
-    candidates = [os.path.join(os.environ[k], "bin", "nvcc")
-                  for k in ("CUDA_HOME", "CUDA_PATH") if os.environ.get(k)]
-    found = shutil.which("nvcc")
-    if found:
-        candidates.append(found)
-    candidates.append("/usr/local/cuda/bin/nvcc")
-    for c in candidates:
-        if os.path.isfile(c) and os.access(c, os.X_OK):
-            return c
-    raise RuntimeError("nvcc not found (set CUDA_HOME); the RWSADMM "
-                       "update kernels are built from source at first use")
-
-
 def build() -> Path:
-    """Compile the kernel into ``build/`` unless that exact build exists.
-    Returns the shared library's path. Raises if the build fails."""
-    src = _SOURCE.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    out = _BUILD_DIR / f"zone_update-{tag[:16]}.so"
-    if out.exists():
-        return out
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_SOURCE)]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}{res.stderr}")
-        os.replace(tmp, out)   # atomic: concurrent builds race safely
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    """Build ``zone_update.cu`` (all three kernels) unless built; returns
+    the shared library's path."""
+    return _build.build(_SOURCE, NVCC_FLAGS)
 
 
 _PTR = ctypes.c_void_p

@@ -1,0 +1,164 @@
+"""GQA attention (the JAX package's ``models/attention.py``): prefill and
+training attention, query-chunked with fp32 scores, and single-token
+decode against a KV cache (the whole sequence for global layers, a ring
+buffer of ``window`` slots for local ones).
+
+Decode contracts through the flash-decode kernel (``kernels/
+flash_decode``): on a CUDA tensor it launches the kernel, on a CPU tensor
+it takes the plain masked softmax.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels.flash_decode.ops import flash_decode
+from .layers import apply_rope, dense_init, param, torch_dtype
+
+NEG_INF = -1e30
+
+
+class Attention(nn.Module):
+    """``wq``, ``wk``, ``wv``, ``wo``, named and shaped as the reference's
+    dict (no qkv bias)."""
+
+    def __init__(self, cfg, *, device=None):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        kw = dict(dtype=torch_dtype(cfg), device=device)
+        self.wq = param(d, h * hd, **kw)
+        self.wk = param(d, kv * hd, **kw)
+        self.wv = param(d, kv * hd, **kw)
+        self.wo = param(h * hd, d, **kw)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        dense_init(self.wq, gen)
+        dense_init(self.wk, gen)
+        dense_init(self.wv, gen)
+        dense_init(self.wo, gen, 1.0 / np.sqrt(self.wo.shape[0]))
+
+
+def _project_qkv(p, x, cfg):
+    b, s, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p.wq).reshape(b, s, h, hd)
+    k = (x @ p.wk).reshape(b, s, kv, hd)
+    v = (x @ p.wv).reshape(b, s, kv, hd)
+    return q, k, v
+
+
+def _rope_qk(q, k, positions, cfg):
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _chunked_attention(q, k, v, *, causal: bool, window: int | None,
+                       chunk: int = 512):
+    """q: (B, S, H, hd), k/v: (B, T, K, hd) → (B, S, H·hd). GQA by head
+    grouping; queries in chunks of ``chunk``; scores and softmax fp32;
+    optional sliding window of size ``window``."""
+    b, s, h, hd = q.shape
+    t, kvh = k.shape[1], k.shape[2]
+    g = h // kvh
+    scale = 1.0 / np.sqrt(hd)
+    qg = q.reshape(b, s, kvh, g, hd)
+    kf, vf = k.float(), v.float()
+    kpos = torch.arange(t, device=q.device)
+    outs = []
+    for c0 in range(0, s, chunk):
+        qc = qg[:, c0:c0 + chunk].float()
+        qpos = torch.arange(c0, c0 + qc.shape[1], device=q.device)
+        scores = torch.einsum("bqkgh,btkh->bkgqt", qc, kf) * scale
+        mask = torch.ones(qc.shape[1], t, dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= kpos[None, :] <= qpos[:, None]
+        if window is not None:
+            mask &= kpos[None, :] > qpos[:, None] - window
+        scores = torch.where(mask, scores, NEG_INF)
+        w = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("bkgqt,btkh->bqkgh", w, vf).to(q.dtype))
+    return torch.cat(outs, dim=1).reshape(b, s, h * hd)
+
+
+def attention(p, x, positions, cfg, *, kind: str = "attn",
+              chunk: int = 512):
+    """Training/prefill self-attention. kind: "attn" (global) | "local"."""
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = _rope_qk(q, k, positions, cfg)
+    window = cfg.window if kind == "local" else None
+    out = _chunked_attention(q, k, v, causal=True, window=window,
+                             chunk=chunk)
+    return out @ p.wo
+
+
+# ------------------------------------------------------------ decode ------
+class KVCache(NamedTuple):
+    """KV cache of one attention layer. k/v: (B, S_cache, K, hd);
+    ``length``: tokens written so far (the next token's position). Local
+    layers keep S_cache = min(max_len, window) slots as a ring."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, kind: str, dtype=None,
+                  device=None) -> KVCache:
+    size = min(max_len, cfg.window) if kind == "local" else max_len
+    shape = (batch, size, cfg.n_kv_heads, cfg.hd)
+    dt = dtype or torch_dtype(cfg)
+    return KVCache(k=torch.zeros(shape, dtype=dt, device=device),
+                   v=torch.zeros(shape, dtype=dt, device=device), length=0)
+
+
+def prefill_attention(p, x, positions, cache: KVCache, cfg, *,
+                      kind: str = "attn", chunk: int = 512):
+    """Prefill: full-sequence attention that also fills the KV cache.
+
+    Global layers write positions [0, T); local layers keep the last
+    ``window`` tokens at their ring slots (slot = pos % window)."""
+    t = x.shape[1]
+    q, k, v = _project_qkv(p, x, cfg)
+    q, k = _rope_qk(q, k, positions, cfg)
+    window = cfg.window if kind == "local" else None
+    out = _chunked_attention(q, k, v, causal=True, window=window,
+                             chunk=chunk)
+    size = cache.k.shape[1]
+    k_c, v_c = torch.zeros_like(cache.k), torch.zeros_like(cache.v)
+    if kind == "local" and t > size:
+        keep = torch.arange(t - size, t, device=x.device)
+        k_c[:, keep % size] = k[:, keep].to(k_c.dtype)
+        v_c[:, keep % size] = v[:, keep].to(v_c.dtype)
+    else:
+        n = min(t, size)
+        k_c[:, :n] = k[:, :n]
+        v_c[:, :n] = v[:, :n]
+    return out @ p.wo, KVCache(k=k_c, v=v_c, length=t)
+
+
+def decode_attention(p, x, cache: KVCache, cfg, *, kind: str = "attn"):
+    """One-token decode: x (B, 1, d) against the cache → (out (B, 1, d),
+    cache). The new token's k/v are written into the cache's buffers in
+    place (slot pos % size for a local ring, min(pos, size − 1) for a
+    global layer), and the returned cache shares them.
+
+    The kernel sees the valid prefix as ``length``: min(pos + 1, size) for
+    a ring, whose full slots are all valid in any order (softmax does not
+    depend on the order of its keys), and pos + 1 for a global layer."""
+    b = x.shape[0]
+    pos = cache.length
+    q, k_new, v_new = _project_qkv(p, x, cfg)
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new = _rope_qk(q, k_new, positions, cfg)
+
+    size = cache.k.shape[1]
+    slot = pos % size if kind == "local" else min(pos, size - 1)
+    cache.k[:, slot] = k_new[:, 0]
+    cache.v[:, slot] = v_new[:, 0]
+    n_valid = min(pos + 1, size) if kind == "local" else pos + 1
+    length = torch.full((b,), n_valid, dtype=torch.int32, device=x.device)
+    out = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, length)
+    out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    return out @ p.wo, KVCache(k=cache.k, v=cache.v, length=pos + 1)

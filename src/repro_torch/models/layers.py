@@ -1,0 +1,105 @@
+"""Shared layers of the model zoo (the JAX package's ``models/layers.py``).
+
+Parameters follow the reference's shapes: a dense weight is (n_in, n_out)
+and applies as ``x @ w``. Parameters and activations are in the config's
+dtype (bf16 at full width); normalisation statistics and RoPE angles are
+fp32. Inits draw fp32 normals from a ``torch.Generator`` and cast, as the
+reference draws fp32 and casts.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def torch_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def normal_(p: torch.Tensor, gen: torch.Generator, scale: float) -> None:
+    """Fill ``p`` with N(0, scale²) drawn in fp32, cast to p's dtype."""
+    with torch.no_grad():
+        p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
+                            dtype=torch.float32) * scale)
+
+
+def dense_init(p: torch.Tensor, gen: torch.Generator,
+               scale: float | None = None) -> None:
+    """A (n_in, n_out) weight at scale 1/√n_in unless given."""
+    normal_(p, gen, scale if scale is not None else 1.0 / np.sqrt(p.shape[0]))
+
+
+def embedding_init(p: torch.Tensor, gen: torch.Generator) -> None:
+    """A (vocab, d) table at scale 1/√d."""
+    normal_(p, gen, 1.0 / np.sqrt(p.shape[1]))
+
+
+def param(*shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
+
+
+# ------------------------------------------------------------- norms ------
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, *, dtype, device=None):
+        super().__init__()
+        self.scale = param(d, dtype=dtype, device=device)
+
+    def reset_parameters(self, gen=None) -> None:
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+
+def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
+    out = x32 * torch.rsqrt(var + eps)
+    return (out * p.scale.float()).to(x.dtype)
+
+
+# ------------------------------------------------------------- RoPE -------
+def rope_freqs(hd: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, hd, 2, dtype=np.float32) / hd))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S). Rotates
+    the two halves of hd (not interleaved pairs)."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)
+    angles = positions[..., None].float() * freqs        # (..., S, hd/2)
+    angles = angles[..., None, :]                        # (..., S, 1, hd/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------- MLP --------
+class MLP(nn.Module):
+    """``w_in``/``w_out`` and, for SwiGLU (``act="silu"``), ``w_gate``."""
+
+    def __init__(self, d: int, ff: int, act: str, *, dtype, device=None):
+        super().__init__()
+        self.act = act
+        self.w_in = param(d, ff, dtype=dtype, device=device)
+        self.w_out = param(ff, d, dtype=dtype, device=device)
+        if act == "silu":
+            self.w_gate = param(d, ff, dtype=dtype, device=device)
+
+    def reset_parameters(self, gen: torch.Generator) -> None:
+        dense_init(self.w_in, gen)
+        dense_init(self.w_out, gen)
+        if self.act == "silu":
+            dense_init(self.w_gate, gen)
+
+
+def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ p.w_in
+    if act == "silu":
+        h = F.silu(x @ p.w_gate) * h
+    else:
+        h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
+    return h @ p.w_out

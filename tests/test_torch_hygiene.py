@@ -49,6 +49,9 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch, repro_torch.convert\n"
         "import repro_torch.fl.rwsadmm_trainer, repro_torch.fl.simulation\n"
         "import repro_torch.kernels.rwsadmm_update.ops\n"
+        "import repro_torch.kernels.flash_decode.ops\n"
+        "import repro_torch.kernels.rglru_scan.ops\n"
+        "import repro_torch.launch.serve, repro_torch.models.registry\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
