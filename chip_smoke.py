@@ -8,14 +8,18 @@ Phases (each prints its own lines; any failure exits non-zero):
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions.
 2. build — builds the kernels from ``src/repro_torch`` with ``nvcc``, one
    process per source, all at once (three sources, five kernels), and
-   prints ptxas's registers and spills for the model-zoo kernels.
+   prints ptxas's registers, spills and static shared memory per entry.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card at the paths' shapes and at odd ones, and times both beside the
    bound: ``zone_update``, ``multizone_update``, ``fused_update`` (padded
-   slots and an idle walker included), ``rglru_scan`` (bit for bit) and
-   ``flash_decode`` (fp32 at 1e-5, bf16 at atol 1e-3 + rtol 1e-2; lengths
-   below S, a window, and one ``scaled_dot_product_attention`` call timed
-   as the yardstick).
+   slots and an idle walker included; CUDA events over back-to-back
+   calls), ``rglru_scan`` (bit for bit, on both its paths) and
+   ``flash_decode`` (fp32 at 1e-5, bf16 at atol 1e-3 + rtol 1e-2 against
+   the plain softmax and the split reference; lengths below S, a window,
+   a row with no valid key, every hd remainder of the tensor-core
+   steps); these two by device time over cold-L2 and warm inputs, with
+   CUDA-graph replay, and one ``scaled_dot_product_attention`` call
+   timed the same way as the yardstick.
 4. single-walker path — RWSADMM through ``run_simulation`` on the
    paper's CIFAR-10 CNN at full width (P = 1,068,266), n = 100 clients,
    zone 8, batch 20, ``closed_form`` + ``engine="scan_fused"``; checks
@@ -33,10 +37,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    weights) through ``launch/serve.py``: prefill 4 × 2040 tokens (one
    ``rglru_scan`` launch per RG-LRU layer, 26) and 15 greedy decode steps
    (one ``flash_decode`` launch per local layer and step, 180; the rings
-   wrap at step 8); then the decode logits against a teacher-forced
-   ``apply`` over the same 2056 tokens, a profiled prefill and decode
-   step, and the same generation and check in fp32, where the bound is
-   tight enough to fail a fault in the ring.
+   wrap at step 8), each kernel path's launches checked; then the decode
+   logits against a teacher-forced ``apply`` over the same 2056 tokens, a
+   profiled prefill and decode step, and the same generation and check in
+   fp32, where the bound is tight enough to fail a fault in the ring.
 
 Ends with a ``{"kernels": [...]}`` line, the paths' summaries, the
 ``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. Imports
@@ -109,6 +113,93 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_time_ms(fns, reps: int, graph: bool = True) -> dict:
+    """Device time of one call, each of ``fns`` being one call on its own
+    inputs, run in turn ``reps`` times (distinct inputs larger than the
+    50 MB L2 between them read it cold). ``profiler``: the kernels' own
+    device time per call, summed from ``torch.profiler`` (no host gaps);
+    ``graph``: one CUDA graph of all the calls replayed, elapsed CUDA-event
+    time per call (back-to-back launches with the graph's own gaps)."""
+    import torch
+
+    for fn in fns:                   # warm: builds, attributes, plans
+        fn()
+    calls = len(fns) * reps
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            for fn in fns:
+                fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages()
+            if e.device_type == cuda and e.self_device_time_total > 0]
+    out = {"profiler": sum(e.self_device_time_total for e in rows)
+           / calls / 1e3,
+           "kernels_per_call": sum(e.count for e in rows) / calls,
+           "by_kernel": {e.key[:80]: e.self_device_time_total / calls / 1e3
+                         for e in rows}}
+    if graph:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for fn in fns:
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+        g.replay()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(5):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        out["graph"] = start.elapsed_time(end) / (5 * calls)
+        del g
+    return out
+
+
+def ptxas_entries(lib: Path) -> dict:
+    """Registers, spills and static shared memory of each kernel entry in
+    a library's ``-Xptxas -v`` log, by a short name: base, element type
+    and split (``flash_decode_split<bf16,64>``)."""
+    import re
+
+    out, name = {}, None
+    for line in Path(f"{lib}.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d+([a-z_]+?)(?:I|E)", mangled.split(
+                "_cu_")[-1]).group(1)
+            args = (["bf16"] if "bfloat16" in mangled else
+                    ["f32"] if re.search(r"I[f]", mangled) else [])
+            args += re.findall(r"Li(\d+)E", mangled)
+            name = base + (f"<{','.join(args)}>" if args else "")
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
 def _wrappers():
     from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
@@ -127,10 +218,18 @@ def launch_counts() -> dict:
 def zero_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        counts = getattr(fn, "launches_by_path", None)
+        if counts is not None:
+            counts.update(dict.fromkeys(counts, 0))
+
+
+def path_counts() -> dict:
+    """Launches of the scan by path: its ``staged`` or ``loop`` kernel."""
+    return {"rglru_scan": dict(_wrappers()["rglru_scan"].launches_by_path)}
 
 
 # ---------------------------------------------------------------------------
-def phase_build() -> list[Path]:
+def phase_build() -> dict:
     """Build every kernel source with nvcc, one process per source, all
     started together; print what ptxas says of the kernels that ask it."""
     from concurrent.futures import ThreadPoolExecutor
@@ -143,13 +242,16 @@ def phase_build() -> list[Path]:
     with ThreadPoolExecutor(3) as pool:
         libs = list(pool.map(lambda ops: ops.build(),
                              (rw_ops, rg_ops, fd_ops)))
-    log(f"build: 5 kernels from 3 sources in "
-        f"{time.perf_counter() - t0:.2f} s ({', '.join(l.name for l in libs)})")
+    seconds = time.perf_counter() - t0
+    entries = {}
     for lib in libs:
-        for line in Path(f"{lib}.log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {lib.name.split('-')[0]}: {line.strip()}")
-    return libs
+        entries.update(ptxas_entries(lib))
+        for entry, info in ptxas_entries(lib).items():
+            log(f"ptxas {lib.name.split('-')[0]}: {entry} {info}")
+    log(f"build: 5 kernels from 3 sources in {seconds:.2f} s "
+        f"({', '.join(l.name for l in libs)}); ptxas reports "
+        f"{len(entries)} entries")
+    return entries
 
 
 def update_inputs(walkers: int, zone: int, n: int, live, seed: int, device):
@@ -674,86 +776,155 @@ def lm_kernel_bound(nbytes: int, flops: int, card: str) -> dict:
 
 
 def check_rglru_scan(shape, device, card: str, time_it: bool) -> dict:
-    """The scan kernel against its plain loop: bit for bit."""
+    """The scan kernel against its plain loop: bit for bit, and the path
+    that launched."""
     import torch
 
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan import ops
     from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 
     gen = torch.Generator(device=device).manual_seed(sum(shape))
-    a = torch.sigmoid(torch.randn(shape, generator=gen, device=device))
-    b = torch.randn(shape, generator=gen, device=device)
-    got = rglru_scan(a, b)
+
+    def inputs():
+        return (torch.sigmoid(torch.randn(shape, generator=gen,
+                                          device=device)),
+                torch.randn(shape, generator=gen, device=device))
+    a, b = inputs()
+    before = dict(ops.rglru_scan.launches_by_path)
+    got = ops.rglru_scan(a, b)
     torch.cuda.synchronize()
+    path = [p for p in ops.PATHS
+            if ops.rglru_scan.launches_by_path[p] != before[p]]
     want = rglru_scan_ref(a, b)
     row = {"shape": "B={} S={} D={}".format(*shape),
+           "path": path[0] if len(path) == 1 else path,
+           "planned": ops.plan(shape),
            "max_abs_err": float((got - want).abs().max()),
            "bitwise": bool(torch.equal(got, want))}
     if time_it:
         bsz, s, d = shape
-        row["ms"] = cuda_time_ms(lambda: rglru_scan(a, b), 20)
-        row["plain_ms"] = cuda_time_ms(lambda: rglru_scan_ref(a, b), 2,
-                                       warmup=1)
+        # Two input sets (each 2.4 times the L2 already) in turn: cold;
+        # one set again and again: warm.
+        sets = [(a, b), inputs()]
+        cold = device_time_ms([lambda a=a, b=b: ops.rglru_scan(a, b)
+                               for a, b in sets], 10)
+        warm = device_time_ms([lambda: ops.rglru_scan(a, b)], 10)
+        plain = device_time_ms([lambda: rglru_scan_ref(a, b)], 2,
+                               graph=False)
+        row.update(ms=cold["profiler"], ms_warm=warm["profiler"],
+                   graph_ms=cold["graph"], graph_ms_warm=warm["graph"],
+                   plain_ms=plain["profiler"],
+                   plain_wall_ms=cuda_time_ms(lambda: rglru_scan_ref(a, b),
+                                              2, warmup=1),
+                   config=dict(zip(("lanes", "steps", "stages",
+                                    "smem_bytes"), ops.staged_geometry())))
         # Read a and b, write h, fp32; a multiply and an add per element.
         row.update(lm_kernel_bound(3 * bsz * s * d * 4, 2 * bsz * s * d,
                                    card))
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    log(f"kernel rglru_scan {row['shape']}: max_abs_err "
-        f"{row['max_abs_err']} bitwise {row['bitwise']}"
-        + (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.3f} bound_ms "
-           f"{row['bound_ms']:.4f} ({row['bound_by']}, {row['bound_rate']}) "
-           f"share {row['share_of_bound']:.3f} library none"
-           if time_it else ""))
-    if not row["bitwise"]:
-        raise AssertionError(f"rglru_scan differs from its plain loop: {row}")
+    log(f"kernel rglru_scan {row['shape']}: path {row['path']} (planned "
+        f"{row['planned']}) max_abs_err {row['max_abs_err']} bitwise "
+        f"{row['bitwise']}"
+        + (f" device ms cold {row['ms']:.4f} warm {row['ms_warm']:.4f} "
+           f"graph cold {row['graph_ms']:.4f} warm "
+           f"{row['graph_ms_warm']:.4f} plain device ms "
+           f"{row['plain_ms']:.3f} (wall {row['plain_wall_ms']:.3f}) "
+           f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
+           f"{row['bound_rate']}) share {row['share_of_bound']:.3f} "
+           f"library none config {row['config']}" if time_it else ""))
+    if not row["bitwise"] or row["path"] != row["planned"]:
+        raise AssertionError(f"rglru_scan differs from its plain loop or "
+                             f"took another path than planned: {row}")
     return row
+
+
+FLASH_COLD_SETS = 10   # serving-shape (q, k, v) sets: 84 MB, over the L2
 
 
 def check_flash_decode(b, h, kv, hd, s, lengths, window, dtype: str, device,
                        card: str, time_it: bool) -> dict:
-    """The flash-decode kernel against the plain masked softmax; timed
-    beside its bound and one SDPA call on the same inputs."""
+    """The flash-decode kernel against the plain masked softmax and the
+    split reference at its keys per block; timed cold and warm beside its
+    bound and one SDPA call on the same inputs."""
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+    from repro_torch.kernels.flash_decode import ops
+    from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                      flash_decode_split_ref)
 
     tdt = getattr(torch, dtype)
     gen = torch.Generator(device=device).manual_seed(b * s + h + hd)
-    q = torch.randn(b, h, hd, generator=gen, device=device).to(tdt)
-    k, v = (torch.randn(b, s, kv, hd, generator=gen, device=device).to(tdt)
-            for _ in range(2))
+
+    def inputs():
+        q = torch.randn(b, h, hd, generator=gen, device=device).to(tdt)
+        k, v = (torch.randn(b, s, kv, hd, generator=gen,
+                            device=device).to(tdt) for _ in range(2))
+        return q, k, v
+    q, k, v = inputs()
     length = torch.tensor(lengths, dtype=torch.int32, device=device)
-    got = flash_decode(q, k, v, length, window=window)
+    split = ops.keys_per_block()
+    before = ops.flash_decode.launches
+    got = ops.flash_decode(q, k, v, length, window=window)
     torch.cuda.synchronize()
     want = flash_decode_ref(q, k, v, length, window=window)
+    split_want = flash_decode_split_ref(q, k, v, length, window=window,
+                                        split=split)
     atol, rtol = FLASH_TOL[dtype]
     row = {"shape": f"B={b} H={h} K={kv} hd={hd} S={s} length={lengths} "
                     f"window={window} {dtype}",
+           "split": split,
            "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "max_abs_err_split_ref": float(
+               (got.float() - split_want.float()).abs().max()),
            "atol": atol, "rtol": rtol,
-           "ok": bool(torch.allclose(got.float(), want.float(), atol=atol,
-                                     rtol=rtol))}
+           "ok": bool(ops.flash_decode.launches == before + 1
+                      and all(torch.allclose(got.float(), w.float(),
+                                             atol=atol, rtol=rtol)
+                              for w in (want, split_want)))}
     if time_it:
-        row["ms"] = cuda_time_ms(
-            lambda: flash_decode(q, k, v, length, window=window), 200)
-        row["plain_ms"] = cuda_time_ms(
-            lambda: flash_decode_ref(q, k, v, length, window=window), 20)
-        # SDPA with GQA and the same length mask: the yardstick only.
+        sets = [(q, k, v)] + [inputs() for _ in range(FLASH_COLD_SETS - 1)]
         pos = torch.arange(s, device=device)
         valid = pos[None] < length[:, None]
         if window is not None:
             valid &= pos[None] >= length[:, None] - window
         mask = valid[:, None, None, :]
-        q4, k4, v4 = q[:, :, None], k.transpose(1, 2), v.transpose(1, 2)
 
-        def sdpa():
-            return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                                  enable_gqa=True)
-        row["library_ms"] = cuda_time_ms(sdpa, 200)
-        row["library_max_abs_err"] = float(
-            (sdpa()[:, :, 0].float() - want.float()).abs().max())
+        def sdpa(q, k, v):   # GQA with the same length mask: yardstick only
+            return F.scaled_dot_product_attention(
+                q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+
+        def timed(call, graph=True):
+            cold = device_time_ms([lambda t=t: call(*t) for t in sets], 20,
+                                  graph)
+            warm = device_time_ms([lambda: call(q, k, v)], 200 if graph
+                                  else 20, graph)
+            return cold, warm
+        kern = timed(lambda q, k, v: ops.flash_decode(q, k, v, length,
+                                                      window=window))
+        lib = timed(sdpa)
+        plain = timed(lambda q, k, v: flash_decode_ref(q, k, v, length,
+                                                       window=window),
+                      graph=False)
+        log(f"flash_decode device ms by kernel, cold: "
+            f"{kern[0]['by_kernel']}; sdpa: {lib[0]['by_kernel']}")
+        row.update(ms=kern[0]["profiler"], ms_warm=kern[1]["profiler"],
+                   graph_ms=kern[0]["graph"], graph_ms_warm=kern[1]["graph"],
+                   kernels_per_call=kern[0]["kernels_per_call"],
+                   library_ms=lib[0]["profiler"],
+                   library_ms_warm=lib[1]["profiler"],
+                   library_graph_ms=lib[0]["graph"],
+                   library_graph_ms_warm=lib[1]["graph"],
+                   plain_ms=plain[0]["profiler"],
+                   plain_ms_warm=plain[1]["profiler"],
+                   library_max_abs_err=float(
+                       (sdpa(q, k, v)[:, :, 0].float() - want.float())
+                       .abs().max()))
+        row["config"] = {
+            "split": split, "threads": 256,
+            "smem_bytes": ops.smem_bytes(hd, q.element_size()),
+            "blocks": -(-s // split) * b * kv}
         # The valid keys' K and V rows, q and the output, read or written
         # once; QK and PV are two multiply-adds per element.
         n_valid = int(valid.sum())
@@ -762,13 +933,24 @@ def check_flash_decode(b, h, kv, hd, s, lengths, window, dtype: str, device,
             2 * n_valid * kv * hd * elem + 2 * b * h * hd * elem,
             4 * n_valid * (h // kv) * kv * hd, card))
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    log(f"kernel flash_decode {row['shape']}: max_abs_err "
-        f"{row['max_abs_err']:.3g} (atol {atol}, rtol {rtol})"
-        + (f" ms {row['ms']:.4f} plain_ms {row['plain_ms']:.4f} sdpa_ms "
-           f"{row['library_ms']:.4f} (max_abs_err "
-           f"{row['library_max_abs_err']:.3g}) bound_ms "
-           f"{row['bound_ms']:.5f} ({row['bound_by']}, {row['bound_rate']}) "
-           f"share {row['share_of_bound']:.3f}" if time_it else ""))
+        row["share_of_bound_warm"] = row["bound_ms"] / row["ms_warm"]
+    log(f"kernel flash_decode {row['shape']}: split {split} max_abs_err "
+        f"{row['max_abs_err']:.3g} (split ref "
+        f"{row['max_abs_err_split_ref']:.3g}; atol {atol}, rtol {rtol})"
+        + (f" device ms cold {row['ms']:.5f} warm {row['ms_warm']:.5f} "
+           f"({row['kernels_per_call']:.0f} kernels a call), graph cold "
+           f"{row['graph_ms']:.5f} warm {row['graph_ms_warm']:.5f}; sdpa "
+           f"device ms cold {row['library_ms']:.5f} warm "
+           f"{row['library_ms_warm']:.5f} graph cold "
+           f"{row['library_graph_ms']:.5f} warm "
+           f"{row['library_graph_ms_warm']:.5f} (max_abs_err "
+           f"{row['library_max_abs_err']:.3g}); plain device ms cold "
+           f"{row['plain_ms']:.4f} warm {row['plain_ms_warm']:.4f}; "
+           f"bound_ms {row['bound_ms']:.5f} "
+           f"({row['bound_by']}, {row['bound_rate']}) share cold "
+           f"{row['share_of_bound']:.3f} warm "
+           f"{row['share_of_bound_warm']:.3f} config {row['config']}"
+           if time_it else ""))
     if not row["ok"]:
         raise AssertionError(f"flash_decode disagrees with its plain "
                              f"version: {row}")
@@ -777,13 +959,16 @@ def check_flash_decode(b, h, kv, hd, s, lengths, window, dtype: str, device,
 
 def phase_lm_kernels(device, card: str) -> dict:
     """Both model-zoo kernels at the serving path's shapes (timed first
-    rows) and at odd ones: S and D tails, G = 7, a short hd, lengths
-    below S, a window."""
+    rows) and at odd ones: S and D tails, the scan's register-loop path,
+    G < 16, short head dims (every remainder of hd mod 32 after the
+    tensor-core steps: 0, 8, 16, 24), lengths below S, a row with no
+    valid key, windows that leave whole chunks masked."""
     full_len = [2048] * 4
     return {
         "rglru_scan": [
             check_rglru_scan((4, 2040, 4096), device, card, time_it=True),
-            check_rglru_scan((2, 1000, 130), device, card, time_it=False)],
+            check_rglru_scan((2, 1000, 130), device, card, time_it=False),
+            check_rglru_scan((3, 129, 100), device, card, time_it=False)],
         "flash_decode": [
             check_flash_decode(4, 16, 1, 256, 2048, full_len, None,
                                "bfloat16", device, card, time_it=True),
@@ -795,10 +980,18 @@ def phase_lm_kernels(device, card: str) -> dict:
                                None, "float32", device, card, False),
             check_flash_decode(2, 7, 1, 32, 1000, [1000, 611], 300,
                                "bfloat16", device, card, False),
+            check_flash_decode(2, 7, 1, 40, 1000, [999, 0], None,
+                               "bfloat16", device, card, False),
             check_flash_decode(2, 7, 1, 32, 1000, [999, 130], None,
                                "float32", device, card, False),
             check_flash_decode(3, 8, 2, 64, 1000, [1000, 513, 77], 128,
-                               "float32", device, card, False)],
+                               "float32", device, card, False),
+            check_flash_decode(2, 16, 1, 56, 1000, [1000, 77], None,
+                               "bfloat16", device, card, False),
+            check_flash_decode(2, 8, 2, 48, 1000, [1000, 129], 300,
+                               "bfloat16", device, card, False),
+            check_flash_decode(2, 4, 1, 24, 1000, [999, 65], None,
+                               "bfloat16", device, card, False)],
     }
 
 
@@ -849,20 +1042,25 @@ def phase_serve(device) -> dict:
     torch.cuda.synchronize()
     t_total = time.perf_counter() - t0
     counts = launch_counts()
+    by_path = path_counts()
     peak = torch.cuda.max_memory_allocated()
     n_rglru, n_local = kinds.count("rglru"), kinds.count("local")
     want_prefill = {n: 0 for n in _wrappers()} | {"rglru_scan": n_rglru}
     want_total = want_prefill | {"flash_decode": n_local * (gen - 1)}
+    # Every scan on the staged path (D % 4 == 0).
+    want_paths = {"rglru_scan": {"staged": n_rglru, "loop": 0}}
     log(f"serve: prefill {bsz}x{prompt} in {t_prefill * 1e3:.1f} ms, "
         f"{gen - 1} decode steps in {(t_total - t_prefill) * 1e3:.1f} ms "
         f"({(t_total - t_prefill) / (gen - 1) * 1e3:.2f} ms per step), "
         f"{bsz * gen / t_total:.1f} tok/s over the whole call, peak "
         f"allocated {peak / 2**30:.2f} GiB, launches after prefill "
-        f"{after_prefill}, after decode {counts}")
-    if after_prefill != want_prefill or counts != want_total:
+        f"{after_prefill}, after decode {counts}, by path {by_path}")
+    if (after_prefill != want_prefill or counts != want_total
+            or by_path != want_paths):
         raise AssertionError(f"serve launches: after prefill {after_prefill} "
                              f"(want {want_prefill}), after decode {counts} "
-                             f"(want {want_total})")
+                             f"(want {want_total}), by path {by_path} (want "
+                             f"{want_paths})")
     ids = torch.cat([first[0]] + [tok for tok, _ in rest], dim=1)
     logits = torch.stack([first[1]] + [lg for _, lg in rest], dim=1)
     if tuple(ids.shape) != (bsz, gen) or not bool(logits.isfinite().all()):
@@ -876,6 +1074,7 @@ def phase_serve(device) -> dict:
            "tok_per_s": bsz * gen / t_total, "peak_gib": peak / 2**30,
            "launches": {"rglru_scan": counts["rglru_scan"],
                         "flash_decode": counts["flash_decode"]},
+           "launches_by_path": by_path,
            "ids_row0": ids[0].tolist(),
            "teacher": {cfg.dtype: teacher}}
     log(f"serve: ids row 0 {row['ids_row0']}")
@@ -1030,38 +1229,47 @@ def main() -> int:
     log(f"device: {name} | {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | TF32 off")
 
-    phase_build()
+    ptxas = phase_build()
     model, data, hp = build_main_path(device, MAIN["seed"])
     rows = phase_kernels(hp, device, name)
     rows.update(phase_lm_kernels(device, name))
-    main = phase_main_path(device, model, data, hp)
-    fleet = phase_fleet(device, model, data, hp)
-    single = phase_single_client(device, model, data, hp)
-    del model, data
+    paths = {"main_path": phase_main_path(device, model, data, hp),
+             "fleet_path": phase_fleet(device, model, data, hp)}
+    launches = {"zone_update": paths["main_path"]["launches"],
+                "multizone_update": paths["fleet_path"]["launches"],
+                "fused_update": phase_single_client(device, model, data, hp)}
+    model = data = None
     torch.cuda.empty_cache()
-    served = phase_serve(device)
+    paths["serve_path"] = phase_serve(device)
+    launches.update(paths["serve_path"]["launches"])
 
-    launches = {"zone_update": main["launches"],
-                "multizone_update": fleet["launches"],
-                "fused_update": single, **served["launches"]}
+    # Earlier slices' kernels are timed warm with CUDA events over
+    # back-to-back calls; the model-zoo kernels by device time, cold.
+    extra = ("ms_warm", "graph_ms", "graph_ms_warm", "library_ms_warm",
+             "library_graph_ms", "library_graph_ms_warm", "plain_ms_warm",
+             "share_of_bound_warm", "config", "path")
     kernels = []
     for kernel, checks in rows.items():
         timed = checks[0]
         row = {"name": kernel, "route": "cuda", "source": SOURCE[kernel],
-               "replaces": REPLACES[kernel], "launches": launches[kernel],
+               "replaces": REPLACES[kernel],
+               "launches": launches.get(kernel),
                "max_abs_err": max(r["max_abs_err"] for r in checks),
                "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
                "library_ms": timed.get("library_ms"),
                "share_of_bound": timed["share_of_bound"],
                "shape": timed["shape"]}
+        row.update({k: timed[k] for k in extra if k in timed})
+        if kernel in ("rglru_scan", "flash_decode"):
+            row["ptxas"] = {e: v for e, v in ptxas.items()
+                            if e.startswith(kernel)}
         if "sign_flips" in timed:
             row["sign_flips"] = sum(r["sign_flips"] for r in checks)
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
-    log(json.dumps({"main_path": main}))
-    log(json.dumps({"fleet_path": fleet}))
-    log(json.dumps({"serve_path": served}))
+    for label, summary in paths.items():
+        log(json.dumps({label: summary}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

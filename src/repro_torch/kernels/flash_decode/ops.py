@@ -6,7 +6,9 @@ bf16, length (B,) int32. A CUDA tensor launches the kernel or raises;
 only tensors on the CPU take the plain version in :mod:`.ref`.
 ``flash_decode.launches`` counts calls that launched the kernel (a split
 pass and a combine pass). The kernel is built at first use by
-:func:`..._build.build`.
+:func:`..._build.build`; its keys per split block and shared memory are
+the source's, read through :func:`keys_per_block` and
+:func:`smem_bytes`.
 """
 from __future__ import annotations
 
@@ -23,7 +25,6 @@ _SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
 NVCC_FLAGS = (*_build.BASE_FLAGS, "-Xptxas", "-v", *_build.LIBRARY_FLAGS)
 MAX_GROUP = 16        # G = H / K the kernel takes
 MAX_HEAD_DIM = 256    # hd the kernel takes (a multiple of 8)
-SPLIT = 128           # keys per block of the split pass
 
 _lib = None
 
@@ -44,8 +45,23 @@ def _library():
             [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         lib.flash_decode.restype = ctypes.c_int
+        lib.flash_decode_keys_per_block.argtypes = []
+        lib.flash_decode_keys_per_block.restype = ctypes.c_int
+        lib.flash_decode_smem_bytes.argtypes = [ctypes.c_int] * 2
+        lib.flash_decode_smem_bytes.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def keys_per_block() -> int:
+    """C, the keys each split block takes, as the built source has it."""
+    return _library().flash_decode_keys_per_block()
+
+
+def smem_bytes(head_dim: int, elem: int) -> int:
+    """Dynamic shared memory of one split block at this hd and element
+    size, as the built source computes it."""
+    return _library().flash_decode_smem_bytes(head_dim, elem)
 
 
 def _check(q, k, v, length, window) -> None:
@@ -101,8 +117,7 @@ def flash_decode(q, k, v, length, *, window: int | None = None):
     s, kvh = k.shape[1], k.shape[2]
     if b * kvh > 65535:
         raise ValueError(f"B·K = {b * kvh} exceeds the grid's 65535 rows")
-    splits = -(-s // SPLIT)
-    rows = splits * b * h
+    rows = -(-s // keys_per_block()) * b * h
     part = torch.empty(rows * (hd + 2), dtype=torch.float32, device=q.device)
     part_acc, part_m, part_l = part.split((rows * hd, rows, rows))
     out = torch.empty_like(q)

@@ -10,29 +10,173 @@
 // Bound: memory. Each element of a and b is read once and each h written
 // once, 3·B·S·D·4 bytes, against 2 flops per element. At RecurrentGemma-9B's
 // prefill (B = 4, S = 2040, D = 4096) that is 401 MB, 0.120 ms at the H100
-// SXM's 3.35 TB/s.
+// SXM's 3.35 TB/s. The multiply-add chain itself is short (2040 steps of
+// ~8 cycles, ~10 µs), so what keeps a scan from the bound is the bytes in
+// flight: one thread per channel, each with a few dependent loads ahead,
+// holds ~1 MB over the card, where the card needs ~2.3 MB.
 //
-// Design: one thread per (b, d) channel, looping over t. Neighbouring
-// threads take neighbouring d, so every step's loads of a[t] and b[t] and
-// its store of h[t] are coalesced. The loop is unrolled by kUnroll with the
-// loads placed ahead of the dependent multiply-adds, which keeps
-// 2·kUnroll loads in flight per thread. Blocks of 128 threads spread the
-// B·D channels over as many SMs as there are blocks. D and S tails are
-// masked, nothing is padded. Built with -fmad=false so that a*h + b rounds
-// after the multiply and after the add, as the plain PyTorch loop does:
-// the two agree bit for bit. A chunked two-pass scan over S would use more
-// of the card when B·D is small; it is not done here.
+// Both kernels build with -fmad=false so that a*h + b rounds after the
+// multiply and after the add, as the plain PyTorch loop does: each agrees
+// with it bit for bit. No chunked two-pass scan: it would change the
+// rounding.
+//
+// rglru_scan_staged (D % 4 == 0, 16-byte aligned tensors): a block owns
+// 32 channels of one batch row (each timestep's slice is one 128-byte
+// row), grid (ceil(D/32), B): 512 blocks at the prefill shape, four
+// resident per SM. Shared memory holds a ring of kStages stages of kSteps
+// timesteps × 32 channels of a and of b (16 KB a stage). One lane of a
+// producer warp issues cp.async.bulk copies of each stage's rows (the
+// Tensor Memory Accelerator's bulk path; no tensor map), which complete
+// on the stage's "full" mbarrier, and refills a slot once the consumer
+// warp has released it on its "empty" mbarrier, so kStages − 1 stages
+// stay in flight while the consumer runs the oldest from shared memory:
+// 32 KB in flight per block, 128 KB per SM. Each step's h is stored from
+// registers, 128 bytes a warp. The S tail is the last stage's shorter
+// copy; the D tail copies a shorter row (a multiple of 16 bytes since
+// D % 4 == 0) and its idle lanes store nothing.
+//
+// rglru_scan_loop (any other D): one thread per (b, d) channel looping
+// over t, neighbouring threads on neighbouring d so every step's loads and
+// store are coalesced, unrolled by kUnroll with the loads ahead of the
+// multiply-adds.
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kLanes = 32;    // channels per staged block (one warp)
+constexpr int kSteps = 64;    // timesteps per stage
+constexpr int kStages = 3;    // stages in the ring
+constexpr int kStageFloats = 2 * kSteps * kLanes;   // a then b
+constexpr int kSmemBytes = kStages * kStageFloats * 4;
+
+constexpr int kThreads = 128;   // register-loop kernel
 constexpr int kUnroll = 8;
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Warp 1 (its lane 0) is the producer: it posts each stage's byte count
+// on full[slot] and copies the stage's a and b rows, waiting on
+// empty[slot] before it refills a slot. Warp 0 consumes: it waits on
+// full[slot], runs the stage's steps from shared memory and releases the
+// slot on empty[slot].
+__global__ void __launch_bounds__(2 * kLanes)
+rglru_scan_staged(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ h, long long seq, long long width) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const long long d0 = (long long)blockIdx.x * kLanes;
+  const int cols = (int)min((long long)kLanes, width - d0);
+  const long long base = (long long)blockIdx.y * seq * width + d0;
+  const long long n_stages = (seq + kSteps - 1) / kSteps;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 1) {
+    if (lane == 0) {
+      const uint32_t row = (uint32_t)cols * 4u;
+      for (long long st = 0; st < n_stages; ++st) {
+        const int slot = (int)(st % kStages);
+        if (st >= kStages)
+          mbar_wait(&empty[slot], (uint32_t)((st / kStages - 1) & 1));
+        const long long t0 = st * kSteps;
+        const int n = (int)min((long long)kSteps, seq - t0);
+        float* sa = ring + slot * kStageFloats;
+        float* sb = sa + kSteps * kLanes;
+        mbar_expect_tx(&full[slot], 2u * n * row);
+        for (int t = 0; t < n; ++t) {
+          const long long off = base + (t0 + t) * width;
+          bulk_copy(sa + t * kLanes, a + off, row, &full[slot]);
+          bulk_copy(sb + t * kLanes, b + off, row, &full[slot]);
+        }
+      }
+    }
+    return;
+  }
+
+  float carry = 0.0f;
+  float* hp = h + base + lane;
+  for (long long st = 0; st < n_stages; ++st) {
+    const int slot = (int)(st % kStages);
+    mbar_wait(&full[slot], (uint32_t)((st / kStages) & 1));
+    const float* sa = ring + slot * kStageFloats + lane;
+    const float* sb = sa + kSteps * kLanes;
+    const long long t0 = st * kSteps;
+    const int n = (int)min((long long)kSteps, seq - t0);
+    float* ht = hp + t0 * width;
+    if (n == kSteps) {
+#pragma unroll 8
+      for (int t = 0; t < kSteps; ++t) {
+        carry = sa[t * kLanes] * carry + sb[t * kLanes];
+        if (lane < cols) ht[t * width] = carry;
+      }
+    } else {
+      for (int t = 0; t < n; ++t) {
+        carry = sa[t * kLanes] * carry + sb[t * kLanes];
+        if (lane < cols) ht[t * width] = carry;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                  float* __restrict__ h, long long channels, long long seq,
-                  long long width) {
+rglru_scan_loop(const float* __restrict__ a, const float* __restrict__ b,
+                float* __restrict__ h, long long channels, long long seq,
+                long long width) {
   const long long ch = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (ch >= channels) return;
   const long long base = (ch / width) * seq * width + ch % width;
@@ -62,13 +206,45 @@ rglru_scan_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 }  // namespace
 
-// a, b, h: (batch, seq, width) fp32, contiguous, on the device. Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int rglru_scan(const void* a, const void* b, void* h, int batch,
-                          long long seq, long long width, void* stream) {
+// a, b, h: (batch, seq, width) fp32, contiguous, on the device; width % 4
+// == 0 and a, b 16-byte aligned. Launches the staged kernel on `stream`
+// and returns cudaGetLastError().
+extern "C" int rglru_scan_staged_launch(const void* a, const void* b, void* h,
+                                        int batch, long long seq,
+                                        long long width, void* stream) {
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rglru_scan_staged, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  const dim3 grid((unsigned)((width + kLanes - 1) / kLanes), (unsigned)batch);
+  rglru_scan_staged<<<grid, 2 * kLanes, kSmemBytes,
+                      (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)b, (float*)h, seq, width);
+  return (int)cudaGetLastError();
+}
+
+// a, b, h: (batch, seq, width) fp32, contiguous, on the device, any width.
+// Launches the register-loop kernel on `stream` and returns
+// cudaGetLastError().
+extern "C" int rglru_scan_loop_launch(const void* a, const void* b, void* h,
+                                      int batch, long long seq,
+                                      long long width, void* stream) {
   const long long channels = (long long)batch * width;
   const unsigned grid = (unsigned)((channels + kThreads - 1) / kThreads);
-  rglru_scan_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+  rglru_scan_loop<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (float*)h, channels, seq, width);
   return (int)cudaGetLastError();
+}
+
+// The staged kernel's geometry: {channels per block, timesteps per stage,
+// stages in the ring, dynamic shared-memory bytes}.
+extern "C" void rglru_scan_staged_geometry(int* out) {
+  out[0] = kLanes;
+  out[1] = kSteps;
+  out[2] = kStages;
+  out[3] = kSmemBytes;
 }

@@ -25,7 +25,8 @@ from repro.models import attention as RA
 from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.kernels.flash_decode import ops
-from repro_torch.kernels.flash_decode.ref import flash_decode_ref
+from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  flash_decode_split_ref)
 from repro_torch.models import attention as TA
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
@@ -157,23 +158,95 @@ def test_decode_attention_matches_reference(kind, use_pallas, start):
                                atol=1e-5, rtol=1e-4)
 
 
+# Split reference cases: (B, H, K, hd, S, lengths, window). S = 256 is one
+# Pallas block, so the Pallas kernel pads nothing and takes length > S and
+# length 0 as the kernel does.
+SPLIT_CASES = {
+    "all_masked_chunks": (2, 4, 2, 32, 256, [256, 200], 24),
+    "length_0": (2, 4, 1, 32, 256, [0, 130], None),
+    "length_past_s": (2, 4, 2, 32, 256, [300, 257], None),
+    "window": (2, 8, 2, 64, 256, [256, 100], 70),
+    "group_1": (3, 2, 2, 32, 256, [256, 17, 1], None),
+    "group_7": (2, 7, 1, 40, 256, [256, 129], None),
+    "group_16": (2, 16, 1, 32, 256, [255, 64], 40),
+    "hd_24": (2, 4, 1, 24, 256, [256, 99], None),
+    "hd_48": (2, 4, 2, 48, 256, [200, 256], 150),
+    "hd_56": (2, 8, 1, 56, 256, [256, 3], None),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _split_case(name):
+    """Inputs of one case, the port's full softmax and the Pallas kernel's
+    output (fp32)."""
+    b, h, kv, hd, s, lengths, window = SPLIT_CASES[name]
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(b, h, kv, hd, s, seed=hd + s),
+                                       "float32")
+    length = np.array(lengths, np.int32)
+    pallas = np.asarray(pallas_decode(jq, jk, jv, length, window=window))
+    full = flash_decode_ref(tq, tk, tv, torch.from_numpy(length),
+                            window=window).numpy()
+    return (tq, tk, tv, torch.from_numpy(length), window), full, pallas
+
+
+@pytest.mark.parametrize("split", [16, 32, 64, 128, "S"])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_ref_matches_full_softmax_and_pallas(case, split):
+    """The kernel's split-then-combine arithmetic at any split equals the
+    full masked softmax (1e-6) and the Pallas kernel (1e-5): masked
+    chunks, an all-masked row (mean of V), length past S, windows and
+    G ∈ {1, 7, 16}."""
+    (q, k, v, length, window), full, pallas = _split_case(case)
+    got = flash_decode_split_ref(
+        q, k, v, length, window=window,
+        split=k.shape[1] if split == "S" else split).numpy()
+    np.testing.assert_allclose(got, full, atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(got, pallas, atol=1e-5, rtol=1e-5)
+
+
+def test_split_ref_all_masked_row_is_mean_of_v():
+    (q, k, v, length, window), _, _ = _split_case("length_0")
+    got = flash_decode_split_ref(q, k, v, length, window=window, split=32)
+    mean = v[0].mean(dim=0).repeat_interleave(q.shape[1] // k.shape[2], 0)
+    torch.testing.assert_close(got[0], mean, atol=1e-6, rtol=1e-6)
+
+
+# Card cases: (B, H, K, hd, S, lengths, window). The serving shape with a
+# short row and a one-key row; G < 16 (rows of the mma's A operand left
+# zero) and hd % 16 == 8 (a half k-step); a window whose rows leave whole
+# chunks without a valid key; a row with no valid key (mean of V) and one
+# past S; every remainder of hd mod 32 after the mma's 32-dimension steps
+# (24 and 56: a whole 16-dimension step and a half one; 48: one whole).
+CARD_CASES = [
+    (4, 16, 1, 256, 2048, [2048, 2041, 1000, 1], None),
+    (2, 7, 1, 32, 1000, [1000, 611], 300),
+    (2, 7, 1, 40, 333, [333, 0], None),
+    (3, 8, 2, 64, 129, [129, 64, 400], None),
+    (2, 1, 1, 128, 700, [700, 450], 37),
+    (2, 16, 1, 56, 500, [500, 77], None),
+    (2, 8, 2, 48, 300, [300, 129], 100),
+    (2, 4, 1, 24, 200, [200, 65], None),
+]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("b,h,kv,hd,s,window", [
-    (4, 16, 1, 256, 2048, None), (2, 7, 1, 32, 1000, 300),
-    (3, 8, 2, 64, 129, None)])
-def test_kernel_matches_plain_version_on_card(cuda_device, dtype, b, h, kv,
-                                              hd, s, window):
+@pytest.mark.parametrize("case", range(len(CARD_CASES)))
+def test_kernel_matches_plain_version_on_card(cuda_device, dtype, case):
+    """The kernel launches and agrees with the plain masked softmax and
+    with the split reference at the source's keys per block."""
+    b, h, kv, hd, s, lengths, window = CARD_CASES[case]
     tdt = DTYPES[dtype][1]
     atol, rtol = CARD_TOL[dtype]
     q, k, v = (torch.from_numpy(a).to(cuda_device, tdt)
                for a in _qkv(b, h, kv, hd, s, seed=s))
-    length = torch.tensor([s, s // 2, 1, s + 5][:b], dtype=torch.int32,
-                          device=cuda_device)
+    length = torch.tensor(lengths, dtype=torch.int32, device=cuda_device)
     before = ops.flash_decode.launches
     got = ops.flash_decode(q, k, v, length, window=window)
     torch.cuda.synchronize()
     assert ops.flash_decode.launches == before + 1
-    want = flash_decode_ref(q, k, v, length, window=window)
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    for want in (flash_decode_ref(q, k, v, length, window=window),
+                 flash_decode_split_ref(q, k, v, length, window=window,
+                                        split=ops.keys_per_block())):
+        torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                                   rtol=rtol)

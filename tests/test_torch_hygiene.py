@@ -19,7 +19,7 @@ from repro_torch.models.small import MLR
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py"]
 
 
 def _forbidden(name: str) -> bool:

@@ -121,14 +121,51 @@ def test_rglru_state_and_decode_match_reference(s):
                                        **TOL)
 
 
+@pytest.mark.parametrize("shape,path", [
+    ((4, 2040, 4096), "staged"), ((2, 1000, 130), "loop"),
+    ((3, 64, 32), "staged"), ((1, 1, 4), "staged"), ((2, 65, 100), "staged"),
+    ((1, 7, 33), "loop")])
+def test_scan_plan_fits_shared_memory_and_tails(shape, path):
+    """The staged path takes D % 4 == 0 and 16-byte-aligned tensors, as
+    its bulk copies need; any other input takes the register loop. The
+    ring's shared memory and the S and D tails are the source's, held on
+    the card by the shapes of ``test_kernel_matches_plain_version_on_card``
+    (S not a multiple of the stage, D not a multiple of 32)."""
+    assert ops.plan(shape) == path
+    assert ops.plan(shape, aligned=False) == "loop"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 2040, 512), (2, 1000, 130)])
-def test_kernel_matches_plain_version_on_card(cuda_device, shape):
-    """Bit for bit: the same multiply, then add, in the same order."""
+@pytest.mark.parametrize("shape,path", [
+    ((4, 2040, 4096), "staged"), ((2, 1000, 130), "loop"),
+    ((3, 129, 100), "staged"), ((2, 64, 4), "staged"),
+    ((1, 3, 36), "staged")])
+def test_kernel_matches_plain_version_on_card(cuda_device, shape, path):
+    """Bit for bit on both paths: the same multiply, then add, in the same
+    order. S not a multiple of the stage, D not a multiple of 32."""
     a, b = (torch.from_numpy(x).to(cuda_device)
             for x in _ab(*shape, seed=sum(shape)))
     before = ops.rglru_scan.launches
+    by_path = dict(ops.rglru_scan.launches_by_path)
     got = ops.rglru_scan(a, b)
     torch.cuda.synchronize()
     assert ops.rglru_scan.launches == before + 1
+    assert ops.rglru_scan.launches_by_path[path] == by_path[path] + 1
+    assert torch.equal(got, rglru_scan_ref(a, b))
+
+
+@pytest.mark.cuda
+def test_unaligned_tensors_take_the_loop_on_card(cuda_device):
+    """A view 4 bytes past an aligned start cannot feed bulk copies."""
+    shape = (2, 100, 64)
+    a, b = (torch.from_numpy(x).to(cuda_device) for x in _ab(*shape, 3))
+    n = a.numel()
+    a1 = torch.empty(n + 1, device=cuda_device)[1:].view(shape)
+    b1 = torch.empty(n + 1, device=cuda_device)[1:].view(shape)
+    a1.copy_(a)
+    b1.copy_(b)
+    before = ops.rglru_scan.launches_by_path["loop"]
+    got = ops.rglru_scan(a1, b1)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan.launches_by_path["loop"] == before + 1
     assert torch.equal(got, rglru_scan_ref(a, b))
