@@ -1,4 +1,4 @@
-"""Device time of the port's two model-zoo kernels from one tree.
+"""Device time of the port's five kernels from one tree.
 
     python3 scripts/kernel_ab.py --src PATH/src --label parent
     python3 scripts/kernel_ab.py --keys-per-block 32 --label C32
@@ -9,6 +9,9 @@ at the serving path's shapes with ``chip_smoke.device_time_ms`` from this
 repository: ``flash_decode`` on (B, H, K, hd, S) = (4, 16, 1, 256, 2048)
 bf16 over 10 input sets (84 MB, above the 50 MB L2: cold) and over one
 (warm), ``rglru_scan`` on (4, 2040, 4096) fp32 over 2 sets and over one.
+The three RWSADMM updates at the CNN's width (N = 1,068,266): the zone
+round (Z = 8) and the fleet's (K = 3, Z = 8) over 2 sets, one client's
+update over 6 (103 MB), each against one set, with their plain versions.
 Both as the kernels' own device time per call (``torch.profiler``) and as
 CUDA-graph replay time per call. Prints one JSON line. To compare two
 trees, run it once per tree on one card in turns (parent, change,
@@ -80,6 +83,29 @@ def main(argv=None) -> int:
                      "graph_ms_warm": warm["graph"],
                      "kernels_per_call": cold["kernels_per_call"],
                      "by_kernel_cold": cold["by_kernel"]}
+    del sets, scans
+    from repro_torch.core.rwsadmm import RWSADMMHparams
+
+    hp = RWSADMMHparams(beta=100.0)
+    kw = dict(beta=hp.beta, eps_half=hp.eps_half, n_total=100.0)
+    for name, walkers, zone, live in (
+            ("zone_update", 1, 8, (8,)),
+            ("multizone_update", 3, 8, (8, 8, 8)),
+            ("fused_update", 1, 1, (1,))):
+        made = [chip_smoke.kernel_args(name, walkers, zone, chip_smoke.P_CNN,
+                                       live, i, dev)
+                for i in range(chip_smoke.COLD_SETS[name])]
+        t = chip_smoke.time_update_kernel(name, made[0][1],
+                                          [m[0] for m in made], kw)
+        bound = chip_smoke.update_bound(name, zone, chip_smoke.P_CNN,
+                                        made[0][2], row["card"])["bound_ms"]
+        row[name] = {"ms_cold": t["ms"], "ms_warm": t["ms_warm"],
+                     "graph_ms_cold": t["graph_ms"],
+                     "graph_ms_warm": t["graph_ms_warm"],
+                     "plain_ms_cold": t["plain_ms"],
+                     "plain_ms_warm": t["plain_ms_warm"],
+                     "bound_ms": bound, "share_cold": bound / t["ms"]}
+        del made
     print(json.dumps(row), flush=True)
     return 0
 

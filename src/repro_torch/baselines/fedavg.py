@@ -1,0 +1,42 @@
+"""FedAvg (McMahan et al. 2017), the paper's non-personalized benchmark
+(port of ``repro/baselines/fedavg.py``)."""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..fl.base import CohortTrainer, reject_unported
+
+
+class FedAvgState(NamedTuple):
+    w: torch.Tensor   # (P,) global model
+
+
+class FedAvgTrainer(CohortTrainer):
+    name = "fedavg"
+
+    def __init__(self, model, data, *, lr: float = 0.05,
+                 local_steps: int = 10, clients_per_round: int = 10,
+                 batch_size: int = 20, device=None, **unported):
+        reject_unported(unported)
+        super().__init__(model, data, batch_size, device=device)
+        self.lr = lr
+        self.local_steps = local_steps
+        self.m = int(min(clients_per_round, self.n_clients))
+        self.draw_steps = (local_steps,)
+
+    def init_state(self, seed: int = 0, params: torch.Tensor | None = None
+                   ) -> FedAvgState:
+        return FedAvgState(w=self.initial_params(seed, params))
+
+    def _round_impl(self, state: FedAvgState, clients, draws):
+        """Local SGD on every cohort client, then the average weighted by
+        the clients' training-set sizes."""
+        locals_ = self.local_sgd(state.w, clients, self.lr, *draws[0])
+        weights = self.data.n_train[clients].to(torch.float32)
+        weights = weights / torch.sum(weights)
+        return FedAvgState(w=torch.sum(weights[:, None] * locals_, dim=0))
+
+    def global_params(self, state: FedAvgState):
+        return state.w

@@ -1,0 +1,71 @@
+"""Per-FedAvg (Fallah et al. 2020), the first-order MAML variant (port of
+``repro/baselines/perfedavg.py``).
+
+Each local step: w⁺ = w − α∇f(w; ξ₁);  w ← w − β∇f(w⁺; ξ₂).
+Personalized evaluation adapts the global model with one α-step on the
+client's own data, on batches from a fixed seed (the Per-FedAvg
+deployment protocol).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported
+
+#: the fixed seed of the evaluation's adaptation batches (the
+#: reference's ``PRNGKey(1234)``)
+EVAL_SEED = 1234
+
+
+class PerFedAvgState(NamedTuple):
+    w: torch.Tensor   # (P,)
+
+
+class PerFedAvgTrainer(CohortTrainer):
+    name = "perfedavg"
+
+    def __init__(self, model, data, *, alpha: float = 0.03,
+                 beta: float = 0.05, local_steps: int = 10,
+                 clients_per_round: int = 10, batch_size: int = 20,
+                 device=None, **unported):
+        reject_unported(unported)
+        super().__init__(model, data, batch_size, device=device)
+        self.alpha, self.beta = alpha, beta
+        self.local_steps = local_steps
+        self.m = int(min(clients_per_round, self.n_clients))
+        # Two batches a step: block 2t is ξ₁ of step t, 2t + 1 its ξ₂.
+        self.draw_steps = (2 * local_steps,)
+
+    def init_state(self, seed: int = 0, params: torch.Tensor | None = None
+                   ) -> PerFedAvgState:
+        return PerFedAvgState(w=self.initial_params(seed, params))
+
+    def _round_impl(self, state: PerFedAvgState, clients, draws):
+        idx, keep = draws[0]
+        p = state.w.expand(clients.shape[0], -1)
+        for t in range(self.local_steps):
+            _, g1 = self.zone_loss_and_grad(p, clients, idx[2 * t],
+                                            keep_at(keep, 2 * t))
+            p_in = p - self.alpha * g1
+            _, g2 = self.zone_loss_and_grad(p_in, clients, idx[2 * t + 1],
+                                            keep_at(keep, 2 * t + 1))
+            p = p - self.beta * g2
+        return PerFedAvgState(w=cohort_mean(p))
+
+    def adapt(self, w: torch.Tensor, clients, idx, keep=None):
+        """One α-step of the global model on each client's batch ``idx``
+        ``(m, B)``: the personalized models ``(m, P)``."""
+        _, g = self.zone_loss_and_grad(w.expand(clients.shape[0], -1),
+                                       clients, idx, keep)
+        return w - self.alpha * g
+
+    def personalized_params(self, state: PerFedAvgState, rows: slice):
+        clients = torch.arange(self.n_clients, device=self.device)
+        idx, keep = self.batch_draws(clients, self.round_generator(EVAL_SEED))
+        return self.adapt(state.w, clients[rows], idx[rows],
+                          keep_at(keep, rows))
+
+    def global_params(self, state: PerFedAvgState):
+        return state.w

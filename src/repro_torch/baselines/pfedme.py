@@ -1,0 +1,75 @@
+"""pFedMe (Dinh et al. 2020), Moreau-envelope personalization (port of
+``repro/baselines/pfedme.py``).
+
+Per selected client, R local rounds; each solves the prox subproblem
+θ̃ ≈ argmin_θ f_i(θ; ξ) + (λ/2)||θ − w_i||² with K inner SGD steps on one
+minibatch, then w_i ← w_i − ηλ(w_i − θ̃). Server: w ← (1−β)w + β·mean(w_i).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported
+
+#: the fixed seed of the evaluation's prox batches (the reference's
+#: ``PRNGKey(99)``)
+EVAL_SEED = 99
+
+
+class PFedMeState(NamedTuple):
+    w: torch.Tensor   # (P,)
+
+
+class PFedMeTrainer(CohortTrainer):
+    name = "pfedme"
+
+    def __init__(self, model, data, *, lam: float = 15.0,
+                 inner_lr: float = 0.05, inner_steps: int = 5,
+                 local_rounds: int = 5, eta: float = 0.05,
+                 server_beta: float = 1.0, clients_per_round: int = 10,
+                 batch_size: int = 20, device=None, **unported):
+        reject_unported(unported)
+        super().__init__(model, data, batch_size, device=device)
+        self.m = int(min(clients_per_round, self.n_clients))
+        self.lam, self.inner_lr = lam, inner_lr
+        self.inner_steps, self.local_rounds = inner_steps, local_rounds
+        self.eta, self.server_beta = eta, server_beta
+        self.draw_steps = (local_rounds,)   # one batch per prox solve
+
+    def init_state(self, seed: int = 0, params: torch.Tensor | None = None
+                   ) -> PFedMeState:
+        return PFedMeState(w=self.initial_params(seed, params))
+
+    def prox_solve(self, w_i: torch.Tensor, clients, idx, keep=None):
+        """K inner SGD steps from θ = w_i ``(m, P)`` on
+        h(θ) = f(θ; ξ) + λ/2||θ − w_i||², one batch ``idx`` ``(m, B)``
+        (and one set of keep masks) for all K, as pFedMe samples."""
+        theta = w_i
+        for _ in range(self.inner_steps):
+            _, gf = self.zone_loss_and_grad(theta, clients, idx, keep)
+            # ∇ of (λ/2)·Σ(θ − w)² rounded as the reference's autodiff
+            # rounds it: (0.5·λ) · (2·(θ − w)).
+            g = gf + (0.5 * self.lam) * (2.0 * (theta - w_i))
+            theta = theta - self.inner_lr * g
+        return theta
+
+    def _round_impl(self, state: PFedMeState, clients, draws):
+        idx, keep = draws[0]
+        w_i = state.w.expand(clients.shape[0], -1)
+        for r in range(self.local_rounds):
+            theta = self.prox_solve(w_i, clients, idx[r], keep_at(keep, r))
+            w_i = w_i - self.eta * self.lam * (w_i - theta)
+        sb = self.server_beta
+        return PFedMeState(w=(1.0 - sb) * state.w + sb * cohort_mean(w_i))
+
+    def personalized_params(self, state: PFedMeState, rows: slice):
+        clients = torch.arange(self.n_clients, device=self.device)
+        idx, keep = self.batch_draws(clients, self.round_generator(EVAL_SEED))
+        w = state.w.expand(self.n_clients, -1)[rows]
+        return self.prox_solve(w, clients[rows], idx[rows],
+                               keep_at(keep, rows))
+
+    def global_params(self, state: PFedMeState):
+        return state.w

@@ -11,6 +11,8 @@ to import the other.
 The walker fleet uses them unchanged: it starts from the same flat
 ``(P,)`` params (``FleetRWSADMMTrainer.init_state(params=...)``), and its
 ``(K, P)`` token stack is that vector repeated per walker.
+``baseline_state_from_reference`` carries a whole baseline trainer's
+state over, so both packages start a round from the same weights.
 """
 from __future__ import annotations
 
@@ -63,6 +65,44 @@ def flat_to_reference(flat: torch.Tensor, layout: ParamLayout
                       ) -> dict[str, dict]:
     """Flat ``(P,)`` vector → nested dict of numpy arrays."""
     return state_to_reference(layout.views(flat))
+
+
+def _flat_rows(tree: Mapping, batch_dims: int, device=None) -> torch.Tensor:
+    """Nested dict of leaves with ``batch_dims`` leading axes → one
+    ``(*lead, P)`` fp32 tensor in layout order (``_walk``'s sorted keys
+    are the layout's order)."""
+    parts = []
+    for _, leaf in _walk(tree):
+        arr = np.asarray(leaf, np.float32)
+        parts.append(arr.reshape(arr.shape[:batch_dims] + (-1,)))
+    return torch.as_tensor(np.concatenate(parts, axis=-1), device=device)
+
+
+def baseline_state_from_reference(name: str, state, device=None):
+    """A reference baseline's state (its NamedTuple with array-like
+    leaves) → the port's flat state of the same name: ``w`` ``(P,)`` and,
+    for Ditto and APFL, ``v`` ``(n, P)``; for Walkman the clients' x and
+    z ``(n, P)``, the token y ``(P,)`` and the round."""
+    from .baselines import apfl, ditto, fedavg, perfedavg, pfedme
+    from .baselines.walkman_trainer import WalkmanState
+    from .core.walkman import WalkmanClientState
+
+    if name == "walkman":
+        return WalkmanState(
+            clients=WalkmanClientState(
+                x=_flat_rows(state.clients.x, 1, device),
+                z=_flat_rows(state.clients.z, 1, device)),
+            y=_flat_rows(state.y, 0, device),
+            round=torch.tensor(int(np.asarray(state.round)),
+                               dtype=torch.int32, device=device))
+    states = {"fedavg": fedavg.FedAvgState,
+              "perfedavg": perfedavg.PerFedAvgState,
+              "pfedme": pfedme.PFedMeState, "ditto": ditto.DittoState,
+              "apfl": apfl.APFLState}
+    fields = {"w": _flat_rows(state.w, 0, device)}
+    if name in ("ditto", "apfl"):
+        fields["v"] = _flat_rows(state.v, 1, device)
+    return states[name](**fields)
 
 
 def load_reference(module: torch.nn.Module, ref_params: Mapping) -> None:

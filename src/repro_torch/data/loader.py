@@ -48,6 +48,20 @@ def build_federated(
     return _stack(clients)
 
 
+def build_federated_from_pairs(
+    per_client: list[tuple[np.ndarray, np.ndarray]],
+    *,
+    test_frac: float = 0.25,
+    seed: int = 0,
+) -> FederatedData:
+    """For generators that already emit per-client data (Synthetic(α,β))."""
+    clients = []
+    for k, (x, y) in enumerate(per_client):
+        tr, te = train_test_split_indices(len(y), test_frac, seed + k)
+        clients.append((x[tr], y[tr], x[te], y[te]))
+    return _stack(clients)
+
+
 def _stack(clients) -> FederatedData:
     max_tr = max(len(c[1]) for c in clients)
     max_te = max(len(c[3]) for c in clients)

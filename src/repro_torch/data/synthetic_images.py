@@ -49,6 +49,10 @@ def make_image_dataset(
     return imgs, labels
 
 
+def make_mnist_like(n_samples: int = 12_000, seed: int = 0):
+    return make_image_dataset(n_samples, shape=(28, 28, 1), seed=seed)
+
+
 def make_cifar_like(n_samples: int = 12_000, seed: int = 0):
     return make_image_dataset(n_samples, shape=(32, 32, 3), noise=0.6,
                               seed=seed)

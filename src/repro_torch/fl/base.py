@@ -1,11 +1,12 @@
 """Shared FL trainer substrate (port of ``repro/fl/base.py``, dense plane).
 
-Client data sits on the device as padded stacks. Each zone round samples
+Client data sits on the device as padded stacks. Each round samples
 minibatch indices from a ``torch.Generator`` seeded by the round's seed
-(one row per zone slot), gathers the batches, and takes every active
-client's loss and gradient at once with ``torch.func.vmap`` over
-``grad(functional_call)``. Sampling is split from the gradient step, so
-a caller can hand in its own indices.
+(one row per zone slot or cohort client, one block per local step),
+gathers the batches, and takes every active client's loss and gradient
+at once with ``torch.func.vmap`` over ``grad(functional_call)``.
+Sampling is split from the gradient step, so a caller can hand in its
+own indices.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 from torch.func import functional_call, grad_and_value, vmap
 
 from .. import resolve_device
+from ..core.markov import round_key_seed
 from ..core.tree import ParamLayout
 from ..data.loader import FederatedData
 from ..models.small import SmallModel, accuracy, cross_entropy
@@ -140,6 +142,41 @@ def gather_batch(data: DeviceData, clients: torch.Tensor,
 #: clients evaluated per vmapped batch (bounds activation memory)
 EVAL_CHUNK = 32
 
+#: the reference trainers' arguments the port does not take yet, and the
+#: ROADMAP Queue 1 item that brings each
+UNPORTED = {
+    "scenario": "item 2 (scenarios and pricing)",
+    "telemetry": "item 7 (telemetry)",
+    "store_capacity": "item 7 (the lazy plane)",
+    "prefetch": "item 7 (the lazy plane)",
+    "mesh": "item 8.7 (mesh and sharding)",
+}
+
+
+def reject_unported(kwargs: dict) -> None:
+    """Raise for any argument of the reference's trainers that the port
+    does not take yet, naming the ROADMAP item that brings it."""
+    for name in kwargs:
+        if name not in UNPORTED:
+            raise TypeError(f"unexpected keyword argument {name!r}")
+        raise NotImplementedError(
+            f"{name}= is not ported yet (ROADMAP Queue 1 "
+            f"{UNPORTED[name]})")
+
+
+def keep_at(keep, t):
+    """The dropout keep masks at index ``t`` of their leading axis (a
+    local step, or a slice of clients), or None for a model without
+    dropout."""
+    return None if keep is None else tuple(k[t] for k in keep)
+
+
+def cohort_mean(rows: torch.Tensor) -> torch.Tensor:
+    """Mean over the leading (cohort or walker) axis as the sum times
+    1/m: how the reference's mean rounds (XLA turns its division into
+    that product)."""
+    return rows.sum(dim=0) * (1.0 / rows.shape[0])
+
 
 class TrainerBase:
     """Common plumbing: device, flat layout, per-client gradients, eval."""
@@ -148,6 +185,10 @@ class TrainerBase:
 
     def __init__(self, model: SmallModel, data: DeviceData,
                  batch_size: int = 20, *, device=None):
+        if not isinstance(data, DeviceData):
+            raise NotImplementedError(
+                "the port takes stacked DeviceData only; a client data "
+                f"factory needs ROADMAP Queue 1 {UNPORTED['store_capacity']}")
         self.device = resolve_device(device)
         if data.device.type != self.device.type:
             raise ValueError(f"data lives on {data.device}, trainer runs "
@@ -175,23 +216,45 @@ class TrainerBase:
         self._eval_stacked = vmap(eval_row, in_dims=(0, 0, 0, 0))
         self._eval_shared = vmap(eval_row, in_dims=(None, 0, 0, 0))
 
-    # -- sampling + gradients ---------------------------------------------
+    # -- state, sampling + gradients ----------------------------------------
+    def initial_params(self, seed: int = 0,
+                       params: torch.Tensor | None = None) -> torch.Tensor:
+        """Flat ``(P,)`` fp32 params on the device: ``params`` if given,
+        else the model init drawn from a CPU generator seeded with
+        ``seed``."""
+        if params is None:
+            init = self.model.init_params(torch.Generator().manual_seed(seed))
+            params = self.layout.flatten(init)
+        return params.to(device=self.device, dtype=torch.float32)
+
+    def select_clients(self, rnd: int, rng: np.random.Generator,
+                       m: int) -> np.ndarray:
+        """Uniform cohort of ``m`` distinct clients, consuming ``rng``
+        exactly like the reference's ``rng.choice(n, m, replace=False)``
+        (its no-scenario branch; churn-aware selection comes with
+        scenarios, ROADMAP Queue 1 item 2)."""
+        return rng.choice(self.n_clients, size=m, replace=False)
+
     def round_generator(self, seed: int) -> torch.Generator:
         """The trainer's generator, reseeded with one round's seed."""
         return self._generator.manual_seed(int(seed))
 
-    def zone_batch_indices(self, clients: torch.Tensor, seed: int,
-                           steps: int | None = None):
-        """Batch indices (and the CNN's dropout keep masks) for a zone,
-        drawn from the round's seeded generator: indices first, then one
-        set of masks per step."""
-        gen = self.round_generator(seed)
+    def batch_draws(self, clients: torch.Tensor, gen: torch.Generator,
+                    steps: int | None = None):
+        """Batch indices ``(Z, B)`` (``(steps, Z, B)`` for an inner loop)
+        and the CNN's dropout keep masks for ``clients``, drawn from
+        ``gen``: indices first, then the masks of every step."""
         idx = sample_batch_indices(self.data.n_train[clients],
                                    self.batch_size, gen, steps)
         lead = (clients.shape[0],) if steps is None \
             else (steps, clients.shape[0])
         keep = self.model.draw_keep(self.batch_size, gen, self.device, lead)
         return idx, (keep or None)
+
+    def zone_batch_indices(self, clients: torch.Tensor, seed: int,
+                           steps: int | None = None):
+        """:meth:`batch_draws` from the round's seeded generator."""
+        return self.batch_draws(clients, self.round_generator(seed), steps)
 
     def zone_loss_and_grad(self, x: torch.Tensor, clients: torch.Tensor,
                            idx: torch.Tensor, keep=None):
@@ -201,6 +264,20 @@ class TrainerBase:
         params = self.layout.views(x)
         grads, losses = self._grad_zone(params, xb, yb, keep)
         return losses, self.layout.flatten(grads, batch_dims=1)
+
+    def local_sgd(self, w: torch.Tensor, clients: torch.Tensor, lr: float,
+                  idx: torch.Tensor, keep=None) -> torch.Tensor:
+        """Every cohort client's local SGD from ``w`` (``(P,)`` shared or
+        ``(m, P)``): ``idx.shape[0]`` steps p ← p − lr·∇f(p; ξ_t) on the
+        batches ``idx`` ``(T, m, B)`` with keep masks ``(T, m, …)``
+        (the reference's ``make_local_sgd``, vmapped over the cohort).
+        Returns ``(m, P)``; each step replaces the cohort's rows."""
+        p = w.expand(clients.shape[0], -1)
+        for t in range(idx.shape[0]):
+            _, g = self.zone_loss_and_grad(p, clients, idx[t],
+                                           keep_at(keep, t))
+            p = p - lr * g
+        return p
 
     # -- evaluation ---------------------------------------------------------
     def personalized_params(self, state, rows: slice) -> torch.Tensor | None:
@@ -253,3 +330,33 @@ class TrainerBase:
     def comm_bytes_per_round(self, participants: int) -> int:
         """Default: each participant downloads + uploads one model copy."""
         return int(2 * participants * self.params_bytes())
+
+
+class CohortTrainer(TrainerBase):
+    """The FedAvg family's round (port of the baselines' shared
+    ``round``): a cohort of ``m`` distinct clients, then one seed for the
+    round's sampler, both drawn from the host RNG as the reference draws
+    them. A subclass sets ``m`` and ``draw_steps`` (the local steps of
+    each batch block it draws) and implements :meth:`_round_impl`."""
+
+    m: int
+    draw_steps: tuple[int, ...]
+
+    def round_draws(self, clients: torch.Tensor, seed: int) -> tuple:
+        """One ``(idx (T, m, B), keep)`` block per entry of
+        ``draw_steps``, in order, from the round's seeded generator."""
+        gen = self.round_generator(seed)
+        return tuple(self.batch_draws(clients, gen, steps)
+                     for steps in self.draw_steps)
+
+    def _round_impl(self, state, clients: torch.Tensor, draws: tuple):
+        raise NotImplementedError  # pragma: no cover
+
+    def round(self, state, rnd: int, rng: np.random.Generator):
+        sel = self.select_clients(rnd, rng, self.m)
+        seed = round_key_seed(rng)
+        clients = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
+        state = self._round_impl(state, clients,
+                                 self.round_draws(clients, seed))
+        return state, {"round": rnd,
+                       "comm_bytes": self.comm_bytes_per_round(self.m)}

@@ -38,7 +38,7 @@ from ..core import markov, rwsadmm
 from ..core.markov import FleetZoneSchedule, RandomWalkServer
 from ..core.rwsadmm import ClientState, RWSADMMHparams
 from ..kernels.rwsadmm_update import ops as fused_ops
-from .base import DeviceData
+from .base import DeviceData, cohort_mean
 from .rwsadmm_trainer import RWSADMMState, RWSADMMTrainer
 
 FLEET_MODES = ("roundrobin", "simultaneous")
@@ -53,19 +53,13 @@ class FleetState(NamedTuple):
     tokens: torch.Tensor
 
 
-def _fleet_mean(tokens: torch.Tensor) -> torch.Tensor:
-    """``(1, P)`` mean of the token stack, as the sum times 1/K: how the
-    reference's mean rounds (XLA turns its division by K into that
-    product). A last-bit difference in a token would flip sgn(y − x)
-    wherever a client still holds x = y, and move that x by ε at its next
-    visit."""
-    return tokens.sum(dim=0, keepdim=True) * (1.0 / tokens.shape[0])
-
-
 def _rendezvous(tokens: torch.Tensor, sync: torch.Tensor) -> torch.Tensor:
     """Where ``sync`` > 0 every walker's token becomes the fleet mean,
-    else the stack passes through. ``sync`` is a 0-d device tensor."""
-    return torch.where(sync > 0, _fleet_mean(tokens), tokens)
+    else the stack passes through. ``sync`` is a 0-d device tensor. The
+    mean must round as the reference's: a last-bit difference in a token
+    would flip sgn(y − x) wherever a client still holds x = y, and move
+    that x by ε at its next visit."""
+    return torch.where(sync > 0, cohort_mean(tokens), tokens)
 
 
 class FleetRWSADMMTrainer(RWSADMMTrainer):
@@ -306,7 +300,7 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
                            self.global_params(state))
 
     def global_params(self, state: FleetState):
-        return _fleet_mean(state.tokens)[0]
+        return cohort_mean(state.tokens)
 
     def fleet_hitting_time(self) -> int | None:
         """Wall-clock steps until the union of the walkers' visits covers

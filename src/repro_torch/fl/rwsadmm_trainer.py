@@ -107,10 +107,7 @@ class RWSADMMTrainer(TrainerBase):
                    ) -> RWSADMMState:
         """Fresh state. ``params`` (flat ``(P,)``) overrides the model init
         drawn from a CPU generator seeded with ``seed``."""
-        if params is None:
-            init = self.model.init_params(torch.Generator().manual_seed(seed))
-            params = self.layout.flatten(init)
-        params = params.to(device=self.device, dtype=torch.float32)
+        params = self.initial_params(seed, params)
         if self.warm_init:
             clients, server = rwsadmm.init_states_warm(params, self.hp,
                                                        self.n_clients)

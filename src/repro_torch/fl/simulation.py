@@ -68,6 +68,9 @@ def run_simulation(trainer: TrainerBase, *, rounds: int = 100,
                 _snapshot(trainer, state, r + 1, total_comm, history,
                           verbose, trainer.name)
     else:
+        if not hasattr(trainer, "run_chunk"):
+            raise ValueError(f"trainer {trainer.name!r} has no scan driver; "
+                             "use engine='eager'")
         trainer._engine_use_fused(engine)   # validate before any work
         r = 0
         while r < rounds:

@@ -168,6 +168,15 @@ class CNN(SmallModel):
         return self.out(x)
 
 
+def get_model(name: str, input_shape, n_classes: int = 10) -> SmallModel:
+    """The paper's model by name (``mlr``, ``mlp`` or ``cnn``) at its
+    published widths."""
+    models = {"mlr": MLR, "mlp": MLP, "cnn": CNN}
+    if name.lower() not in models:
+        raise ValueError(f"unknown small model {name!r}")
+    return models[name.lower()](input_shape, n_classes)
+
+
 # ------------------------------------------------------------- losses -----
 def cross_entropy(logits, labels, mask=None):
     """Mean negative log-likelihood; with ``mask``, over masked rows."""

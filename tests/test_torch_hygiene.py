@@ -1,7 +1,10 @@
 """The port stands alone: no JAX and nothing of ``repro`` in its import
 graph, and its entry points default to the GPU instead of quietly running
-on the CPU."""
+on the CPU. The Table 1 and quickstart twins run end to end on the CPU at
+a few rounds."""
 import ast
+import importlib.util
+import math
 import pathlib
 import subprocess
 import sys
@@ -18,8 +21,11 @@ from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
 from repro_torch.models.small import MLR
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+TWINS = {"table1": ROOT / "benchmarks" / "table1_torch.py",
+         "quickstart": ROOT / "examples" / "quickstart_torch.py"}
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py"]
+    ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py",
+    *TWINS.values()]
 
 
 def _forbidden(name: str) -> bool:
@@ -52,6 +58,8 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.kernels.flash_decode.ops\n"
         "import repro_torch.kernels.rglru_scan.ops\n"
         "import repro_torch.launch.serve, repro_torch.models.registry\n"
+        "import repro_torch.baselines\n"
+        "import benchmarks.table1_torch, examples.quickstart_torch\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -78,3 +86,32 @@ def test_default_device_is_cuda():
         RWSADMMTrainer(MLR((4, 4, 1)), data)
     assert np.isfinite(RWSADMMTrainer(MLR((4, 4, 1)), data,
                                       device="cpu").params_bytes())
+
+
+def _load(path: pathlib.Path):
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("twin", sorted(TWINS))
+def test_twin_runs_on_cpu(twin, tmp_path, capsys):
+    """Each twin end to end at 2 rounds with ``device="cpu"``: finite
+    results, and the lines the reference's entry point prints."""
+    module = _load(TWINS[twin])
+    if twin == "quickstart":
+        res, fed_res = module.main(rounds=2, device="cpu")
+        assert math.isfinite(res.final["loss_personalized"])
+        assert math.isfinite(fed_res.final["loss_global"])
+        assert "RWSADMM comm/round" in capsys.readouterr().out
+        return
+    algos = module.ALGOS + ["rwsadmm_cf", "walkman"]
+    rows = module.run(rounds=2, out_dir=str(tmp_path), device="cpu",
+                      algos=algos)
+    assert [(r["dataset"], r["model"], r["algo"]) for r in rows] == [
+        (d, m, a) for d in ("mnist_like", "synthetic")
+        for m in ("mlr", "mlp") for a in algos]
+    assert all(math.isfinite(r["loss"]) and r["comm_mb"] > 0 for r in rows)
+    assert [r["rounds"] for r in rows[:len(algos)]] == [2] * 7 + [8]
+    assert (tmp_path / "table1_torch.csv").read_text().count("\n") == 33
