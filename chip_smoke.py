@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. device — needs CUDA; prints the card's name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions.
 2. build — builds the kernels from ``src/repro_torch`` with ``nvcc``, one
-   process per source, all at once (three sources, five kernels), and
+   process per source, all at once (four sources, six kernels), and
    prints ptxas's registers, spills and static shared memory per entry.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card at the paths' shapes and at odd ones, and times the first row of
@@ -21,13 +21,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    steps). Every kernel by device time over input sets that together
    exceed the L2 (cold) and over one set (warm), with CUDA-graph replay
    beside; one ``scaled_dot_product_attention`` call timed the same way
-   as flash decode's yardstick.
+   as flash decode's yardstick. Then ``threefry`` (the port of
+   ``jax.random``'s sampler): its three entries bit for bit against the
+   plain integer ops at the CNN round's mask, key and ``randint``
+   shapes, and one round's draws timed beside their bound.
 4. single-walker path — RWSADMM through ``run_simulation`` on the
    paper's CIFAR-10 CNN at full width (P = 1,068,266), n = 100 clients,
-   zone 8, batch 20, ``closed_form`` + ``engine="scan_fused"``; checks
-   finite losses, the accuracy report and that the zone kernel ran once
-   per round; then ``eager`` from the same seed and weights must agree
-   with ``scan_fused``.
+   zone 8, batch 20, ``closed_form`` + ``engine="scan_fused"``: the
+   window runs as one CUDA graph (a warm-up round, the capture, one
+   replay); checks finite losses, the accuracy report and that the zone
+   and threefry kernels ran once (six times) per round; steady ms per
+   engine with each window's replays, the kernels it launches and the
+   device's busy share; then ``eager`` from the same seed and weights
+   must agree with ``scan_fused``.
 5. fleet path — the same model and data under a K = 3 walker fleet in
    simultaneous mode (``sync_every=10``): 50 wall steps of ``scan_fused``
    with one multi-zone launch each, steady times per engine, a profile,
@@ -35,13 +41,27 @@ Phases (each prints its own lines; any failure exits non-zero):
    launch the zone kernel.
 6. single-client op — one client's update through ``ops.fused_update``
    at the CNN's width, launched once.
-7. baselines — the paper's baselines on the card, launching no kernel of
-   the port: the reference's accuracy gates (``tests/test_fl_trainers.py``
+6a. captured windows — on the same CNN, with cuDNN deterministic: the
+   captured ``scan`` equals ``eager`` and the captured ``scan_fused``
+   equals the same rounds run uncaptured (``_round_impl``, or the
+   fleet's step, in a loop), bit for bit, over two windows (the second a
+   replay), for the single walker and the K = 3 fleet in both modes.
+6b. device parity — one seed on the card and on the host's CPU (TF32
+   off): five rounds' batch indices and keep masks bit for bit equal
+   (MLR, MLP, both solvers, the CNN), x, z, y after one eager round
+   within 1e-6 (MLR and MLP on ``closed_form``); the gaps after five
+   rounds printed, not gated.
+6c. scaling twins — ``benchmarks/scan_scaling_torch.py`` and
+   ``benchmarks/fleet_scaling_torch.py`` at their smoke sizes.
+7. baselines — the paper's baselines on the card, launching no update
+   kernel (their draws go through threefry): the reference's accuracy
+   gates (``tests/test_fl_trainers.py``
    at its settings), each run's cohorts, Walkman's visited clients and
    ``comm_bytes`` equal to a numpy replay of the seed's host draws; the
    Table 1 grid through ``benchmarks/table1_torch.py`` (2 datasets × MLR,
    MLP × the six algorithms and ``rwsadmm_cf``, whose rows launch the
-   zone kernel once a round; RWSADMM's rank printed, not gated; one
+   zone kernel; RWSADMM's rank printed beside the reference's seed-0
+   cells, not gated; one
    ``rwsadmm_cf`` row again with the kernel's plain version in its place,
    final state held at 1e-6); then
    every baseline on the CNN path's configuration: rounds/s, steady ms
@@ -217,11 +237,26 @@ def _wrappers():
     from repro_torch.kernels.flash_decode.ops import flash_decode
     from repro_torch.kernels.rglru_scan.ops import rglru_scan
     from repro_torch.kernels.rwsadmm_update import ops
+    from repro_torch.kernels.threefry import ops as tf
 
     return {"zone_update": ops.zone_fused_update,
             "multizone_update": ops.multizone_fused_update,
             "fused_update": ops.fused_update,
-            "rglru_scan": rglru_scan, "flash_decode": flash_decode}
+            "rglru_scan": rglru_scan, "flash_decode": flash_decode,
+            "threefry_bits": tf.threefry_bits,
+            "threefry_bernoulli": tf.threefry_bernoulli,
+            "threefry_randint": tf.threefry_randint}
+
+
+#: the threefry entries, reported as one kernel
+THREEFRY = ("threefry_bits", "threefry_bernoulli", "threefry_randint")
+#: launches of each entry in one round of the CNN (a zone or the fleet's
+#: K zones): split + fold_in(·, 1) + fold_in(·, 2); two keep masks; the
+#: batch indices
+THREEFRY_PER_ROUND = {"threefry_bits": 3, "threefry_bernoulli": 2,
+                      "threefry_randint": 1}
+#: the update kernels, which the baselines never launch
+UPDATES = ("zone_update", "multizone_update", "fused_update")
 
 
 def launch_counts() -> dict:
@@ -250,18 +285,19 @@ def phase_build() -> dict:
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.rglru_scan import ops as rg_ops
     from repro_torch.kernels.rwsadmm_update import ops as rw_ops
+    from repro_torch.kernels.threefry import ops as tf_ops
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         libs = list(pool.map(lambda ops: ops.build(),
-                             (rw_ops, rg_ops, fd_ops)))
+                             (rw_ops, rg_ops, fd_ops, tf_ops)))
     seconds = time.perf_counter() - t0
     entries = {}
     for lib in libs:
         entries.update(ptxas_entries(lib))
         for entry, info in ptxas_entries(lib).items():
             log(f"ptxas {lib.name.split('-')[0]}: {entry} {info}")
-    log(f"build: 5 kernels from 3 sources in {seconds:.2f} s "
+    log(f"build: 6 kernels from 4 sources in {seconds:.2f} s "
         f"({', '.join(l.name for l in libs)}); ptxas reports "
         f"{len(entries)} entries")
     return entries
@@ -492,6 +528,133 @@ def phase_kernels(hp, device, card: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# threefry: the port of jax.random's sampler (no TPU kernel; XLA fuses the
+# reference's draws into its compiled round).
+#: 32-bit integer operations of one threefry2x32 hash: 2 key adds, 20
+#: rounds of add, rotate and xor, 5 key injections of 3 adds
+HASH_OPS = 77
+SPANS = (1, 7, 150, 600, 4999, 70_000, 2**31 - 1, 0)
+
+
+def threefry_cases(key, keys, spans, shapes, probs):
+    """The entries' calls of one round, each as (label, kernel call,
+    plain call): the zone's keys, their fold-ins, both keep masks, the
+    raw bits of the conv mask's counters and the batch indices."""
+    from repro_torch.kernels.threefry import ops as tf
+    from repro_torch.kernels.threefry import ref
+
+    n_conv, n_dense = (math.prod(shape) for shape in shapes)
+    slots, batch = keys.shape[0], shapes[1][0]
+    return [
+        ("split", lambda: tf.threefry_bits(key, slots, pair=True),
+         lambda: ref.bits_ref(key, slots, 0, True)),
+        ("fold_in", lambda: tf.threefry_bits(keys, 1, offset=1, pair=True),
+         lambda: ref.bits_ref(keys, 1, 1, True)),
+        ("bits", lambda: tf.threefry_bits(keys, n_conv),
+         lambda: ref.bits_ref(keys, n_conv)),
+        ("bernoulli_conv",
+         lambda: tf.threefry_bernoulli(keys, n_conv, probs[0]),
+         lambda: ref.bernoulli_ref(keys, n_conv, probs[0])),
+        ("bernoulli_dense",
+         lambda: tf.threefry_bernoulli(keys, n_dense, probs[1]),
+         lambda: ref.bernoulli_ref(keys, n_dense, probs[1])),
+        ("randint", lambda: tf.threefry_randint(keys, batch, spans),
+         lambda: ref.randint_ref(keys, batch, spans))]
+
+
+def round_draws(key, spans, shapes, probs, plain: bool):
+    """One CNN round's draws from its key (1, 2): the zone's keys, the
+    batch indices and both keep masks, through the kernels or their
+    plain versions."""
+    from repro_torch.kernels.threefry import ops as tf
+    from repro_torch.kernels.threefry import ref
+
+    bits, randint, bernoulli = (
+        (ref.bits_ref, ref.randint_ref, ref.bernoulli_ref) if plain else
+        (tf.threefry_bits, tf.threefry_randint, tf.threefry_bernoulli))
+    slots = spans.shape[0]
+    keys = bits(key, slots, 0, True).view(slots, 2)
+    idx = randint(keys, shapes[1][0], spans)
+    return idx, [bernoulli(bits(keys, 1, i + 1, True).view(slots, 2),
+                           math.prod(shape), p)
+                 for i, (shape, p) in enumerate(zip(shapes, probs))]
+
+
+def phase_threefry(device, model, data, card: str) -> list:
+    """The threefry entries bit for bit against the plain integer ops
+    (``kernels/threefry/ref.py``, run on the card) at the CNN's shapes: a
+    zone of 8 slots and the K = 3 fleet's 24, the clients' spans and the
+    edge spans (1, 2^31 − 1, 0); then one zone round's draws timed by
+    device time beside their bound and the plain version's."""
+    import torch
+
+    from repro_torch.core import prng
+
+    batch = MAIN["batch"]
+    shapes, probs = model.dropout_shapes(batch), model.keep_probs
+    rows = []
+    for slots, spans in ((MAIN["zone"], None), (3 * MAIN["zone"], None),
+                         (len(SPANS), torch.tensor(SPANS, device=device))):
+        key = prng.prng_key(1000 + slots, device)[None]
+        keys = prng.split(key[0], slots)
+        if spans is None:
+            clients = torch.arange(slots, device=device) % data.n_clients
+            spans = data.n_train[clients]
+        errs = {}
+        for label, kernel, plain in threefry_cases(key, keys, spans, shapes,
+                                                   probs):
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"threefry {label} at {slots} keys "
+                                     "differs from its plain version")
+            errs[label] = float((got.long() - want.long()).abs().max())
+        rows.append({"shape": f"{slots} keys, batch {batch}, masks "
+                              f"{[list(sh) for sh in shapes]}",
+                     "err": errs, "max_abs_err": max(errs.values())})
+        log(f"kernel threefry {rows[-1]['shape']}: every entry bitwise "
+            f"equal to its plain version (max_abs_err {errs})")
+
+    spans = data.n_train[torch.arange(MAIN["zone"], device=device)]
+    key = prng.prng_key(7, device)[None]
+    timed = device_time_ms(
+        [lambda: round_draws(key, spans, shapes, probs, plain=False)], 50)
+    plain = device_time_ms(
+        [lambda: round_draws(key, spans, shapes, probs, plain=True)], 3,
+        graph=False)
+    n_mask = MAIN["zone"] * sum(math.prod(sh) for sh in shapes)
+    n_idx = MAIN["zone"] * batch
+    # Reads the round key and the zone's spans; writes the indices
+    # (int64) and the keep masks (bool). Each mask element takes one hash
+    # and 4 more operations, each index two hashes (under the key's two
+    # halves) and ~10 (two remainders, a multiply, an add, a remainder).
+    bytes_moved = 16 + 8 * MAIN["zone"] + 8 * n_idx + n_mask
+    ops = n_mask * (HASH_OPS + 4) + n_idx * (2 * HASH_OPS + 10)
+    rate, rate_src = hbm_rate(card)
+    bytes_ms = bytes_moved / rate * 1e3
+    ops_ms = ops / FP32_FLOP_PER_S * 1e3
+    row = rows[0]
+    row.update({"ms": timed["profiler"], "graph_ms": timed["graph"],
+                "kernels_per_call": timed["kernels_per_call"],
+                "plain_ms": plain["profiler"],
+                "plain_kernels_per_call": plain["kernels_per_call"],
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bound_rate": f"{rate_src}; 32-bit integer operations at "
+                              f"the fp32 CUDA-core peak",
+                "bytes": bytes_moved, "ops": ops, "library_ms": None})
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    log(f"kernel threefry, one zone round's draws ({MAIN['zone']} keys, "
+        f"{n_idx} indices, {n_mask:,} keep bits): device ms "
+        f"{row['ms']:.5f} in {row['kernels_per_call']:.0f} launches, graph "
+        f"{row['graph_ms']:.5f}; plain device ms {row['plain_ms']:.4f} in "
+        f"{row['plain_kernels_per_call']:.0f} kernels; bound_ms "
+        f"{row['bound_ms']:.5f} ({row['bound_by']}: {bytes_moved:,} bytes, "
+        f"{ops:,} operations) share {row['share_of_bound']:.3f}")
+    return rows
+
+
+# ---------------------------------------------------------------------------
 def build_main_path(device, seed: int):
     from repro_torch.core.rwsadmm import RWSADMMHparams
     from repro_torch.data import build_federated, pathological_split
@@ -549,15 +712,27 @@ def check_run(res, rounds: int, label: str) -> tuple[list, float]:
     return losses, acc
 
 
-def drive(trainer, rounds: int, seed: int, expect: dict, label: str):
-    """One ``run_simulation`` of ``scan_fused`` with every launch count
-    set to 0 just before and read just after; the counts must equal
-    ``expect``."""
+def window_launches(trainer) -> dict:
+    """Kernel launches that a trainer's captured windows ran: each
+    window's warm-up round, plus its captured launches once per replay
+    (the wrappers count a capture once and do not see replays)."""
+    out: dict[str, int] = {}
+    for win in trainer.windows.values():
+        for k, n in win.captured.items():
+            out[k] = out.get(k, 0) + win.warmup[k] + win.replays * n
+    return out
+
+
+def drive(trainer, rounds: int, seed: int, update: str, label: str):
+    """One ``run_simulation`` of ``scan_fused`` on a fresh trainer, with
+    every launch count set to 0 just before and read just after. The
+    wrappers' counts must be the windows' warm-up rounds and captures,
+    and what the replays ran must be one ``update`` launch and six
+    threefry launches per round (warm-up rounds included)."""
     import torch
 
     from repro_torch.fl.simulation import run_simulation
 
-    expect = {name: expect.get(name, 0) for name in _wrappers()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
@@ -566,11 +741,23 @@ def drive(trainer, rounds: int, seed: int, expect: dict, label: str):
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if counts != expect:
-        raise AssertionError(f"{label}: kernel launches {counts}, expected "
-                             f"{expect}")
+    wins = trainer.windows.values()
+    recorded = {k: sum(w.warmup.get(k, 0) + w.captured.get(k, 0)
+                       for w in wins) for k in counts}
+    ran = window_launches(trainer)
+    per_round = {update: 1, **THREEFRY_PER_ROUND}
+    warm = len(trainer.windows)
+    want = {k: n * (rounds + warm) for k, n in per_round.items()}
+    if counts != recorded or {k: ran.get(k, 0) for k in want} != want \
+            or any(counts[k] for k in counts if k not in per_round):
+        raise AssertionError(f"{label}: wrapper counts {counts} (captures "
+                             f"and warm-ups {recorded}), launches run {ran} "
+                             f"(want {want})")
     losses, acc = check_run(res, rounds, label)
-    return res, counts, peak, losses, acc
+    return res, {"counts": counts, "ran": ran,
+                 "replays": sum(w.replays for w in wins),
+                 "captured_per_window": [w.captured for w in wins]}, \
+        peak, losses, acc
 
 
 def phase_main_path(device, model, data, hp) -> dict:
@@ -587,13 +774,14 @@ def phase_main_path(device, model, data, hp) -> dict:
                    engine="scan_fused")
     rounds = MAIN["rounds"]
     res, counts, peak, losses, acc = drive(
-        trainer, rounds, seed,
-        {"zone_update": rounds, "multizone_update": 0, "fused_update": 0},
-        "single-walker path")
+        trainer, rounds, seed, "zone_update", "single-walker path")
     log(f"main path: {rounds} rounds scan_fused in {res.wall_time_s:.3f} s "
-        f"= {rounds / res.wall_time_s:.2f} rounds/s (one eval included), "
-        f"peak allocated {peak / 2**30:.3f} GiB, kernel launches {counts}, "
-        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, acc_personalized "
+        f"= {rounds / res.wall_time_s:.2f} rounds/s (one eval, the warm-up "
+        f"round and the window's capture included), peak allocated "
+        f"{peak / 2**30:.3f} GiB, wrapper counts {counts['counts']}, "
+        f"launches run {counts['ran']} in {counts['replays']} graph "
+        f"replay(s), loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
+        f"acc_personalized "
         f"{acc:.4f} ± {res.final['acc_personalized_std']:.4f}, acc_global "
         f"{res.final['acc_global']:.4f}")
     steady = time_steady_rounds(trainer, "round")
@@ -602,7 +790,8 @@ def phase_main_path(device, model, data, hp) -> dict:
                   lambda s: {"x": s.clients.x, "z": s.clients.z,
                              "y": s.server.y, "kappa": s.server.kappa},
                   "rounds")
-    return {"launches": counts["zone_update"],
+    return {"launches": counts["counts"], "launches_run": counts["ran"],
+            "graph_replays": counts["replays"],
             "rounds_per_s": rounds / res.wall_time_s,
             "peak_gib": peak / 2**30, "acc_personalized": acc, **steady}
 
@@ -620,16 +809,16 @@ def phase_fleet(device, model, data, hp) -> dict:
     fleet = make_fleet(model, data, hp, device, seed)
     steps = FLEET["wall_steps"]
     res, counts, peak, losses, acc = drive(
-        fleet, steps, seed,
-        {"zone_update": 0, "multizone_update": steps, "fused_update": 0},
-        "fleet path")
+        fleet, steps, seed, "multizone_update", "fleet path")
     zones = [m["zone"] for m in res.round_metrics]
     log(f"fleet path: K={k} simultaneous, sync_every {FLEET['sync_every']}, "
         f"{steps} wall steps scan_fused in {res.wall_time_s:.3f} s = "
         f"{steps / res.wall_time_s:.2f} wall steps/s "
         f"({sum(zones) / res.wall_time_s:.1f} client updates/s; one eval "
-        f"included), peak allocated {peak / 2**30:.3f} GiB, kernel launches "
-        f"{counts}, live slots per step {min(zones)}..{max(zones)} of "
+        f"included), peak allocated {peak / 2**30:.3f} GiB, wrapper counts "
+        f"{counts['counts']}, launches run {counts['ran']} in "
+        f"{counts['replays']} graph replay(s), live slots per step "
+        f"{min(zones)}..{max(zones)} of "
         f"{k * MAIN['zone']}, loss {losses[0]:.4f} -> {losses[-1]:.4f}, "
         f"acc_personalized {acc:.4f} ± "
         f"{res.final['acc_personalized_std']:.4f}, acc_global "
@@ -646,18 +835,17 @@ def phase_fleet(device, model, data, hp) -> dict:
     rr = make_fleet(model, data, hp, device, seed, mode="roundrobin")
     rounds = FLEET["rr_rounds"]
     rr_res, rr_counts, _, rr_losses, rr_acc = drive(
-        rr, rounds, seed,
-        {"zone_update": rounds, "multizone_update": 0, "fused_update": 0},
-        "round-robin fleet")
+        rr, rounds, seed, "zone_update", "round-robin fleet")
     log(f"round-robin fleet: K={k}, {rounds} rounds scan_fused in "
-        f"{rr_res.wall_time_s:.3f} s, kernel launches {rr_counts}, loss "
+        f"{rr_res.wall_time_s:.3f} s, launches run {rr_counts['ran']}, loss "
         f"{rr_losses[0]:.4f} -> {rr_losses[-1]:.4f}, acc_personalized "
         f"{rr_acc:.4f}")
-    return {"launches": counts["multizone_update"],
+    return {"launches": counts["counts"], "launches_run": counts["ran"],
+            "graph_replays": counts["replays"],
             "wall_steps_per_s": steps / res.wall_time_s,
             "client_updates_per_s": sum(zones) / res.wall_time_s,
             "peak_gib": peak / 2**30, "acc_personalized": acc,
-            "rr_zone_launches": rr_counts["zone_update"], **steady}
+            "rr_launches_run": rr_counts["ran"], **steady}
 
 
 def phase_single_client(device, model, data, hp) -> int:
@@ -672,7 +860,7 @@ def phase_single_client(device, model, data, hp) -> int:
     trainer = make_trainer(model, data, hp, device, MAIN["seed"])
     state = trainer.init_state(MAIN["seed"])
     client = torch.tensor([3], device=device)
-    batch, keep = trainer.zone_batch_indices(client, seed=11)
+    batch, keep = trainer.zone_batch_indices(client, trainer.round_key(11))
     _, grads = trainer.zone_loss_and_grad(state.clients.x[client], client,
                                           batch, keep)
     args = (state.clients.x[3], state.clients.z[3], state.server.y,
@@ -696,6 +884,224 @@ def phase_single_client(device, model, data, hp) -> int:
 
 
 # ---------------------------------------------------------------------------
+# Captured windows against what they replace; a seed on the card and the
+# host; the scaling twins.
+CAPTURE = dict(window=5, windows=2)
+PARITY = dict(n_samples=1200, n_clients=10, rounds=5, tol=1e-6)
+
+
+def uncaptured_rounds(trainer, state, sched):
+    """A window's rounds in a loop outside any graph: ``_round_impl`` for
+    the single walker, the fleet's round-robin or simultaneous step."""
+    import torch
+
+    dev = trainer.device
+    idx = torch.as_tensor(sched.idx, dtype=torch.int64, device=dev)
+    mask, keys = (torch.as_tensor(a, device=dev)
+                  for a in (sched.mask, sched.keys))
+    sync = getattr(sched, "sync", None)
+    sync = None if sync is None else torch.as_tensor(sync, device=dev)
+    for r in range(sched.rounds):
+        if sync is None:
+            state, _ = trainer._round_impl(state, idx[r], mask[r], keys[r],
+                                           use_fused=True)
+        elif sched.mode == "roundrobin":
+            a = torch.tensor(int(sched.walker[r]), device=dev)
+            state, _ = trainer._rr_step(state, idx[r], mask[r], a, sync[r],
+                                        keys[r], use_fused=True)
+        else:
+            state, _ = trainer._sim_step(state, idx[r], mask[r], sync[r],
+                                         keys[r], use_fused=True)
+    return state
+
+
+def state_leaves(state) -> dict:
+    base = getattr(state, "base", state)
+    out = {"x": base.clients.x, "z": base.clients.z, "y": base.server.y,
+           "kappa": base.server.kappa, "visited": base.visited}
+    if base is not state:
+        out["tokens"] = state.tokens
+    return {k: v.clone() for k, v in out.items()}
+
+
+def phase_capture(device, model, data, hp) -> dict:
+    """On the n = 100 CNN, cuDNN deterministic: two windows (the second a
+    replay) of the captured ``scan`` against as many eager rounds, and of
+    the captured ``scan_fused`` against the same rounds uncaptured, all
+    from one seed; each pair must be equal bit for bit. Single walker,
+    then the K = 3 fleet in both modes."""
+    import numpy as np
+    import torch
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    seed, w = MAIN["seed"], CAPTURE["window"]
+    configs = {
+        "single walker": lambda: make_trainer(model, data, hp, device, seed),
+        "fleet simultaneous": lambda: make_fleet(model, data, hp, device,
+                                                 seed),
+        "fleet roundrobin": lambda: make_fleet(model, data, hp, device,
+                                               seed, mode="roundrobin")}
+    out = {}
+    try:
+        for label, make in configs.items():
+            runs = {}
+            for engine in ("eager", "scan", "uncaptured", "scan_fused"):
+                tr = make()
+                rng = np.random.default_rng(seed)
+                state = tr.init_state(seed)
+                for k in range(CAPTURE["windows"]):
+                    if engine == "eager":
+                        for r in range(k * w, (k + 1) * w):
+                            state, _ = tr.round(state, r, rng)
+                        continue
+                    sched = tr.schedule(w, rng, start_round=k * w)
+                    if engine == "uncaptured":
+                        state = uncaptured_rounds(tr, state, sched)
+                    else:
+                        state, _ = tr.run_chunk(state, sched, engine)
+                torch.cuda.synchronize()
+                runs[engine] = state_leaves(state)
+                if engine in ("scan", "scan_fused"):
+                    runs[engine + " replays"] = sum(
+                        v.replays for v in tr.windows.values())
+                del tr, state
+                torch.cuda.empty_cache()
+
+            def diff(a, b):
+                return {k: float((runs[a][k].double()
+                                  - runs[b][k].double()).abs().max())
+                        for k in runs[a]}
+            row = {"scan_vs_eager": diff("scan", "eager"),
+                   "scan_fused_vs_uncaptured": diff("scan_fused",
+                                                    "uncaptured"),
+                   "replays": runs["scan replays"]}
+            row["scan_equal"] = all(torch.equal(runs["scan"][k],
+                                                runs["eager"][k])
+                                    for k in runs["eager"])
+            row["fused_equal"] = all(torch.equal(runs["scan_fused"][k],
+                                                 runs["uncaptured"][k])
+                                     for k in runs["uncaptured"])
+            log(f"captured windows, {label}: {CAPTURE['windows']} windows "
+                f"of {w} rounds ({row['replays']} replays): captured scan "
+                f"vs eager bitwise {row['scan_equal']} (max_abs_diff "
+                f"{row['scan_vs_eager']}); captured scan_fused vs the same "
+                f"rounds uncaptured bitwise {row['fused_equal']} "
+                f"(max_abs_diff {row['scan_fused_vs_uncaptured']})")
+            if not (row["scan_equal"] and row["fused_equal"]):
+                raise AssertionError(f"captured windows, {label}: {row}")
+            out[label] = row
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    return out
+
+
+def phase_device_parity(device, model, data, hp) -> dict:
+    """One seed on the card and on this machine's CPU, TF32 off (Queue 3
+    fault 1: the draws depended on the device). Held: every round's batch
+    indices and keep masks equal bit for bit on both devices (MLR, MLP
+    on both solvers, the CNN), and x, z, y after one eager round at the
+    round tier's ``PARITY["tol"]`` (MLR, MLP on ``closed_form``).
+    Printed, not held: the gap after ``PARITY["rounds"]`` rounds, where
+    the devices' different matmul summation orders have compounded."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.rwsadmm import RWSADMMHparams
+    from repro_torch.data import build_federated, make_image_dataset, \
+        pathological_split
+    from repro_torch.fl.base import to_device_data
+    from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
+    from repro_torch.models.small import get_model
+
+    imgs, labels = make_image_dataset(PARITY["n_samples"], seed=0)
+    fed = build_federated(imgs, labels, pathological_split(
+        labels, PARITY["n_clients"], seed=0))
+    small = {"cpu": to_device_data(fed, "cpu"),
+             "cuda": to_device_data(fed, device)}
+    cnn = {"cpu": type(data)(*(t.cpu() for t in data)), "cuda": data}
+
+    def run(mdl, dat, dev, kw):
+        """Each round's draws and the state after rounds 1 and R."""
+        tr = RWSADMMTrainer(mdl, dat, kw.get("hp", RWSADMMHparams()),
+                            batch_size=MAIN["batch"], zone_size=MAIN["zone"],
+                            solver=kw["solver"], seed=0, device=dev)
+        sched = tr.schedule(PARITY["rounds"], np.random.default_rng(0))
+        steps = None if kw["solver"] == "closed_form" else tr.inner_steps
+        draws = []
+        for r in range(sched.rounds):
+            idx, keep = tr.zone_batch_indices(
+                torch.as_tensor(sched.idx[r], dtype=torch.int64, device=dev),
+                torch.as_tensor(sched.keys[r], device=dev), steps)
+            draws += [idx.cpu()] + [k.cpu() for k in keep or ()]
+        tr = RWSADMMTrainer(mdl, dat, kw.get("hp", RWSADMMHparams()),
+                            batch_size=MAIN["batch"], zone_size=MAIN["zone"],
+                            solver=kw["solver"], seed=0, device=dev)
+        rng, state, after = np.random.default_rng(0), tr.init_state(0), []
+        for r in range(PARITY["rounds"]):
+            state, _ = tr.round(state, r, rng)
+            if r in (0, PARITY["rounds"] - 1):
+                after.append([t.cpu().clone() for t in (
+                    state.clients.x, state.clients.z, state.server.y)])
+        return draws, after
+
+    out = {}
+    cases = [(f"{m}/{solver}", get_model(m, (28, 28, 1)), small,
+              {"solver": solver}) for m in ("mlr", "mlp")
+             for solver in ("closed_form", "prox_sgd")]
+    cases.append(("cnn/closed_form", model, cnn,
+                  {"solver": "closed_form", "hp": hp}))
+    for label, mdl, datas, kw in cases:
+        (d_cpu, s_cpu), (d_card, s_card) = (run(mdl, datas[d], dev, kw)
+                                            for d, dev in (("cpu", "cpu"),
+                                                           ("cuda", device)))
+        gaps = [max(float((a - b).abs().max()) for a, b in zip(u, v))
+                for u, v in zip(s_cpu, s_card)]
+        row = {"draws_equal": all(torch.equal(a, b)
+                                  for a, b in zip(d_cpu, d_card)),
+               "after_1": gaps[0], f"after_{PARITY['rounds']}": gaps[1],
+               "held": label in ("mlr/closed_form", "mlp/closed_form")}
+        row["ok"] = row["draws_equal"] and (not row["held"] or all(
+            torch.allclose(a, b, atol=PARITY["tol"], rtol=PARITY["tol"])
+            for a, b in zip(s_cpu[0], s_card[0])))
+        out[label] = row
+        log(f"device parity {label}: {PARITY['rounds']} rounds' draws "
+            f"bitwise equal card vs CPU {row['draws_equal']}; x, z, y "
+            f"max_abs_diff after 1 eager round {gaps[0]:.3g}"
+            + (f" (held at {PARITY['tol']}: {row['ok']})" if row["held"]
+               else " (not held)")
+            + f", after {PARITY['rounds']} {gaps[1]:.3g} (not held)")
+        if not row["ok"]:
+            raise AssertionError(f"device parity {label}: {row}")
+    return out
+
+
+def phase_twins(device) -> dict:
+    """Both scaling twins at their smoke sizes (rows to a git-ignored
+    file)."""
+    from benchmarks import fleet_scaling_torch, scan_scaling_torch
+
+    out_file = os.path.join(HERE, "results", "bench",
+                            "BENCH_torch_scaling.json")
+    t0 = time.perf_counter()
+    scan = scan_scaling_torch.run(30, (20,), device, out_file)
+    fleet = fleet_scaling_torch.run(30, (40,), (1, 3, 5),
+                                    ("roundrobin", "simultaneous"), device,
+                                    out_file)
+    hits = fleet_scaling_torch.hitting_times(40, (1, 3, 5), 600, device)
+    log(f"scaling twins at smoke sizes in {time.perf_counter() - t0:.1f} s: "
+        f"scan_scaling rounds/s {scan}; fleet_scaling rounds/s "
+        f"{ {f'{m}/K{k}': v for (m, _, k), v in fleet.items()} }; fleet "
+        f"hitting time {hits}")
+    return {"scan_scaling": scan,
+            "fleet_scaling": {f"{m}/n{n}/K{k}": v
+                              for (m, n, k), v in fleet.items()},
+            "hitting_time": hits}
+
+
+# ---------------------------------------------------------------------------
 # The paper's baselines (FedAvg, Per-FedAvg, pFedMe, Ditto, APFL, Walkman).
 BASELINES = ("fedavg", "perfedavg", "pfedme", "ditto", "apfl", "walkman")
 # tests/test_fl_trainers.py:22-76 at its settings: 1,200 MNIST-shaped
@@ -708,6 +1114,11 @@ GATES = dict(n_samples=1200, n_clients=10, clients_per_round=5, rounds=60,
 # benchmarks/table1.py's grid through its port twin; 120 rounds as there.
 TABLE1_ROUNDS = 120
 TABLE1_PERSONALIZED = ("perfedavg", "pfedme", "ditto", "apfl", "rwsadmm")
+# The reference's RWSADMM cells at seed 0 on the CPU (benchmarks/table1.py,
+# 120 rounds; ROADMAP Queue 3), beside which the port's card run prints
+# its own: the two packages draw the same batches now.
+TABLE1_REFERENCE = {"mnist_like/mlr": 98.45, "mnist_like/mlp": 96.57,
+                    "synthetic/mlr": 79.12, "synthetic/mlp": 75.52}
 # Every baseline on the single walker's CNN configuration (n = 100,
 # batch 20), 10 clients a round; Walkman 4× the rounds, as table1.py.
 # FedAvg, Ditto and APFL step at lr 0.02, not the reference's 0.05: at
@@ -781,7 +1192,8 @@ def final_losses_finite(res) -> bool:
 
 def baseline_gates(device) -> dict:
     """The reference's own accuracy gates on the card, each run's host
-    draws held against a numpy replay, and no port kernel launched."""
+    draws held against a numpy replay, no update kernel launched and the
+    draws through threefry."""
     import torch
 
     from repro_torch.data import build_federated, make_image_dataset, \
@@ -820,7 +1232,8 @@ def baseline_gates(device) -> dict:
                "rounds": rounds, "wall_s": res.wall_time_s,
                "replay_equal": got == want,
                "finite": final_losses_finite(res),
-               "launches": sum(counts.values())}
+               "update_launches": sum(counts[k] for k in UPDATES),
+               "threefry_launches": sum(counts[k] for k in THREEFRY)}
         log(f"baseline gate {name}: {rounds} rounds in "
             f"{res.wall_time_s:.2f} s, {which} "
             f"{acc:.4f} (gate > {row['threshold']}), host draws equal to "
@@ -828,7 +1241,8 @@ def baseline_gates(device) -> dict:
             f"cohorts, {len(got['clients'])} visited clients), port kernel "
             f"launches {counts}")
         if not (acc > row["threshold"] and row["replay_equal"]
-                and row["finite"] and row["launches"] == 0):
+                and row["finite"] and row["update_launches"] == 0
+                and row["threefry_launches"] > 0):
             raise AssertionError(f"baseline gate {name} failed: {row}")
         out[name] = row
     return out
@@ -849,13 +1263,17 @@ def table1_grid(device) -> dict:
         got = table1_torch.run(TABLE1_ROUNDS, out_dir, device, [algo])
         torch.cuda.synchronize()
         counts = launch_counts()
-        want = {k: 0 for k in counts}
-        if algo == "rwsadmm_cf":
-            want["zone_update"] = sum(r["rounds"] for r in got)
         launches[algo] = counts
-        if counts != want or not all(math.isfinite(r["loss"]) for r in got):
-            raise AssertionError(f"table1 {algo}: launches {counts} (want "
-                                 f"{want}), rows {got}")
+        # Only rwsadmm_cf's windows launch (and capture) the zone kernel;
+        # every row draws its batches through threefry (no keep masks:
+        # MLR and MLP have no dropout).
+        zone = (algo == "rwsadmm_cf") == (counts["zone_update"] > 0)
+        if not (zone and all(counts[k] == 0 for k in UPDATES[1:])
+                and counts["threefry_bits"] > 0
+                and counts["threefry_randint"] > 0
+                and all(math.isfinite(r["loss"]) for r in got)):
+            raise AssertionError(f"table1 {algo}: launches {counts}, rows "
+                                 f"{got}")
         rows += got
     for r in rows:
         log(f"table1 {r['dataset']}/{r['model']}/{r['algo']}: acc "
@@ -871,23 +1289,28 @@ def table1_grid(device) -> dict:
             pers = sorted((acc[a] for a in TABLE1_PERSONALIZED),
                           reverse=True)
             reading[f"{ds}/{model}"] = {
+                "rwsadmm": acc["rwsadmm"],
+                "reference_rwsadmm": TABLE1_REFERENCE[f"{ds}/{model}"],
                 "rwsadmm_rank": pers.index(acc["rwsadmm"]) + 1,
                 "of": len(pers),
                 "rwsadmm_minus_fedavg": acc["rwsadmm"] - acc["fedavg"]}
     log(f"table1 reading at {TABLE1_ROUNDS} rounds (not gated): RWSADMM's "
-        f"rank among the personalized rows and its gap over FedAvg in "
-        f"points: {reading}")
+        f"accuracy beside the reference's seed-0 CPU cell, its rank among "
+        f"the personalized rows and its gap over FedAvg in points: "
+        f"{reading}")
     return {"rows": rows, "reading": reading, "launches": launches,
             "cf_vs_plain": hold_cf_against_plain(device)}
 
 
 def hold_cf_against_plain(device) -> dict:
     """The grid's mnist_like MLR ``rwsadmm_cf`` row run from seed 0 on one
-    schedule three times: on ``scan_fused`` through the zone kernel, on
-    ``scan_fused`` with the kernel's plain version in its place, and on
-    ``scan`` (the unfused fold). The first two must agree at
-    ``KERNEL_TOL`` (the same arithmetic each round); ``scan`` folds y in
-    another order, so it is printed beside them, not held."""
+    schedule three times: on ``scan_fused`` through the zone kernel (one
+    captured window), with the kernel's plain version in its place (the
+    same rounds uncaptured: the plain version copies n from the host,
+    which a capture refuses), and on ``scan`` (the unfused fold). The
+    first two must agree at ``KERNEL_TOL`` (the same arithmetic each
+    round); ``scan`` folds y in another order, so it is printed beside
+    them, not held."""
     import types
 
     import numpy as np
@@ -912,7 +1335,11 @@ def hold_cf_against_plain(device) -> dict:
             tr = table1_torch.make_trainer("rwsadmm_cf", model, data,
                                            device=device)
             sched = tr.schedule(TABLE1_ROUNDS, np.random.default_rng(0))
-            state, _ = tr.run_chunk(tr.init_state(0), sched, engine=engine)
+            if label == "plain":
+                state = uncaptured_rounds(tr, tr.init_state(0), sched)
+            else:
+                state, _ = tr.run_chunk(tr.init_state(0), sched,
+                                        engine=engine)
             final[label] = (state.clients.x, state.clients.z, state.server.y)
             acc[label] = tr.evaluate(state)["acc"]
     finally:
@@ -999,7 +1426,7 @@ def baselines_on_cnn(device, model, data) -> dict:
             f"{prof['launches']:.0f} launches per round, peak allocated "
             f"{row['peak_gib']:.3f} GiB, acc {row['acc']:.4f}, port kernel "
             f"launches {counts}")
-        if not row["finite"] or sum(counts.values()) != 0:
+        if not row["finite"] or any(counts[k] for k in UPDATES):
             raise AssertionError(f"baseline cnn {name}: {row}, {counts}")
         out[name] = row
         del trainer, box
@@ -1017,14 +1444,21 @@ def phase_baselines(device, model, data) -> dict:
 def time_steady_rounds(trainer, unit: str) -> dict:
     """Steady ms per round (per wall step for the simultaneous fleet) of
     each engine on a warm trainer (no schedule, no eval inside the timed
-    region; eager plans its rounds inside), the evaluation's own time,
-    and a profile of a few scan_fused rounds (device busy share, top
-    kernels)."""
+    region; eager plans its rounds inside; each scan engine's window is
+    captured before the timed runs, which replay it), the evaluation's
+    own time, and a profile of a replayed scan_fused window: the kernels
+    it runs, the host's CUDA calls, device busy share, top kernels."""
+    import collections
+
     import numpy as np
     import torch
 
     times: dict[str, list[float]] = {e: [] for e in ENGINES}
-    n = 30
+    n, rounds = 30, 10
+    for engine in ENGINES[1:]:    # capture the timed and profiled windows
+        for length in (n, rounds):
+            trainer.run_chunk(trainer.init_state(0), trainer.schedule(
+                length, np.random.default_rng(9), start_round=1), engine)
     for rep in range(3):          # engines in turn, so drift hits all alike
         for engine in ENGINES:
             rng = np.random.default_rng(rep)
@@ -1050,7 +1484,6 @@ def time_steady_rounds(trainer, unit: str) -> dict:
     trainer.evaluate(state)
     out["eval_s"] = time.perf_counter() - t0
 
-    rounds = 10
     sched = trainer.schedule(rounds, np.random.default_rng(2), start_round=1)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1076,6 +1509,15 @@ def time_steady_rounds(trainer, unit: str) -> dict:
     busy_ms = union_ms([(e.time_range.start, e.time_range.end)
                         for e in spans]) / 1e3 / rounds
     out["kernel_streams"] = len({e.device_resource_id for e in spans})
+    # The host's side of the window: graph launches, kernel launches and
+    # copies it issued (the replay is one cudaGraphLaunch).
+    calls = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type != cuda and e.name.startswith("cuda")
+        and any(w in e.name for w in ("GraphLaunch", "LaunchKernel",
+                                      "Memcpy")))
+    out["host_calls_per_window"] = dict(calls)
+    out["kernels_per_window"] = out["kernel_launches_per_round"] * rounds
     out["device_ms_per_round"] = busy_ms
     out["busy_share"] = busy_ms / out["scan_fused_round_ms"]
     out["profiled_round_ms"] = start.elapsed_time(end) / rounds
@@ -1086,7 +1528,11 @@ def time_steady_rounds(trainer, unit: str) -> dict:
         f"({' '.join(f'{t:.3f}' for t in out[e + '_round_ms_runs'])})"
         for e in ENGINES)
         + f"; evaluate over {trainer.n_clients} clients {out['eval_s']:.3f} s")
-    log(f"profile: scan_fused kernels take {out['kernel_ms_per_round']:.3f} "
+    log(f"profile: a replayed {rounds}-{unit} scan_fused window (one CUDA "
+        f"graph) runs {out['kernels_per_window']:.0f} kernels, "
+        f"{out['kernel_launches_per_round']:.1f} per {unit}; the host issued "
+        f"{out['host_calls_per_window']} for it; its kernels take "
+        f"{out['kernel_ms_per_round']:.3f} "
         f"device ms per {unit} in {out['kernel_launches_per_round']:.1f} "
         f"launches over {len(kernels)} kernel names on "
         f"{out['kernel_streams']} stream(s); the device is busy "
@@ -1602,13 +2048,17 @@ SOURCE = {"zone_update": _RW_SOURCE, "multizone_update": _RW_SOURCE,
           "fused_update": _RW_SOURCE,
           "rglru_scan": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
           "flash_decode":
-              "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu"}
+              "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
+          "threefry": "src/repro_torch/kernels/threefry/csrc/threefry.cu"}
 REPLACES = {"zone_update": "src/repro/kernels/rwsadmm_update/kernel.py:176",
             "multizone_update":
                 "src/repro/kernels/rwsadmm_update/kernel.py:147",
             "fused_update": "src/repro/kernels/rwsadmm_update/kernel.py:51",
             "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:49",
-            "flash_decode": "src/repro/kernels/flash_decode/kernel.py:82"}
+            "flash_decode": "src/repro/kernels/flash_decode/kernel.py:82",
+            # No pl.pallas_call: jax.random, which XLA fuses into the
+            # reference's round; the draw it replaces is sample_batch's.
+            "threefry": "src/repro/fl/base.py:110"}
 
 
 def main() -> int:
@@ -1633,11 +2083,23 @@ def main() -> int:
     model, data, hp = build_main_path(device, MAIN["seed"])
     rows = phase_kernels(hp, device, name)
     rows.update(phase_lm_kernels(device, name))
+    rows["threefry"] = phase_threefry(device, model, data, name)
     paths = {"main_path": phase_main_path(device, model, data, hp),
              "fleet_path": phase_fleet(device, model, data, hp)}
-    launches = {"zone_update": paths["main_path"]["launches"],
-                "multizone_update": paths["fleet_path"]["launches"],
-                "fused_update": phase_single_client(device, model, data, hp)}
+    main_counts = paths["main_path"]["launches"]
+    launches = {"zone_update": main_counts["zone_update"],
+                "multizone_update":
+                    paths["fleet_path"]["launches"]["multizone_update"],
+                "fused_update": phase_single_client(device, model, data, hp),
+                "threefry": sum(main_counts[k] for k in THREEFRY)}
+    ran = {"zone_update": paths["main_path"]["launches_run"]["zone_update"],
+           "multizone_update":
+               paths["fleet_path"]["launches_run"]["multizone_update"],
+           "threefry": sum(paths["main_path"]["launches_run"][k]
+                           for k in THREEFRY)}
+    paths["capture"] = phase_capture(device, model, data, hp)
+    paths["device_parity"] = phase_device_parity(device, model, data, hp)
+    paths["twins"] = phase_twins(device)
     paths["baselines"] = phase_baselines(device, model, data)
     model = data = None
     torch.cuda.empty_cache()
@@ -1654,6 +2116,7 @@ def main() -> int:
         row = {"name": kernel, "route": "cuda", "source": SOURCE[kernel],
                "replaces": REPLACES[kernel],
                "launches": launches.get(kernel),
+               "launches_run": ran.get(kernel, launches.get(kernel)),
                "max_abs_err": max(r["max_abs_err"] for r in checks),
                "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -1661,7 +2124,7 @@ def main() -> int:
                "share_of_bound": timed["share_of_bound"],
                "shape": timed["shape"]}
         row.update({k: timed[k] for k in extra if k in timed})
-        if kernel in ("rglru_scan", "flash_decode"):
+        if kernel in ("rglru_scan", "flash_decode", "threefry"):
             row["ptxas"] = {e: v for e, v in ptxas.items()
                             if e.startswith(kernel)}
         if "sign_flips" in timed:

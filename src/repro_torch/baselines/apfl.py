@@ -14,7 +14,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported
+from ..core import prng
+from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported, \
+    step_keys
 
 
 class APFLState(NamedTuple):
@@ -33,12 +35,16 @@ class APFLTrainer(CohortTrainer):
         self.m = int(min(clients_per_round, self.n_clients))
         self.alpha, self.lr = alpha, lr
         self.local_steps = local_steps
-        self.draw_steps = (local_steps,)
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> APFLState:
         w = self.initial_params(seed, params)
         return APFLState(w=w, v=w.repeat(self.n_clients, 1))
+
+    def round_keys(self, key):
+        """Client c's step t: ``split(split(key, m)[c], steps)[t]``, one
+        batch for both of the step's gradients."""
+        return (step_keys(prng.split(key, self.m), self.local_steps),)
 
     def _round_impl(self, state: APFLState, clients, draws):
         idx, keep = draws[0]

@@ -13,7 +13,9 @@ from typing import NamedTuple
 
 import torch
 
-from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported
+from ..core import prng
+from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported, \
+    step_keys
 
 
 class DittoState(NamedTuple):
@@ -32,14 +34,20 @@ class DittoTrainer(CohortTrainer):
         super().__init__(model, data, batch_size, device=device)
         self.m = int(min(clients_per_round, self.n_clients))
         self.lam, self.lr = lam, lr
-        self.personal_steps = personal_steps
-        # The global part's batches, then the personal part's.
-        self.draw_steps = (local_steps, personal_steps)
+        self.local_steps, self.personal_steps = local_steps, personal_steps
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> DittoState:
         w = self.initial_params(seed, params)
         return DittoState(w=w, v=w.repeat(self.n_clients, 1))
+
+    def round_keys(self, key):
+        """The global part's keys from ``split(key, m)``, the personal
+        part's from ``split(fold_in(key, 7), m)``, each split per step."""
+        m = self.m
+        return (step_keys(prng.split(key, m), self.local_steps),
+                step_keys(prng.split(prng.fold_in(key, 7), m),
+                          self.personal_steps))
 
     def _round_impl(self, state: DittoState, clients, draws):
         (idx, keep), (p_idx, p_keep) = draws

@@ -6,7 +6,8 @@ from typing import NamedTuple
 
 import torch
 
-from ..fl.base import CohortTrainer, reject_unported
+from ..core import prng
+from ..fl.base import CohortTrainer, reject_unported, step_keys
 
 
 class FedAvgState(NamedTuple):
@@ -24,11 +25,14 @@ class FedAvgTrainer(CohortTrainer):
         self.lr = lr
         self.local_steps = local_steps
         self.m = int(min(clients_per_round, self.n_clients))
-        self.draw_steps = (local_steps,)
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> FedAvgState:
         return FedAvgState(w=self.initial_params(seed, params))
+
+    def round_keys(self, key):
+        """Client c's step t: ``split(split(key, m)[c], steps)[t]``."""
+        return (step_keys(prng.split(key, self.m), self.local_steps),)
 
     def _round_impl(self, state: FedAvgState, clients, draws):
         """Local SGD on every cohort client, then the average weighted by

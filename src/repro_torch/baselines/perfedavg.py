@@ -12,10 +12,12 @@ from typing import NamedTuple
 
 import torch
 
-from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported
+from ..core import prng
+from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported, \
+    step_keys
 
-#: the fixed seed of the evaluation's adaptation batches (the
-#: reference's ``PRNGKey(1234)``)
+#: the seed of the evaluation's key, ``PRNGKey(1234)`` as in the
+#: reference
 EVAL_SEED = 1234
 
 
@@ -35,12 +37,18 @@ class PerFedAvgTrainer(CohortTrainer):
         self.alpha, self.beta = alpha, beta
         self.local_steps = local_steps
         self.m = int(min(clients_per_round, self.n_clients))
-        # Two batches a step: block 2t is ξ₁ of step t, 2t + 1 its ξ₂.
-        self.draw_steps = (2 * local_steps,)
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> PerFedAvgState:
         return PerFedAvgState(w=self.initial_params(seed, params))
+
+    def round_keys(self, key):
+        """Two keys a step, ``k1, k2 = split(k_t)`` with k_t client c's
+        ``split(split(key, m)[c], steps)[t]``: block 2t is ξ₁ of step t,
+        2t + 1 its ξ₂."""
+        keys = prng.split(step_keys(prng.split(key, self.m),
+                                    self.local_steps), 2)   # (T, m, 2, 2)
+        return (keys.transpose(1, 2).reshape(-1, self.m, 2),)
 
     def _round_impl(self, state: PerFedAvgState, clients, draws):
         idx, keep = draws[0]
@@ -63,7 +71,8 @@ class PerFedAvgTrainer(CohortTrainer):
 
     def personalized_params(self, state: PerFedAvgState, rows: slice):
         clients = torch.arange(self.n_clients, device=self.device)
-        idx, keep = self.batch_draws(clients, self.round_generator(EVAL_SEED))
+        idx, keep = self.batch_draws(clients, prng.split(
+            self.round_key(EVAL_SEED), self.n_clients))
         return self.adapt(state.w, clients[rows], idx[rows],
                           keep_at(keep, rows))
 

@@ -11,10 +11,11 @@ from typing import NamedTuple
 
 import torch
 
-from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported
+from ..core import prng
+from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported, \
+    step_keys
 
-#: the fixed seed of the evaluation's prox batches (the reference's
-#: ``PRNGKey(99)``)
+#: the seed of the evaluation's key, ``PRNGKey(99)`` as in the reference
 EVAL_SEED = 99
 
 
@@ -36,7 +37,6 @@ class PFedMeTrainer(CohortTrainer):
         self.lam, self.inner_lr = lam, inner_lr
         self.inner_steps, self.local_rounds = inner_steps, local_rounds
         self.eta, self.server_beta = eta, server_beta
-        self.draw_steps = (local_rounds,)   # one batch per prox solve
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> PFedMeState:
@@ -55,6 +55,11 @@ class PFedMeTrainer(CohortTrainer):
             theta = theta - self.inner_lr * g
         return theta
 
+    def round_keys(self, key):
+        """Client c's local round r: ``split(split(key, m)[c], R)[r]``,
+        one batch (and one set of keep masks) per prox solve."""
+        return (step_keys(prng.split(key, self.m), self.local_rounds),)
+
     def _round_impl(self, state: PFedMeState, clients, draws):
         idx, keep = draws[0]
         w_i = state.w.expand(clients.shape[0], -1)
@@ -66,7 +71,8 @@ class PFedMeTrainer(CohortTrainer):
 
     def personalized_params(self, state: PFedMeState, rows: slice):
         clients = torch.arange(self.n_clients, device=self.device)
-        idx, keep = self.batch_draws(clients, self.round_generator(EVAL_SEED))
+        idx, keep = self.batch_draws(clients, prng.split(
+            self.round_key(EVAL_SEED), self.n_clients))
         w = state.w.expand(self.n_clients, -1)[rows]
         return self.prox_solve(w, clients[rows], idx[rows],
                                keep_at(keep, rows))

@@ -70,10 +70,11 @@ class WalkmanTrainer(TrainerBase):
     def round(self, state: WalkmanState, rnd: int, rng: np.random.Generator):
         graph = self.dyn_graph.step() if rnd > 0 else self.dyn_graph.current()
         i_k = self.walker.step(graph) if rnd > 0 else self.walker.position
-        seed = markov.round_key_seed(rng)
+        key = self.round_key(markov.round_key_seed(rng))
         client = torch.tensor([i_k], device=self.device)
+        # One key for the batch and for dropout, as the reference.
         state, loss = self._round_impl(state, client,
-                                       *self.zone_batch_indices(client, seed))
+                                       *self.batch_draws(client, key[None]))
         # Latency and energy come with scenarios (ROADMAP Queue 1 item 2).
         return state, {"round": rnd, "client": int(i_k),
                        "train_loss": float(loss),

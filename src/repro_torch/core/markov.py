@@ -5,8 +5,9 @@ copy: [P]_ij = 1/deg(i) for j ~ i (paper §5). Zone planning and the
 per-round seed draws consume the shared host RNG exactly as the
 reference does, so the same seed gives the same walk, zones and seeds.
 
-The reference turns each round's seed into a threefry key; the port keeps
-the int seed and seeds a ``torch.Generator`` from it (``fl/base.py``).
+Each round's seed becomes the reference's threefry key,
+``PRNGKey(seed)``, whose words the schedules carry (``core/prng.py``
+draws from them).
 """
 from __future__ import annotations
 
@@ -94,9 +95,18 @@ class RandomWalkServer:
 
 
 def round_key_seed(rng: np.random.Generator) -> int:
-    """One round's sampler seed from the shared simulation RNG — the same
+    """One round's key seed from the shared simulation RNG — the same
     draw the reference turns into its round key."""
     return int(rng.integers(2**31 - 1))
+
+
+def round_keys(seeds) -> np.ndarray:
+    """``PRNGKey(seed)`` of each seed as int64 words ``(..., 2)``: the
+    seed's high and low 32 bits (``[0, seed]`` for the host RNG's
+    seeds)."""
+    seeds = np.asarray(seeds, dtype=np.int64)
+    return np.stack([(seeds >> 32) & 0xFFFFFFFF, seeds & 0xFFFFFFFF],
+                    axis=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,8 +116,8 @@ class ZoneSchedule:
     idx:     (R, Z) int32 — active-client ids, padded with 0.
     mask:    (R, Z) float32 — 1 for live slots, 0 for padding.
     n_i:     (R,) float32 — |N(i_k)| zone sizes (pre-subsampling).
-    keys:    (R,) int64 — per-round sampler seeds (the reference's
-             ``keys[:, 1]``).
+    keys:    (R, 2) int64 — per-round keys, the words of the reference's
+             ``PRNGKey(seed)``.
     clients: (R,) int32 — the visited client i_k per round.
     active:  (R,) int32 — number of live slots per round (≤ Z).
     """
@@ -178,7 +188,7 @@ def zone_schedule(dyn_graph, walker: RandomWalkServer, rounds: int,
     positions = walker.walk_schedule(graphs, advance_first=not first)
     idx, mask, n_i, seeds, active = _plan_rounds(
         graphs, positions, zone_size, rng)
-    return ZoneSchedule(idx=idx, mask=mask, n_i=n_i, keys=seeds,
+    return ZoneSchedule(idx=idx, mask=mask, n_i=n_i, keys=round_keys(seeds),
                         clients=positions.astype(np.int32), active=active)
 
 
@@ -300,7 +310,7 @@ def fleet_zone_schedule(dyn_graph, walkers: Sequence[RandomWalkServer],
         idx, mask, n_i, seeds, active = _plan_rounds(
             graphs, positions, zone_size, rng)
         return FleetZoneSchedule(
-            idx=idx, mask=mask, n_i=n_i, keys=seeds,
+            idx=idx, mask=mask, n_i=n_i, keys=round_keys(seeds),
             clients=positions.astype(np.int32), active=active,
             walker=active_walker, sync=sync, mode=mode)
 
@@ -322,7 +332,7 @@ def fleet_zone_schedule(dyn_graph, walkers: Sequence[RandomWalkServer],
             graphs[r], positions[r], z, rng)
         seeds[r] = round_key_seed(rng)
     return FleetZoneSchedule(
-        idx=idx, mask=mask, n_i=n_i, keys=seeds,
+        idx=idx, mask=mask, n_i=n_i, keys=round_keys(seeds),
         clients=positions.astype(np.int32),
         active=mask.sum(axis=2).astype(np.int32), sync=sync, mode=mode)
 

@@ -1,12 +1,12 @@
 """Shared FL trainer substrate (port of ``repro/fl/base.py``, dense plane).
 
-Client data sits on the device as padded stacks. Each round samples
-minibatch indices from a ``torch.Generator`` seeded by the round's seed
-(one row per zone slot or cohort client, one block per local step),
-gathers the batches, and takes every active client's loss and gradient
-at once with ``torch.func.vmap`` over ``grad(functional_call)``.
-Sampling is split from the gradient step, so a caller can hand in its
-own indices.
+Client data sits on the device as padded stacks. Each round draws
+minibatch indices and dropout masks from threefry keys
+(``core/prng.py``) that follow the reference's key tree (one key per
+zone slot or cohort client, one per local step), gathers the batches,
+and takes every active client's loss and gradient at once with
+``torch.func.vmap`` over ``grad(functional_call)``. Sampling is split
+from the gradient step, so a caller can hand in its own indices.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch
 from torch.func import functional_call, grad_and_value, vmap
 
 from .. import resolve_device
+from ..core import prng
 from ..core.markov import round_key_seed
 from ..core.tree import ParamLayout
 from ..data.loader import FederatedData
@@ -114,23 +115,6 @@ def to_device_data(fed: FederatedData, device=None) -> DeviceData:
     )
 
 
-def sample_batch_indices(n_train: torch.Tensor, batch_size: int,
-                         generator: torch.Generator,
-                         steps: int | None = None) -> torch.Tensor:
-    """Uniform-with-replacement minibatch indices ξ for a zone.
-
-    ``n_train``: ``(Z,)`` valid sample counts of the zone's clients. Row
-    j of the result is zone slot j's batch: ``(Z, B)``, or
-    ``(steps, Z, B)`` for an inner loop. Drawn on the device without a
-    host sync (float64 uniforms scaled by the counts)."""
-    lead = () if steps is None else (steps,)
-    u = torch.rand(lead + (n_train.shape[0], batch_size),
-                   generator=generator, device=n_train.device,
-                   dtype=torch.float64)
-    idx = (u * n_train.unsqueeze(-1).to(torch.float64)).long()
-    return torch.minimum(idx, (n_train - 1).clamp(min=0).unsqueeze(-1))
-
-
 def gather_batch(data: DeviceData, clients: torch.Tensor,
                  idx: torch.Tensor):
     """Per-slot minibatches: ``clients`` ``(Z,)``, ``idx`` ``(Z, B)`` →
@@ -146,9 +130,15 @@ EVAL_CHUNK = 32
 #: ROADMAP Queue 1 item that brings each
 UNPORTED = {
     "scenario": "item 2 (scenarios and pricing)",
+    "transition": "item 3 (walk policies)",
+    "walk_policy": "item 3 (walk policies)",
+    "walk_bias": "item 3 (walk policies)",
+    "batched_walk": "item 3 (walk policies)",
     "telemetry": "item 7 (telemetry)",
     "store_capacity": "item 7 (the lazy plane)",
     "prefetch": "item 7 (the lazy plane)",
+    "dp_clip": "item 7 (privacy)",
+    "dp_noise": "item 7 (privacy)",
     "mesh": "item 8.7 (mesh and sharding)",
 }
 
@@ -169,6 +159,12 @@ def keep_at(keep, t):
     local step, or a slice of clients), or None for a model without
     dropout."""
     return None if keep is None else tuple(k[t] for k in keep)
+
+
+def step_keys(keys: torch.Tensor, steps: int) -> torch.Tensor:
+    """Each row's ``split(key, steps)``, step-major: ``(m, 2)`` →
+    ``(steps, m, 2)``, as a ``lax.scan`` over the split keys walks them."""
+    return prng.split(keys, steps).transpose(0, 1)
 
 
 def cohort_mean(rows: torch.Tensor) -> torch.Tensor:
@@ -198,7 +194,6 @@ class TrainerBase:
         self.batch_size = int(batch_size)
         self.n_clients = data.n_clients
         self.layout = ParamLayout.from_module(model)
-        self._generator = torch.Generator(device=self.device)
 
         def loss(params, xb, yb, keep):
             logits = functional_call(model, params, (xb,),
@@ -235,26 +230,30 @@ class TrainerBase:
         scenarios, ROADMAP Queue 1 item 2)."""
         return rng.choice(self.n_clients, size=m, replace=False)
 
-    def round_generator(self, seed: int) -> torch.Generator:
-        """The trainer's generator, reseeded with one round's seed."""
-        return self._generator.manual_seed(int(seed))
+    def round_key(self, seed: int) -> torch.Tensor:
+        """The round's key, ``PRNGKey(seed)``, on the device."""
+        return prng.prng_key(seed, self.device)
 
-    def batch_draws(self, clients: torch.Tensor, gen: torch.Generator,
-                    steps: int | None = None):
-        """Batch indices ``(Z, B)`` (``(steps, Z, B)`` for an inner loop)
-        and the CNN's dropout keep masks for ``clients``, drawn from
-        ``gen``: indices first, then the masks of every step."""
-        idx = sample_batch_indices(self.data.n_train[clients],
-                                   self.batch_size, gen, steps)
-        lead = (clients.shape[0],) if steps is None \
-            else (steps, clients.shape[0])
-        keep = self.model.draw_keep(self.batch_size, gen, self.device, lead)
+    def batch_draws(self, clients: torch.Tensor, keys: torch.Tensor):
+        """Batch indices and the CNN's dropout keep masks under ``keys``
+        ``(..., m, 2)``, one key per client of ``clients`` ``(m,)`` along
+        the last lead axis: ``idx`` ``(..., m, B)``, as the reference's
+        ``randint(key, (B,), 0, n_train[client])``, and the masks its
+        model draws from the same key (or None)."""
+        idx = prng.randint(keys, (self.batch_size,), 0,
+                           self.data.n_train[clients])
+        keep = self.model.draw_keep(keys, self.batch_size)
         return idx, (keep or None)
 
-    def zone_batch_indices(self, clients: torch.Tensor, seed: int,
+    def zone_batch_indices(self, clients: torch.Tensor, key: torch.Tensor,
                            steps: int | None = None):
-        """:meth:`batch_draws` from the round's seeded generator."""
-        return self.batch_draws(clients, self.round_generator(seed), steps)
+        """:meth:`batch_draws` of a zone round's key tree: slot j's key is
+        ``split(key, Z)[j]``, and with ``steps`` (prox-SGD's inner loop)
+        step t's is ``split(that, steps)[t]`` (``(steps, Z, B)``)."""
+        keys = prng.split(key, clients.shape[0])
+        if steps is not None:
+            keys = step_keys(keys, steps)
+        return self.batch_draws(clients, keys)
 
     def zone_loss_and_grad(self, x: torch.Tensor, clients: torch.Tensor,
                            idx: torch.Tensor, keep=None):
@@ -335,28 +334,30 @@ class TrainerBase:
 class CohortTrainer(TrainerBase):
     """The FedAvg family's round (port of the baselines' shared
     ``round``): a cohort of ``m`` distinct clients, then one seed for the
-    round's sampler, both drawn from the host RNG as the reference draws
-    them. A subclass sets ``m`` and ``draw_steps`` (the local steps of
-    each batch block it draws) and implements :meth:`_round_impl`."""
+    round's key, both drawn from the host RNG as the reference draws
+    them. A subclass sets ``m``, implements :meth:`round_keys` (its key
+    tree) and :meth:`_round_impl`."""
 
     m: int
-    draw_steps: tuple[int, ...]
 
-    def round_draws(self, clients: torch.Tensor, seed: int) -> tuple:
-        """One ``(idx (T, m, B), keep)`` block per entry of
-        ``draw_steps``, in order, from the round's seeded generator."""
-        gen = self.round_generator(seed)
-        return tuple(self.batch_draws(clients, gen, steps)
-                     for steps in self.draw_steps)
+    def round_keys(self, key: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The round's key blocks ``(T, m, 2)``, one per batch block the
+        round consumes, as the reference splits its round key."""
+        raise NotImplementedError  # pragma: no cover
+
+    def round_draws(self, clients: torch.Tensor, key: torch.Tensor) -> tuple:
+        """One ``(idx (T, m, B), keep)`` block per key block."""
+        return tuple(self.batch_draws(clients, keys)
+                     for keys in self.round_keys(key))
 
     def _round_impl(self, state, clients: torch.Tensor, draws: tuple):
         raise NotImplementedError  # pragma: no cover
 
     def round(self, state, rnd: int, rng: np.random.Generator):
         sel = self.select_clients(rnd, rng, self.m)
-        seed = round_key_seed(rng)
+        key = self.round_key(round_key_seed(rng))
         clients = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
         state = self._round_impl(state, clients,
-                                 self.round_draws(clients, seed))
+                                 self.round_draws(clients, key))
         return state, {"round": rnd,
                        "comm_bytes": self.comm_bytes_per_round(self.m)}

@@ -23,9 +23,11 @@ Two fleet modes:
   step.
 
 The tokens are one ``(K, P)`` tensor. As in the single-walker trainer,
-client buffers (and the token stack) are updated in place: a state passed
-to :meth:`round` or :meth:`run_chunk` is consumed. The rendezvous takes
-its flag as a device tensor, so :meth:`run_chunk` never syncs.
+client buffers are updated in place: a state passed to :meth:`round` or
+:meth:`run_chunk` is consumed. The active walker, the rendezvous flag and
+the round key are device tensors (the walker's token is read and written
+by index), so :meth:`run_chunk` never syncs and a window runs as one
+CUDA graph on a CUDA device, as the single walker's does.
 """
 from __future__ import annotations
 
@@ -97,32 +99,33 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
     # ------------------------------------------------------------------
     # One round of each mode; the eager and scan engines share them.
     # ------------------------------------------------------------------
-    def _rr_step(self, state: FleetState, idx, mask, a: int, sync, seed,
-                 *, use_fused: bool = False, batch_idx=None, keep=None):
-        """Round-robin round: walker ``a`` serves one zone against its own
-        token, then the optional rendezvous."""
-        tokens = state.tokens
-        base = state.base._replace(
-            server=state.base.server._replace(y=tokens[a]))
-        base, loss = self._round_impl(base, idx, mask, seed,
+    def _rr_step(self, state: FleetState, idx, mask, a: torch.Tensor, sync,
+                 key, *, use_fused: bool = False, batch_idx=None, keep=None):
+        """Round-robin round: walker ``a`` (a 0-d int64 device tensor)
+        serves one zone against its own token, then the optional
+        rendezvous."""
+        a = a.reshape(1)
+        base = state.base._replace(server=state.base.server._replace(
+            y=state.tokens.index_select(0, a)[0]))
+        base, loss = self._round_impl(base, idx, mask, key,
                                       use_fused=use_fused,
                                       batch_idx=batch_idx, keep=keep)
-        tokens[a] = base.server.y
+        tokens = state.tokens.index_copy(0, a, base.server.y.unsqueeze(0))
         return FleetState(base, _rendezvous(tokens, sync)), loss
 
-    def _sim_step(self, state: FleetState, idx, mask, sync, seed, *,
+    def _sim_step(self, state: FleetState, idx, mask, sync, key, *,
                   use_fused: bool = False, batch_idx=None, keep=None):
         """Simultaneous wall step: K disjoint zones (idx/mask ``(K, Z)``)
         update against their own walkers' tokens in one pass. Batch
-        indices (``(K·Z, B)``) are drawn for the flattened slots from the
-        round's seed unless given."""
+        indices (``(K·Z, B)``) are drawn for the flattened slots from
+        ``split(key, K·Z)`` unless given."""
         clients, server = state.base.clients, state.base.server
         hp = self.hp
         k_walkers, zone = idx.shape
         flat_idx, flat_mask = idx.reshape(-1), mask.reshape(-1)
         act_x, act_z = clients.x[flat_idx], clients.z[flat_idx]
         if batch_idx is None:
-            batch_idx, keep = self.zone_batch_indices(flat_idx, seed)
+            batch_idx, keep = self.zone_batch_indices(flat_idx, key)
         losses, grads = self.zone_loss_and_grad(act_x, flat_idx, batch_idx,
                                                 keep)
         stacked = (k_walkers, zone, -1)
@@ -179,12 +182,12 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         idx, mask, n_i = markov.plan_zone_round(graph, int(i_k),
                                                 self.zone_size, rng)
         n_active = int(mask.sum())
-        seed = markov.round_key_seed(rng)
+        key = self.round_key(markov.round_key_seed(rng))
         state, loss = self._rr_step(
             state, torch.as_tensor(idx, dtype=torch.int64,
                                    device=self.device),
-            torch.as_tensor(mask, device=self.device), k,
-            self._sync_flag(rnd), seed)
+            torch.as_tensor(mask, device=self.device),
+            torch.tensor(k, device=self.device), self._sync_flag(rnd), key)
         metrics = {
             "round": rnd, "walker": k, "client": int(i_k),
             "zone": n_active, "n_i": int(n_i),
@@ -202,12 +205,12 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
                               for w in self.walkers])
         idx, mask, n_i = markov.plan_fleet_zone_round(
             graph, positions, self.zone_size, rng)
-        seed = markov.round_key_seed(rng)
+        key = self.round_key(markov.round_key_seed(rng))
         state, loss = self._sim_step(
             state, torch.as_tensor(idx, dtype=torch.int64,
                                    device=self.device),
             torch.as_tensor(mask, device=self.device),
-            self._sync_flag(rnd), seed)
+            self._sync_flag(rnd), key)
         active = mask.sum(axis=1).astype(int)
         metrics = {
             "round": rnd,
@@ -237,30 +240,28 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             start_round=start_round, sync_every=self.sync_every,
             mode=self.fleet_mode)
 
-    def run_chunk(self, state: FleetState, sched: FleetZoneSchedule,
-                  engine: str = "scan"):
-        """Run a fleet window with no host sync inside. Returns
-        ``(state, {"train_loss": (R,), "kappa": (R,)})`` as device
-        tensors."""
-        use_fused = self._engine_use_fused(engine)
-        idx = torch.as_tensor(sched.idx, dtype=torch.int64,
-                              device=self.device)
-        mask = torch.as_tensor(sched.mask, device=self.device)
-        sync = torch.as_tensor(sched.sync, device=self.device)
+    def _window_columns(self, sched: FleetZoneSchedule) -> dict:
+        cols = super()._window_columns(sched)
+        cols["sync"] = sched.sync
+        if sched.mode == "roundrobin":
+            cols["walker"] = sched.walker.astype(np.int64)
+        return cols
+
+    def _window(self, state: FleetState, ins: dict, use_fused: bool):
         losses, kappas = [], []
-        for r in range(sched.rounds):
-            seed = int(sched.keys[r])
-            if sched.mode == "roundrobin":
-                state, loss = self._rr_step(state, idx[r], mask[r],
-                                            int(sched.walker[r]), sync[r],
-                                            seed, use_fused=use_fused)
+        for r in range(ins["idx"].shape[0]):
+            idx, mask, sync, key = (ins[k][r] for k in ("idx", "mask",
+                                                        "sync", "keys"))
+            if "walker" in ins:
+                state, loss = self._rr_step(state, idx, mask,
+                                            ins["walker"][r], sync, key,
+                                            use_fused=use_fused)
             else:
-                state, loss = self._sim_step(state, idx[r], mask[r], sync[r],
-                                             seed, use_fused=use_fused)
+                state, loss = self._sim_step(state, idx, mask, sync, key,
+                                             use_fused=use_fused)
             losses.append(loss)
             kappas.append(state.base.server.kappa)
-        return state, {"train_loss": torch.stack(losses),
-                       "kappa": torch.stack(kappas)}
+        return state, torch.stack(losses), torch.stack(kappas)
 
     def chunk_round_metrics(self, sched: FleetZoneSchedule, stacked: dict,
                             start_round: int) -> list[dict]:

@@ -24,10 +24,22 @@ Engines:
 * **eager** — :meth:`round`: plans one round on the host and syncs once
   for its metrics.
 * **scan** / **scan_fused** — :meth:`schedule` precomputes a window of
-  rounds (walk, zones, seeds) and :meth:`run_chunk` runs it as a Python
-  loop with no host sync inside: losses and κ stay on the device until
-  the window ends. ``scan_fused`` sends the closed-form update through
-  the hand-written CUDA zone kernel (``kernels/rwsadmm_update``).
+  rounds (walk, zones, round keys) and :meth:`run_chunk` runs it with no
+  host sync inside: losses and κ stay on the device until the window
+  ends. ``scan_fused`` sends the closed-form update through the
+  hand-written CUDA zone kernel (``kernels/rwsadmm_update``).
+
+Every draw of a round comes from its threefry key as the reference's
+(``core/prng.py``): slot j's batch and dropout masks from
+``split(key, Z)[j]``. The keys are device tensors, so on a CUDA device
+:meth:`run_chunk` runs a window as one CUDA graph, the counterpart of the
+reference's ``lax.scan`` under ``jit``: captured once per (engine, window
+length, fleet mode) and replayed after that. The graph's state is the
+trainer's carry (static x, z, y, κ, round counter, visited and the
+fleet's tokens): a state handed in that is not the carry is copied into
+it first, and the state returned *is* the carry. The window's inputs
+(zones, masks, keys) are static device buffers, each filled from pinned
+host memory with one copy per window. On the CPU the window is a loop.
 """
 from __future__ import annotations
 
@@ -41,7 +53,8 @@ from ..core.graph import DynamicGraph
 from ..core.markov import RandomWalkServer, ZoneSchedule
 from ..core.rwsadmm import ClientState, RWSADMMHparams, ServerState
 from ..kernels.rwsadmm_update import ops as fused_ops
-from .base import DeviceData, TrainerBase
+from ..kernels.threefry import ops as threefry_ops
+from .base import DeviceData, TrainerBase, reject_unported
 
 SCAN_ENGINES = ("scan", "scan_fused")
 ENGINES = ("eager",) + SCAN_ENGINES
@@ -52,6 +65,72 @@ class RWSADMMState(NamedTuple):
     clients: ClientState      # x, z: (n, P), updated in place
     server: ServerState
     visited: torch.Tensor     # (n,) bool — who holds a personalized model
+
+
+#: the kernel wrappers a round can launch, whose counts a capture tallies
+COUNTED = {"zone_update": fused_ops.zone_fused_update,
+           "multizone_update": fused_ops.multizone_fused_update,
+           "threefry_bits": threefry_ops.threefry_bits,
+           "threefry_bernoulli": threefry_ops.threefry_bernoulli,
+           "threefry_randint": threefry_ops.threefry_randint}
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in COUNTED.items()}
+
+
+def _leaves(tree) -> list:
+    """The tensors of a state, in field order (nested NamedTuples)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [leaf for field in tree for leaf in _leaves(field)]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors replaced, in :func:`_leaves` order."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    return type(tree)(*(_rebuild(field, leaves) for field in tree))
+
+
+def _copy_into(dst, src) -> None:
+    for a, b in zip(_leaves(dst), _leaves(src)):
+        if a is not b:
+            a.copy_(b)
+
+
+class CapturedWindow:
+    """One scan window as a CUDA graph: static input buffers, filled from
+    pinned host memory once per window, and the graph's output losses and
+    κ. ``warmup`` and ``captured`` count the kernel wrappers' calls of the
+    warm-up round and of the capture (a replay runs the captured launches
+    again; the wrappers' counts do not see it); ``replays`` counts the
+    replays."""
+
+    def __init__(self, cols: dict, device):
+        self.inputs = {k: torch.empty(v.shape, device=device,
+                                      dtype=torch.as_tensor(v[:0]).dtype)
+                       for k, v in cols.items()}
+        self.pinned = {k: torch.empty(v.shape, pin_memory=True,
+                                      dtype=t.dtype)
+                       for (k, v), t in zip(cols.items(),
+                                            self.inputs.values())}
+        self.copied = torch.cuda.Event()
+        self.graph = torch.cuda.CUDAGraph()
+        self.losses = self.kappas = None
+        self.warmup: dict = {}
+        self.captured: dict = {}
+        self.replays = 0
+
+    def load(self, cols: dict) -> None:
+        """Copy a window's columns in: host → pinned → device, one
+        asynchronous copy per input, after the last window's copies have
+        read the pinned buffers."""
+        self.copied.synchronize()
+        for k, v in cols.items():
+            self.pinned[k].numpy()[...] = v
+            self.inputs[k].copy_(self.pinned[k], non_blocking=True)
+        self.copied.record()
 
 
 class RWSADMMTrainer(TrainerBase):
@@ -74,7 +153,9 @@ class RWSADMMTrainer(TrainerBase):
         inner_lr: float = 0.05,
         seed: int = 0,
         device=None,
+        **unported,
     ):
+        reject_unported(unported)
         super().__init__(model, data, batch_size, device=device)
         if solver not in SOLVERS:
             raise ValueError(f"solver must be one of {SOLVERS}, got {solver}")
@@ -92,6 +173,11 @@ class RWSADMMTrainer(TrainerBase):
         self.walker.reset(self.dyn_graph.current())
         # Per-client service clock for the staleness metrics.
         self._last_served = np.full(self.n_clients, -1, dtype=np.int64)
+        # CUDA graphs: one per (engine, window length, fleet mode), all on
+        # one carry, captured and replayed on one side stream.
+        self.windows: dict[tuple, CapturedWindow] = {}
+        self._carry = None
+        self._stream = None
 
     def _staleness_metrics(self, idx, mask, rnd: int) -> dict:
         """Update the per-client service clock with one round's zone and
@@ -120,21 +206,22 @@ class RWSADMMTrainer(TrainerBase):
 
     # ------------------------------------------------------------------
     def _round_impl(self, state: RWSADMMState, zone_idx: torch.Tensor,
-                    zone_mask: torch.Tensor, seed: int, *,
+                    zone_mask: torch.Tensor, key: torch.Tensor, *,
                     use_fused: bool = False, batch_idx=None, keep=None):
-        """One zone round on the device. ``zone_idx`` ``(Z,)`` int64 and
-        ``zone_mask`` ``(Z,)`` fp32 device tensors; ``seed`` seeds the
-        round's sampler unless ``batch_idx`` (``(Z, B)``, or
-        ``(inner_steps, Z, B)`` for prox-SGD) is given, with ``keep``
-        (the CNN's dropout masks, or None). Updates
-        ``state``'s client buffers in place; returns the new state and
-        the zone's mean training loss as a 0-d device tensor."""
+        """One zone round on the device. ``zone_idx`` ``(Z,)`` int64,
+        ``zone_mask`` ``(Z,)`` fp32 and the round's key ``(2,)`` int64
+        device tensors; the batches and masks come from ``key`` unless
+        ``batch_idx`` (``(Z, B)``, or ``(inner_steps, Z, B)`` for
+        prox-SGD) is given, with ``keep`` (the CNN's dropout masks, or
+        None). Updates ``state``'s client buffers in place; returns the
+        new state and the zone's mean training loss as a 0-d device
+        tensor."""
         clients, server = state.clients, state.server
         hp, kappa, y = self.hp, server.kappa, server.y
         act = ClientState(x=clients.x[zone_idx], z=clients.z[zone_idx])
         steps = None if self.solver == "closed_form" else self.inner_steps
         if batch_idx is None:
-            batch_idx, keep = self.zone_batch_indices(zone_idx, seed, steps)
+            batch_idx, keep = self.zone_batch_indices(zone_idx, key, steps)
         n_total = float(self.n_clients)
         m = zone_mask.reshape(-1, 1)
 
@@ -190,11 +277,11 @@ class RWSADMMTrainer(TrainerBase):
         idx, mask, n_i = markov.plan_zone_round(graph, int(i_k),
                                                 self.zone_size, rng)
         n_active = int(mask.sum())
-        seed = markov.round_key_seed(rng)
+        key = self.round_key(markov.round_key_seed(rng))
         state, zone_loss = self._round_impl(
             state, torch.as_tensor(idx, dtype=torch.int64,
                                    device=self.device),
-            torch.as_tensor(mask, device=self.device), seed)
+            torch.as_tensor(mask, device=self.device), key)
         metrics = {
             "round": rnd,
             "client": int(i_k),
@@ -229,22 +316,95 @@ class RWSADMMTrainer(TrainerBase):
 
     def run_chunk(self, state: RWSADMMState, sched: ZoneSchedule,
                   engine: str = "scan"):
-        """Run a schedule window with no host sync inside. Returns
-        ``(state, {"train_loss": (R,), "kappa": (R,)})`` as device
-        tensors."""
+        """Run a schedule window with no host sync inside: one CUDA graph
+        replay on a CUDA device (captured at the first window of its
+        engine and length), a loop on the CPU. Returns ``(state,
+        {"train_loss": (R,), "kappa": (R,)})`` as device tensors; on a
+        CUDA device the state is the trainer's carry."""
         use_fused = self._engine_use_fused(engine)
-        idx = torch.as_tensor(sched.idx, dtype=torch.int64,
-                              device=self.device)
-        mask = torch.as_tensor(sched.mask, device=self.device)
+        cols = self._window_columns(sched)
+        if self.device.type != "cuda":
+            ins = {k: torch.as_tensor(v, device=self.device)
+                   for k, v in cols.items()}
+            state, losses, kappas = self._window(state, ins, use_fused)
+        else:
+            state, losses, kappas = self._replay(
+                state, cols, (engine, sched.rounds, getattr(sched, "mode",
+                                                            None)),
+                use_fused)
+        return state, {"train_loss": losses, "kappa": kappas}
+
+    def _window_columns(self, sched: ZoneSchedule) -> dict:
+        """A window's per-round device inputs, as host arrays."""
+        return {"idx": sched.idx.astype(np.int64), "mask": sched.mask,
+                "keys": sched.keys}
+
+    def _window(self, state, ins: dict, use_fused: bool):
+        """The window's rounds in order: ``(state, losses (R,), κ (R,))``."""
         losses, kappas = [], []
-        for r in range(sched.rounds):
-            state, loss = self._round_impl(state, idx[r], mask[r],
-                                           int(sched.keys[r]),
+        for r in range(ins["idx"].shape[0]):
+            state, loss = self._round_impl(state, ins["idx"][r],
+                                           ins["mask"][r], ins["keys"][r],
                                            use_fused=use_fused)
             losses.append(loss)
             kappas.append(state.server.kappa)
-        return state, {"train_loss": torch.stack(losses),
-                       "kappa": torch.stack(kappas)}
+        return state, torch.stack(losses), torch.stack(kappas)
+
+    def _adopt(self, state):
+        """The carry, holding ``state``: the first state becomes it (a
+        view among its tensors is cloned), later ones are copied in
+        unless they are it."""
+        if self._carry is None:
+            self._carry = _rebuild(state, iter(
+                t.clone() if t._base is not None else t
+                for t in _leaves(state)))
+        else:
+            _copy_into(self._carry, state)
+        return self._carry
+
+    def _replay(self, state, cols: dict, key: tuple, use_fused: bool):
+        """Replay the window's graph on the carry, capturing it first if
+        this engine and length have no graph yet."""
+        with torch.cuda.device(self.device):
+            carry = self._adopt(state)
+            win = self.windows.get(key)
+            if win is None:
+                win = self._capture(carry, cols, use_fused)
+                self.windows[key] = win
+            else:
+                win.load(cols)
+            win.graph.replay()
+            win.replays += 1
+            return carry, win.losses.clone(), win.kappas.clone()
+
+    def _capture(self, carry, cols: dict, use_fused: bool) -> CapturedWindow:
+        """Warm one round up on a scratch copy of the carry, on the side
+        stream the capture uses (cuDNN, cuBLAS and vmap set themselves up
+        outside the graph), then capture the window: its rounds, and the
+        copy of the final state into the carry so that replays chain.
+        Raises if the capture fails."""
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(self.device)
+        win = CapturedWindow(cols, self.device)
+        win.load(cols)
+        main = torch.cuda.current_stream(self.device)
+        self._stream.wait_stream(main)
+        before = _counts()
+        with torch.cuda.stream(self._stream):
+            scratch = _rebuild(carry, iter(t.clone() for t in _leaves(carry)))
+            self._window(scratch, {k: v[:1] for k, v in win.inputs.items()},
+                         use_fused)
+            del scratch
+        mid = _counts()
+        main.wait_stream(self._stream)
+        with torch.cuda.graph(win.graph, stream=self._stream):
+            final, win.losses, win.kappas = self._window(carry, win.inputs,
+                                                         use_fused)
+            _copy_into(carry, final)
+        after = _counts()
+        win.warmup = {k: mid[k] - before[k] for k in before}
+        win.captured = {k: after[k] - mid[k] for k in before}
+        return win
 
     def chunk_round_metrics(self, sched: ZoneSchedule, stacked: dict,
                             start_round: int) -> list[dict]:

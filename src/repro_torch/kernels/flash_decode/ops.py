@@ -18,7 +18,7 @@ from pathlib import Path
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import flash_decode_ref
 
 _SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
@@ -110,6 +110,7 @@ def flash_decode(q, k, v, length, *, window: int | None = None):
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode runs on cuda or cpu, not "
                          f"{q.device}")
+    refuse_grad("flash_decode", q=q, k=k, v=v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")

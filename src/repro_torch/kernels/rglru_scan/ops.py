@@ -19,7 +19,7 @@ from pathlib import Path
 
 import torch
 
-from .. import _build
+from .. import _build, refuse_grad
 from .ref import rglru_scan_ref
 
 _SOURCE = Path(__file__).parent / "csrc" / "rglru_scan.cu"
@@ -88,6 +88,7 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return rglru_scan_ref(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"rglru_scan runs on cuda or cpu, not {a.device}")
+    refuse_grad("rglru_scan", a=a, b=b)
     batch, seq, width = a.shape
     if batch > 65535:
         raise ValueError(f"B = {batch} exceeds the grid's 65535 rows")

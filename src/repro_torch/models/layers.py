@@ -3,8 +3,9 @@
 Parameters follow the reference's shapes: a dense weight is (n_in, n_out)
 and applies as ``x @ w``. Parameters and activations are in the config's
 dtype (bf16 at full width); normalisation statistics and RoPE angles are
-fp32. Inits draw fp32 normals from a ``torch.Generator`` and cast, as the
-reference draws fp32 and casts.
+fp32. Inits draw fp32 normals from a CPU ``torch.Generator`` (so a seed
+gives the same weights on every device) and cast, as the reference draws
+fp32 and casts.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ def torch_dtype(cfg) -> torch.dtype:
 
 
 def normal_(p: torch.Tensor, gen: torch.Generator, scale: float) -> None:
-    """Fill ``p`` with N(0, scale²) drawn in fp32, cast to p's dtype."""
+    """Fill ``p`` with N(0, scale²) drawn in fp32 on ``gen``'s device,
+    scaled on p's and cast to p's dtype."""
     with torch.no_grad():
-        p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
-                            dtype=torch.float32) * scale)
+        draw = torch.randn(p.shape, generator=gen, dtype=torch.float32,
+                           device=gen.device)
+        p.copy_(draw.to(p.device) * scale)
 
 
 def dense_init(p: torch.Tensor, gen: torch.Generator,

@@ -14,9 +14,10 @@ layout, so flat parameter vectors and inputs compare directly:
 
 Parameter names are ``<layer>.w`` / ``<layer>.b``, the keys of the flat
 layout (``core/tree.py``). Dropout takes keep masks that the caller draws
-with :meth:`SmallModel.draw_keep` from an explicit ``torch.Generator``
-(per-client gradients under ``vmap`` draw them outside); ``train=False``
-turns it off.
+with :meth:`SmallModel.draw_keep` from threefry keys, the bits the
+reference's ``bernoulli(fold_in(rng, i), p, shape)`` draws (per-client
+gradients under ``vmap`` draw them outside); ``train=False`` turns it
+off.
 """
 from __future__ import annotations
 
@@ -25,6 +26,8 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..core import prng
 
 
 class _Dense(nn.Module):
@@ -86,17 +89,24 @@ class SmallModel(nn.Module):
         return out
 
     def dropout_shapes(self, batch: int) -> tuple[tuple[int, ...], ...]:
-        """Activation shapes of the dropout layers for a batch."""
+        """The reference's (NHWC) activation shapes of the dropout layers
+        for a batch: the shapes its masks are drawn in."""
         return ()
 
-    def draw_keep(self, batch: int, generator: torch.Generator,
-                  device, lead: tuple[int, ...] = ()
+    def draw_keep(self, keys: torch.Tensor, batch: int
                   ) -> tuple[torch.Tensor, ...]:
-        """Bernoulli keep masks for every dropout layer, with extra
-        leading dims ``lead`` (e.g. the zone axis)."""
+        """Keep masks for every dropout layer under each key of ``keys``
+        ``(..., 2)``: layer i draws ``bernoulli(fold_in(key, i + 1), p,
+        shape)`` in the reference's shape, laid out as :meth:`forward`
+        applies it; ``(...,)`` leads each mask."""
         return tuple(
-            torch.rand(lead + shape, generator=generator, device=device) < p
-            for shape, p in zip(self.dropout_shapes(batch), self.keep_probs))
+            self._keep_layout(i, prng.bernoulli(prng.fold_in(keys, i + 1),
+                                                p, shape))
+            for i, (shape, p) in enumerate(zip(self.dropout_shapes(batch),
+                                               self.keep_probs)))
+
+    def _keep_layout(self, layer: int, keep: torch.Tensor) -> torch.Tensor:
+        return keep
 
 
 def _dropout(x, keep, p):
@@ -152,7 +162,12 @@ class CNN(SmallModel):
 
     def dropout_shapes(self, batch: int):
         (h, w), (c1, fc) = self.hw, self.widths
-        return ((batch, c1, h // 2, w // 2), (batch, fc))
+        return ((batch, h // 2, w // 2, c1), (batch, fc))
+
+    def _keep_layout(self, layer: int, keep: torch.Tensor) -> torch.Tensor:
+        # The conv block's mask is drawn NHWC (the bits follow the flat
+        # index) and applied to NCHW activations.
+        return keep.movedim(-1, -3) if layer == 0 else keep
 
     def forward(self, x, *, train=False, keep=None):
         drop = train and keep is not None

@@ -72,9 +72,10 @@ class LM(nn.Module):
     # ------------------------------------------------------------ init --
     def init(self, seed: int = 0) -> "LM":
         """Random weights from ``seed`` at the reference's scales and
-        dtypes (its draws differ: a ``torch.Generator`` is not a JAX
-        key)."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
+        dtypes, drawn on a CPU generator: the same weights on every
+        device (not the reference's: ``jax.random.normal`` is not
+        ported)."""
+        gen = torch.Generator().manual_seed(seed)
         embedding_init(self.embed, gen)
         self.final_norm.reset_parameters()
         for block in self.layers:

@@ -4,11 +4,15 @@ against the JAX package's, on the CPU.
 * Data: ``make_synthetic_lr``, ``make_mnist_like`` and
   ``build_federated_from_pairs`` give the reference's arrays bit for bit.
 * Round tier: both packages start from the reference's initial state
-  (``convert.baseline_state_from_reference``), the port is handed the
-  batch indices and CNN keep masks that the reference's key chain draws
-  (computed here with ``jax.random``), and one round runs in each. The
-  results agree at atol = rtol = ``TOL`` (1e-6, the reference's kernels'
-  own), the cohort averages included.
+  (``convert.baseline_state_from_reference``) and run one round on one
+  round key, each drawing its own batches: the port's batch indices and
+  CNN keep masks must equal what the reference's key chain draws
+  (computed here with ``jax.random``) exactly, and the results agree at
+  atol = rtol = ``TOL`` (1e-6, the reference's kernels' own), the cohort
+  averages included. The float64 round at the CNN's full widths hands
+  the port the draws instead: under ``jax.enable_x64`` the reference's
+  ``randint`` and ``bernoulli`` draw 64-bit words, not the ones its fp32
+  runs (and the port) draw.
 * Run tier: 30 rounds of ``run_simulation`` in both packages from the
   same initial state: cohorts, Walkman's visited clients and
   ``comm_bytes`` exactly equal (host RNG lockstep), final accuracy
@@ -36,10 +40,11 @@ from repro.fl.simulation import run_simulation as r_run
 from repro.models import small as RS
 from repro_torch import baselines as TB
 from repro_torch import convert
-from repro_torch.core import walkman
+from repro_torch.core import prng, walkman
 from repro_torch.data import build_federated, build_federated_from_pairs, \
     make_mnist_like, make_synthetic_lr, pathological_split
-from repro_torch.fl.base import to_device_data, validate_round_metrics
+from repro_torch.fl.base import step_keys, to_device_data, \
+    validate_round_metrics
 from repro_torch.fl.simulation import run_simulation
 from repro_torch.models.small import CNN, get_model
 
@@ -51,11 +56,11 @@ COHORT = np.array([5, 2, 7])          # a round's cohort (m = 3)
 # convolutions in different orders).
 TOL = dict(atol=1e-6, rtol=1e-6)
 # Final accuracy after 30 rounds: both packages run the same cohorts from
-# the same initial weights but draw their minibatches from different
-# generators (threefry against torch's). The reference's own final
-# accuracy over sampler seeds 0..4 on these 8 clients spreads by up to
-# 0.226 (FedAvg, MLR; Per-FedAvg MLP 0.142, Walkman MLP 0.125, the rest
-# 0.008-0.174), so the two packages are held within 0.25 of each other.
+# the same initial weights and draw the same minibatches (the port's
+# threefry equals the reference's), so only the last bits of their
+# gradients differ. The band stays where it was set when the two drew
+# from different generators: the reference's own final accuracy over
+# sampler seeds 0..4 on these 8 clients spreads by up to 0.226.
 RUN_BAND = 0.25
 RUN_ROUNDS = 30
 ALGOS = ["fedavg", "perfedavg", "pfedme", "ditto", "apfl", "walkman"]
@@ -167,7 +172,7 @@ def ref_draws(name, trainer, key, clients, n_train, keep_shapes):
     def block(step_keys):
         return _block(step_keys, clients, n_train, keep_shapes)
     if name in ("fedavg", "apfl"):
-        return (block([_steps(k, trainer.draw_steps[0]) for k in keys]),)
+        return (block([_steps(k, trainer.local_steps) for k in keys]),)
     if name == "perfedavg":
         return (block([[kk for k in _steps(c, trainer.local_steps)
                         for kk in jax.random.split(k)] for c in keys]),)
@@ -175,7 +180,7 @@ def ref_draws(name, trainer, key, clients, n_train, keep_shapes):
         return (block([_steps(k, trainer.local_rounds) for k in keys]),)
     assert name == "ditto"
     keys2 = jax.random.split(jax.random.fold_in(key, 7), m)
-    local, personal = trainer.draw_steps
+    local, personal = trainer.local_steps, trainer.personal_steps
     return (block([_steps(k, local) for k in keys]),
             block([_steps(k, personal) for k in keys2]))
 
@@ -186,23 +191,43 @@ def _assert_close(got, want, tol, what):
 
 
 # ------------------------------------------------------------ round tier --
-def _one_round(name, ref, port, r_state, state, n_train, keep_shapes):
-    """One round in each package from the same state on the draws of one
-    round key (the reference's key chain, injected into the port):
-    ``[(leaf, port result, reference result, leading axes)]``."""
+def _assert_draws_equal(got, want):
+    """Draw blocks ``[(idx, keep)]`` equal, exactly."""
+    assert len(got) == len(want)
+    for (idx, keep), (w_idx, w_keep) in zip(got, want):
+        assert torch.equal(idx, w_idx)
+        assert (keep is None) == (w_keep is None)
+        for k, w_k in zip(keep or (), w_keep or ()):
+            assert torch.equal(k, w_k)
+
+
+def _one_round(name, ref, port, r_state, state, n_train, keep_shapes,
+               own_draws=True):
+    """One round in each package from the same state on one round key:
+    ``[(leaf, port result, reference result, leading axes)]``. With
+    ``own_draws`` the port draws its own batches, held equal to the
+    reference's key chain; without, it is handed the key chain's."""
     key = jax.random.PRNGKey(20240611)
+    t_key = torch.as_tensor(np.asarray(key).astype(np.int64))
     if name == "walkman":
         i_k = 4
         r_clients, r_y, _ = ref._round_fn(r_state.clients, r_state.y,
                                           jnp.asarray(i_k), key)
         idx, keep = _block([[key]], [i_k], n_train, keep_shapes)
-        new, loss = port._round_impl(state, torch.tensor([i_k]), idx[0],
-                                     None if keep is None else
-                                     tuple(k[0] for k in keep))
+        draws = (idx[0], None if keep is None else tuple(k[0] for k in keep))
+        if own_draws:
+            own = port.batch_draws(torch.tensor([i_k]), t_key[None])
+            _assert_draws_equal([own], [draws])
+            draws = own
+        new, loss = port._round_impl(state, torch.tensor([i_k]), *draws)
         assert int(new.round) == 1 and np.isfinite(float(loss))
         return [("y", new.y, r_y, 0), ("x", new.clients.x, r_clients.x, 1),
                 ("z", new.clients.z, r_clients.z, 1)]
     draws = ref_draws(name, port, key, COHORT, n_train, keep_shapes)
+    if own_draws:
+        own = port.round_draws(torch.as_tensor(COHORT), t_key)
+        _assert_draws_equal(own, draws)
+        draws = own
     new = port._round_impl(state, torch.as_tensor(COHORT), draws)
     if name in ("ditto", "apfl"):
         r_w, r_v = ref._round_fn(r_state.w, r_state.v, jnp.asarray(COHORT),
@@ -291,7 +316,7 @@ def test_full_width_cnn_round_matches_reference_in_float64(name, cifar_fed):
         r_state = jax.tree_util.tree_map(jnp.asarray, state)
         rounds = _one_round(name, ref, port, r_state, port_state,
                             np.asarray(fed.mask_train.sum(axis=1)),
-                            FULL_KEEP)
+                            FULL_KEEP, own_draws=False)
         for leaf, got, want, lead in rounds:
             assert got.dtype == torch.float64, leaf
             np.testing.assert_allclose(got.numpy(), _rows64(want, lead),
@@ -321,6 +346,7 @@ def test_fixed_seed_evaluation(name, seed, kind, feds):
                               torch.as_tensor(clients), idx[0], keep)
     _assert_close(got, want, TOL, "personalized")
     every = port.personalized_params(state, slice(None))
+    _assert_close(every, want, TOL, "personalized, the port's own draws")
     assert torch.equal(port.personalized_params(state, slice(None)), every)
     # A chunk of rows draws the same batches; the CNN's vmapped
     # convolution over 3 clients may sum in another order than over 8.
@@ -343,7 +369,7 @@ def test_ditto_scatter_adds_the_difference(feds):
         torch.zeros(len(clients)), grads)
     clients = torch.as_tensor(COHORT)
     new = port._round_impl(state, clients,
-                           port.round_draws(clients, seed=5))
+                           port.round_draws(clients, port.round_key(5)))
     w, v_sel = port.init_state(0).w.numpy(), v_before[clients].numpy()
     v = v_sel
     for _ in range(port.personal_steps):
@@ -463,7 +489,7 @@ def test_cohort_gradients_on_card_match_cpu(cuda_device):
         w = trainers["cpu"].initial_params(1)
         clients = torch.arange(10)
         idx, keep = trainers["cpu"].batch_draws(
-            clients, torch.Generator().manual_seed(3), 1)
+            clients, step_keys(prng.split(prng.prng_key(3), 10), 1))
         grads = {}
         for d, tr in trainers.items():
             _, grads[d] = tr.zone_loss_and_grad(

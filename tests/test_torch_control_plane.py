@@ -90,7 +90,7 @@ def test_schedule_columns_equal(seed):
         for col in ("idx", "mask", "n_i", "clients", "active"):
             a, b = getattr(sr, col), getattr(sp, col)
             assert a.dtype == b.dtype and np.array_equal(a, b), col
-        assert np.array_equal(np.asarray(sr.keys)[:, 1].astype(np.int64),
+        assert np.array_equal(np.asarray(sr.keys).astype(np.int64),
                               sp.keys)
     assert ref.walker.hitting_time() == port.walker.hitting_time()
     assert np.array_equal(ref.walker.visit_counts, port.walker.visit_counts)

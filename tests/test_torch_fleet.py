@@ -103,7 +103,7 @@ def test_fleet_schedule_columns_equal(port_data, mode, seed):
                 assert a is None and b is None
                 continue
             assert a.dtype == b.dtype and np.array_equal(a, b), col
-        assert np.array_equal(np.asarray(sr.keys)[:, 1].astype(np.int64),
+        assert np.array_equal(np.asarray(sr.keys).astype(np.int64),
                               sp.keys)
         assert sr.sync.any() and sp.rounds == rounds
     for w_r, w_p in zip(ref.walkers, port.walkers):
@@ -273,16 +273,16 @@ def test_fleet_trajectory_matches_jax_reference(round_fed, mode, fused):
         idx = torch.as_tensor(sched.idx[r], dtype=torch.int64)
         mask = torch.as_tensor(sched.mask[r])
         sync = torch.tensor(sched.sync[r])
-        seed = int(sched.keys[r])
-        bidx, _ = port.zone_batch_indices(idx.reshape(-1), seed)
+        key = torch.as_tensor(sched.keys[r])
+        bidx, _ = port.zone_batch_indices(idx.reshape(-1), key)
         if mode == "roundrobin":
             a = int(sched.walker[r])
-            state, _ = port._rr_step(state, idx, mask, a, sync, seed,
-                                     use_fused=fused, batch_idx=bidx)
+            state, _ = port._rr_step(state, idx, mask, torch.tensor(a), sync,
+                                     key, use_fused=fused, batch_idx=bidx)
             ref.roundrobin(sched.idx[r], sched.mask[r], a, bidx.numpy(),
                            sched.sync[r])
         else:
-            state, _ = port._sim_step(state, idx, mask, sync, seed,
+            state, _ = port._sim_step(state, idx, mask, sync, key,
                                       use_fused=fused, batch_idx=bidx)
             ref.simultaneous(sched.idx[r], sched.mask[r], bidx.numpy(),
                              sched.sync[r])
@@ -411,8 +411,10 @@ def test_fleet_rejects_unsupported_settings(port_data):
         _port(port_data, "simultaneous", solver="prox_sgd")
     with pytest.raises(ValueError, match="fleet_mode"):
         _port(port_data, "convoy")
-    with pytest.raises(TypeError):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
         _port(port_data, "roundrobin", scenario="field_trial")
+    with pytest.raises(TypeError, match="no_such_argument"):
+        _port(port_data, "roundrobin", no_such_argument=1)
 
 
 def test_fleet_imports_with_jax_and_reference_blocked():

@@ -16,6 +16,7 @@ import torch
 from repro.core import tree as rtree
 from repro.models import small as R
 from repro_torch import convert
+from repro_torch.core import prng
 from repro_torch.core.tree import ParamLayout
 from repro_torch.models import small as T
 
@@ -125,8 +126,7 @@ def test_cnn_full_width_param_count():
 
 def test_dropout_keep_rate_and_scaling():
     model = T.CNN((32, 32, 3), c1=4, c2=8, fc=32)
-    gen = torch.Generator().manual_seed(0)
-    keep = model.draw_keep(4096, gen, "cpu")
+    keep = model.draw_keep(prng.prng_key(0), 4096)
     assert [tuple(k.shape) for k in keep] == [(4096, 4, 16, 16), (4096, 32)]
     for k, p in zip(keep, model.keep_probs):
         # Binomial standard error of the keep rate is < 1e-3 here.
@@ -135,10 +135,8 @@ def test_dropout_keep_rate_and_scaling():
         assert bool(((out == 0) | (out == 1.0 / p)).all())
         assert abs(float(out.mean()) - 1.0) < 1e-2   # 1/keep rescaling
     x = torch.randn(8, 32, 32, 3)
-    a = model(x, train=True,
-              keep=model.draw_keep(8, torch.Generator().manual_seed(1), "cpu"))
-    b = model(x, train=True,
-              keep=model.draw_keep(8, torch.Generator().manual_seed(1), "cpu"))
+    a = model(x, train=True, keep=model.draw_keep(prng.prng_key(1), 8))
+    b = model(x, train=True, keep=model.draw_keep(prng.prng_key(1), 8))
     assert torch.equal(a, b)
     assert not torch.equal(a, model(x, train=False))
     assert torch.equal(model(x, train=False), model(x))

@@ -3,7 +3,8 @@ against a zone round assembled from the JAX package's own functions.
 
 Both sides start from the same initial params (the reference MLP's init,
 carried over with ``convert``) and see the same zones and the same
-minibatch indices (the port's sampler output, injected into both).
+minibatch indices (the port's threefry draws, injected into the
+reference's round).
 Tolerance atol = rtol = 1e-6 on x, z, y after every round (the gap seen
 is ~2e-7): per-client gradients differ in the last bits (matmul
 summation order), and each round feeds those bits into the next
@@ -120,8 +121,9 @@ def test_trajectory_matches_jax_reference(fed, solver, fused, min_degree):
     for r in range(ROUNDS):
         idx = torch.as_tensor(sched.idx[r], dtype=torch.int64)
         mask = torch.as_tensor(sched.mask[r])
-        bidx, keep = port.zone_batch_indices(idx, int(sched.keys[r]), steps)
-        state, _ = port._round_impl(state, idx, mask, int(sched.keys[r]),
+        key = torch.as_tensor(sched.keys[r])
+        bidx, keep = port.zone_batch_indices(idx, key, steps)
+        state, _ = port._round_impl(state, idx, mask, key,
                                     use_fused=fused, batch_idx=bidx)
         ref.round(sched.idx[r], sched.mask[r], bidx.numpy())
         np.testing.assert_allclose(state.clients.x.numpy(), ref.X, **TOL)
@@ -133,13 +135,13 @@ def test_trajectory_matches_jax_reference(fed, solver, fused, min_degree):
 
 def test_round_samples_what_it_would_inject(fed):
     """``_round_impl`` without injected indices draws exactly the batch
-    ``zone_batch_indices`` returns for the same seed."""
+    ``zone_batch_indices`` returns for the same key."""
     a, b = _port(fed, "closed_form"), _port(fed, "closed_form")
     sa, sb = a.init_state(0), b.init_state(0)
     idx, mask = torch.tensor([3, 1, 4, 0]), torch.tensor([1., 1., 1., 0.])
-    bidx, _ = b.zone_batch_indices(idx, 1234)
-    sa, la = a._round_impl(sa, idx, mask, 1234)
-    sb, lb = b._round_impl(sb, idx, mask, 999, batch_idx=bidx)
+    bidx, _ = b.zone_batch_indices(idx, b.round_key(1234))
+    sa, la = a._round_impl(sa, idx, mask, a.round_key(1234))
+    sb, lb = b._round_impl(sb, idx, mask, b.round_key(999), batch_idx=bidx)
     assert torch.equal(sa.clients.x, sb.clients.x) and torch.equal(la, lb)
     n_tr = b.data.n_train[idx].unsqueeze(-1)
     assert bool((bidx >= 0).all() and (bidx < n_tr).all())
