@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. device — needs CUDA; prints the card's name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions.
 2. build — builds the kernels from ``src/repro_torch`` with ``nvcc``, one
-   process per source, all at once (four sources, six kernels), and
+   process per source, all at once (four sources, seven kernels), and
    prints ptxas's registers, spills and static shared memory per entry.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card at the paths' shapes and at odd ones, and times the first row of
@@ -22,15 +22,19 @@ Phases (each prints its own lines; any failure exits non-zero):
    exceed the L2 (cold) and over one set (warm), with CUDA-graph replay
    beside; one ``scaled_dot_product_attention`` call timed the same way
    as flash decode's yardstick. Then ``threefry`` (the port of
-   ``jax.random``'s sampler): its three entries bit for bit against the
-   plain integer ops at the CNN round's mask, key and ``randint``
-   shapes, and one round's draws timed beside their bound.
+   ``jax.random``'s sampler): ``threefry_draws`` bit for bit against the
+   plain integer ops at the zone's 8 leaves, the fleet's 24, prox-SGD's
+   step-major tree, the edge spans and its one-output forms, and
+   ``threefry_bits`` at split, fold-in and raw-bits shapes; one round's
+   draws timed cold and warm beside their bound on the integer pipe (the
+   SM clock read from ``nvidia-smi``), and a cohort's key split.
 4. single-walker path — RWSADMM through ``run_simulation`` on the
    paper's CIFAR-10 CNN at full width (P = 1,068,266), n = 100 clients,
    zone 8, batch 20, ``closed_form`` + ``engine="scan_fused"``: the
    window runs as one CUDA graph (a warm-up round, the capture, one
    replay); checks finite losses, the accuracy report and that the zone
-   and threefry kernels ran once (six times) per round; steady ms per
+   kernel and ``threefry_draws`` ran once per round, and no other
+   threefry entry; steady ms per
    engine with each window's replays, the kernels it launches and the
    device's busy share; then ``eager`` from the same seed and weights
    must agree with ``scan_fused``.
@@ -54,7 +58,8 @@ Phases (each prints its own lines; any failure exits non-zero):
 6c. scaling twins — ``benchmarks/scan_scaling_torch.py`` and
    ``benchmarks/fleet_scaling_torch.py`` at their smoke sizes.
 7. baselines — the paper's baselines on the card, launching no update
-   kernel (their draws go through threefry): the reference's accuracy
+   kernel (their draws go through threefry, each entry's launches
+   counted exactly): the reference's accuracy
    gates (``tests/test_fl_trainers.py``
    at its settings), each run's cohorts, Walkman's visited clients and
    ``comm_bytes`` equal to a numpy replay of the seed's host draws; the
@@ -94,6 +99,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 data-sheet peaks (dense): memory bandwidth by part, fp32 non-tensor.
 HBM_BYTES_PER_S = {"pcie": 2.0e12, "sxm": 3.35e12}
 FP32_FLOP_PER_S = 67e12
+# 32-bit integer add, bitwise, shift and funnel-shift results a clock per
+# SM on compute capability 9.0 (CUDA C++ programming guide, throughput of
+# arithmetic instructions), and the H100's SMs: times the SM clock that
+# nvidia-smi reads, the integer pipe's peak.
+INT32_OPS_PER_CLOCK_PER_SM = 64
+H100_SMS = 132
 
 ENGINES = ("eager", "scan", "scan_fused")
 P_CNN = 1_068_266
@@ -129,6 +140,20 @@ def nvidia_smi_line() -> str:
 def hbm_rate(name: str) -> tuple[float, str]:
     part = "pcie" if "pcie" in name.lower() else "sxm"
     return HBM_BYTES_PER_S[part], f"H100 {part.upper()} data sheet"
+
+
+def int32_rate() -> tuple[float, str]:
+    """32-bit integer operations a second at the card's maximum SM clock
+    (``nvidia-smi --query-gpu=clocks.max.sm``), and how it was made."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60)
+    mhz = float(out.stdout.strip().splitlines()[0])
+    rate = INT32_OPS_PER_CLOCK_PER_SM * H100_SMS * mhz * 1e6
+    return rate, (f"{INT32_OPS_PER_CLOCK_PER_SM} int32 results a clock per "
+                  f"SM × {H100_SMS} SMs × {mhz:.0f} MHz (nvidia-smi "
+                  f"clocks.max.sm) = {rate / 1e12:.2f} T/s")
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -244,17 +269,23 @@ def _wrappers():
             "fused_update": ops.fused_update,
             "rglru_scan": rglru_scan, "flash_decode": flash_decode,
             "threefry_bits": tf.threefry_bits,
-            "threefry_bernoulli": tf.threefry_bernoulli,
-            "threefry_randint": tf.threefry_randint}
+            "threefry_draws": tf.threefry_draws}
 
 
-#: the threefry entries, reported as one kernel
-THREEFRY = ("threefry_bits", "threefry_bernoulli", "threefry_randint")
-#: launches of each entry in one round of the CNN (a zone or the fleet's
-#: K zones): split + fold_in(·, 1) + fold_in(·, 2); two keep masks; the
-#: batch indices
-THREEFRY_PER_ROUND = {"threefry_bits": 3, "threefry_bernoulli": 2,
-                      "threefry_randint": 1}
+#: the threefry entries
+THREEFRY = ("threefry_bits", "threefry_draws")
+#: launches of each threefry entry in one closed-form round of the CNN (a
+#: zone or the fleet's K zones): the zone's split, batch indices and both
+#: keep masks in one ``threefry_draws``; no other entry
+THREEFRY_PER_ROUND = {"threefry_draws": 1}
+#: threefry launches (draws, bits) in one round of each baseline: a draws
+#: launch per key block, and the key tree's splits and fold-ins
+#: (``split(key, m)``, each client's split per step; Ditto's second block
+#: from ``fold_in(key, 7)``; Per-FedAvg's split of each step's key)
+BASELINE_THREEFRY = {"fedavg": (1, 2), "perfedavg": (1, 3), "pfedme": (1, 2),
+                     "ditto": (2, 5), "apfl": (1, 2), "walkman": (1, 0)}
+#: baselines whose evaluation draws (one launch a chunk of clients)
+EVAL_DRAWS = ("perfedavg", "pfedme")
 #: the update kernels, which the baselines never launch
 UPDATES = ("zone_update", "multizone_update", "fused_update")
 
@@ -297,7 +328,7 @@ def phase_build() -> dict:
         entries.update(ptxas_entries(lib))
         for entry, info in ptxas_entries(lib).items():
             log(f"ptxas {lib.name.split('-')[0]}: {entry} {info}")
-    log(f"build: 6 kernels from 4 sources in {seconds:.2f} s "
+    log(f"build: 7 kernels from 4 sources in {seconds:.2f} s "
         f"({', '.join(l.name for l in libs)}); ptxas reports "
         f"{len(entries)} entries")
     return entries
@@ -530,128 +561,205 @@ def phase_kernels(hp, device, card: str) -> dict:
 # ---------------------------------------------------------------------------
 # threefry: the port of jax.random's sampler (no TPU kernel; XLA fuses the
 # reference's draws into its compiled round).
-#: 32-bit integer operations of one threefry2x32 hash: 2 key adds, 20
-#: rounds of add, rotate and xor, 5 key injections of 3 adds
-HASH_OPS = 77
+#: 32-bit integer operations of one 32-bit threefry2x32 draw: 20 rounds of
+#: add, rotate and xor (60), 2 + 5 × 2 key additions (a key's sums with
+#: the injection numbers are made once per key) and the xor of the two
+#: output words (1)
+HASH_OPS = 73
+#: more integer operations a keep byte (the top 23 bits as a float in
+#: [1, 2): shift, or, subtract, compare) and a batch index (two
+#: remainders of its words, the multiply-add, the last remainder, ~10)
+KEEP_OPS, INDEX_OPS = 4, 10
 SPANS = (1, 7, 150, 600, 4999, 70_000, 2**31 - 1, 0)
+#: output sets a cold timing rotates through: more than the 50 MB L2
+COLD_BYTES = 64e6
 
 
-def threefry_cases(key, keys, spans, shapes, probs):
-    """The entries' calls of one round, each as (label, kernel call,
-    plain call): the zone's keys, their fold-ins, both keep masks, the
-    raw bits of the conv mask's counters and the batch indices."""
+def draws_work(leaves: int, batch: int, masks, fan: bool) -> tuple:
+    """Bytes and integer operations one ``threefry_draws`` call must
+    spend: it reads the parent keys and each leaf's client and span and
+    writes the indices (int64) and keep bytes; each keep byte is one draw
+    and a compare, each index two draws and ~10 operations, and each leaf
+    hashes its key (with a fan-out), split's two halves and one fold-in a
+    mask."""
+    n_mask = leaves * sum(math.prod(m.shape) for m in masks)
+    n_idx = leaves * batch
+    parents = 1 if fan else leaves
+    bytes_moved = 16 * parents + 16 * leaves + 8 * n_idx + n_mask
+    key_hashes = leaves * (int(fan) + 2 + len(masks))
+    ops = (n_mask * (HASH_OPS + KEEP_OPS) + n_idx * (2 * HASH_OPS + INDEX_OPS)
+           + key_hashes * HASH_OPS)
+    return bytes_moved, ops, n_mask, n_idx
+
+
+def bound(bytes_moved: int, ops: int, card: str) -> dict:
+    """The least time for the work: bytes at the memory rate, 32-bit
+    integer operations at the integer pipe's."""
+    rate, rate_src = hbm_rate(card)
+    irate, irate_src = int32_rate()
+    bytes_ms, ops_ms = bytes_moved / rate * 1e3, ops / irate * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_rate": f"{rate_src}; {irate_src}",
+            "bytes": bytes_moved, "ops": ops}
+
+
+def threefry_cases(key, keys, n_train, masks, batch, device):
+    """``threefry_draws`` and ``threefry_bits`` calls as (label, kernel
+    call, plain call), each giving a tuple of tensors: the zone's and the
+    fleet's round (the split in the launch), prox-SGD's step-major tree,
+    the edge spans without a client table, the one-output form
+    ``bernoulli`` takes, and split, fold-in and raw-bits calls of
+    ``threefry_bits``."""
+    import torch
+
     from repro_torch.kernels.threefry import ops as tf
     from repro_torch.kernels.threefry import ref
 
-    n_conv, n_dense = (math.prod(shape) for shape in shapes)
-    slots, batch = keys.shape[0], shapes[1][0]
+    def draws(label, src, **kw):
+        def run(fn):
+            idx, outs = fn(src, **kw)
+            return (idx, *outs)
+        return label, lambda: run(tf.threefry_draws), \
+            lambda: run(ref.draws_ref)
+
+    zone = keys.shape[0]
+    n_conv = math.prod(masks[0].shape)
+    clients = {z: torch.arange(z, device=device) % n_train.shape[0]
+               for z in (zone, 3 * zone)}
+    spans = torch.tensor(SPANS, device=device)
     return [
-        ("split", lambda: tf.threefry_bits(key, slots, pair=True),
-         lambda: ref.bits_ref(key, slots, 0, True)),
-        ("fold_in", lambda: tf.threefry_bits(keys, 1, offset=1, pair=True),
-         lambda: ref.bits_ref(keys, 1, 1, True)),
-        ("bits", lambda: tf.threefry_bits(keys, n_conv),
-         lambda: ref.bits_ref(keys, n_conv)),
-        ("bernoulli_conv",
-         lambda: tf.threefry_bernoulli(keys, n_conv, probs[0]),
-         lambda: ref.bernoulli_ref(keys, n_conv, probs[0])),
-        ("bernoulli_dense",
-         lambda: tf.threefry_bernoulli(keys, n_dense, probs[1]),
-         lambda: ref.bernoulli_ref(keys, n_dense, probs[1])),
-        ("randint", lambda: tf.threefry_randint(keys, batch, spans),
-         lambda: ref.randint_ref(keys, batch, spans))]
+        *(draws(f"round, {z} leaves", key, split=z, batch=batch,
+                spans=n_train, clients=clients[z], masks=masks)
+          for z in (zone, 3 * zone)),
+        draws("prox-SGD, 3 steps", keys, split=3, batch=batch, spans=n_train,
+              clients=clients[zone], masks=masks),
+        draws("edge spans", keys, batch=batch, spans=spans, masks=masks),
+        draws("edge spans, minval 3", keys, batch=batch, spans=spans,
+              minval=3),
+        draws("bernoulli", keys, masks=(ref.MaskSpec((n_conv,), 0.75),),
+              fold=False),
+        ("split", lambda: (tf.threefry_bits(key, zone, pair=True),),
+         lambda: (ref.bits_ref(key, zone, 0, True),)),
+        ("fold_in", lambda: (tf.threefry_bits(keys, 1, offset=7,
+                                              pair=True),),
+         lambda: (ref.bits_ref(keys, 1, 7, True),)),
+        ("bits", lambda: (tf.threefry_bits(keys, n_conv),),
+         lambda: (ref.bits_ref(keys, n_conv),))]
 
 
-def round_draws(key, spans, shapes, probs, plain: bool):
-    """One CNN round's draws from its key (1, 2): the zone's keys, the
-    batch indices and both keep masks, through the kernels or their
-    plain versions."""
+def time_draws(key, kw: dict, leaves: int, card: str, plain: bool) -> dict:
+    """One round's ``threefry_draws`` by device time, cold (output sets
+    rotating through more than the L2, each kept until its turn comes
+    again) and warm (one set), beside its bound; the plain version's
+    time with ``plain``."""
     from repro_torch.kernels.threefry import ops as tf
     from repro_torch.kernels.threefry import ref
 
-    bits, randint, bernoulli = (
-        (ref.bits_ref, ref.randint_ref, ref.bernoulli_ref) if plain else
-        (tf.threefry_bits, tf.threefry_randint, tf.threefry_bernoulli))
-    slots = spans.shape[0]
-    keys = bits(key, slots, 0, True).view(slots, 2)
-    idx = randint(keys, shapes[1][0], spans)
-    return idx, [bernoulli(bits(keys, 1, i + 1, True).view(slots, 2),
-                           math.prod(shape), p)
-                 for i, (shape, p) in enumerate(zip(shapes, probs))]
+    masks = kw["masks"]
+    bytes_moved, ops, n_mask, n_idx = draws_work(leaves, kw["batch"], masks,
+                                                 True)
+    sets = math.ceil(COLD_BYTES / (n_mask + 8 * n_idx))
+    held = [None] * sets
+
+    def call(i):
+        def fn():
+            held[i] = tf.threefry_draws(key, **kw)
+        return fn
+    cold = device_time_ms([call(i) for i in range(sets)], 4)
+    warm = device_time_ms([call(0)], 50)
+    out = {"ms": cold["profiler"], "ms_warm": warm["profiler"],
+           "graph_ms": cold["graph"], "graph_ms_warm": warm["graph"],
+           "kernels_per_call": warm["kernels_per_call"], "cold_sets": sets,
+           "n_mask": n_mask, "n_idx": n_idx, "library_ms": None,
+           **bound(bytes_moved, ops, card)}
+    if plain:
+        p = device_time_ms([lambda: ref.draws_ref(key, **kw)], 3,
+                           graph=False)
+        out.update(plain_ms=p["profiler"],
+                   plain_kernels_per_call=p["kernels_per_call"])
+    out["share_of_bound"] = out["bound_ms"] / out["ms"]
+    return out
 
 
-def phase_threefry(device, model, data, card: str) -> list:
-    """The threefry entries bit for bit against the plain integer ops
-    (``kernels/threefry/ref.py``, run on the card) at the CNN's shapes: a
-    zone of 8 slots and the K = 3 fleet's 24, the clients' spans and the
-    edge spans (1, 2^31 − 1, 0); then one zone round's draws timed by
-    device time beside their bound and the plain version's."""
+def phase_threefry(device, model, data, card: str) -> dict:
+    """``threefry_draws`` and ``threefry_bits`` bit for bit against the
+    plain integer ops (``kernels/threefry/ref.py``, run on the card) at
+    the CNN's shapes; then one zone round's draws (8 leaves) and one
+    fleet step's (24) timed cold and warm beside their bound and the
+    plain version's time, and a cohort's key split (10 clients × 10
+    steps) for ``threefry_bits``."""
     import torch
 
     from repro_torch.core import prng
+    from repro_torch.kernels.threefry import ops as tf
+    from repro_torch.kernels.threefry import ref
 
-    batch = MAIN["batch"]
-    shapes, probs = model.dropout_shapes(batch), model.keep_probs
-    rows = []
-    for slots, spans in ((MAIN["zone"], None), (3 * MAIN["zone"], None),
-                         (len(SPANS), torch.tensor(SPANS, device=device))):
-        key = prng.prng_key(1000 + slots, device)[None]
-        keys = prng.split(key[0], slots)
-        if spans is None:
-            clients = torch.arange(slots, device=device) % data.n_clients
-            spans = data.n_train[clients]
-        errs = {}
-        for label, kernel, plain in threefry_cases(key, keys, spans, shapes,
-                                                   probs):
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(f"threefry {label} at {slots} keys "
-                                     "differs from its plain version")
-            errs[label] = float((got.long() - want.long()).abs().max())
-        rows.append({"shape": f"{slots} keys, batch {batch}, masks "
-                              f"{[list(sh) for sh in shapes]}",
-                     "err": errs, "max_abs_err": max(errs.values())})
-        log(f"kernel threefry {rows[-1]['shape']}: every entry bitwise "
-            f"equal to its plain version (max_abs_err {errs})")
+    batch, zone = MAIN["batch"], MAIN["zone"]
+    masks = model.keep_masks(batch)
+    key = prng.prng_key(1000, device)[None]
+    keys = prng.split(key[0], zone)
+    errs = {}
+    for label, kernel, plain in threefry_cases(key, keys, data.n_train,
+                                               masks, batch, device):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if len(got) != len(want) or not all(
+                g.shape == w.shape and torch.equal(g, w)
+                for g, w in zip(got, want)):
+            raise AssertionError(f"threefry {label} differs from its plain "
+                                 "version")
+        errs[label] = max((float((g.long() - w.long()).abs().max())
+                           for g, w in zip(got, want) if g.numel()),
+                          default=0.0)
+    log(f"kernel threefry: threefry_draws and threefry_bits bitwise equal to "
+        f"their plain versions at masks {[list(m.shape) for m in masks]}, "
+        f"batch {batch} (max_abs_err {errs})")
 
-    spans = data.n_train[torch.arange(MAIN["zone"], device=device)]
-    key = prng.prng_key(7, device)[None]
-    timed = device_time_ms(
-        [lambda: round_draws(key, spans, shapes, probs, plain=False)], 50)
-    plain = device_time_ms(
-        [lambda: round_draws(key, spans, shapes, probs, plain=True)], 3,
-        graph=False)
-    n_mask = MAIN["zone"] * sum(math.prod(sh) for sh in shapes)
-    n_idx = MAIN["zone"] * batch
-    # Reads the round key and the zone's spans; writes the indices
-    # (int64) and the keep masks (bool). Each mask element takes one hash
-    # and 4 more operations, each index two hashes (under the key's two
-    # halves) and ~10 (two remainders, a multiply, an add, a remainder).
-    bytes_moved = 16 + 8 * MAIN["zone"] + 8 * n_idx + n_mask
-    ops = n_mask * (HASH_OPS + 4) + n_idx * (2 * HASH_OPS + 10)
-    rate, rate_src = hbm_rate(card)
-    bytes_ms = bytes_moved / rate * 1e3
-    ops_ms = ops / FP32_FLOP_PER_S * 1e3
-    row = rows[0]
-    row.update({"ms": timed["profiler"], "graph_ms": timed["graph"],
-                "kernels_per_call": timed["kernels_per_call"],
-                "plain_ms": plain["profiler"],
-                "plain_kernels_per_call": plain["kernels_per_call"],
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bound_rate": f"{rate_src}; 32-bit integer operations at "
-                              f"the fp32 CUDA-core peak",
-                "bytes": bytes_moved, "ops": ops, "library_ms": None})
-    row["share_of_bound"] = row["bound_ms"] / row["ms"]
-    log(f"kernel threefry, one zone round's draws ({MAIN['zone']} keys, "
-        f"{n_idx} indices, {n_mask:,} keep bits): device ms "
-        f"{row['ms']:.5f} in {row['kernels_per_call']:.0f} launches, graph "
-        f"{row['graph_ms']:.5f}; plain device ms {row['plain_ms']:.4f} in "
-        f"{row['plain_kernels_per_call']:.0f} kernels; bound_ms "
-        f"{row['bound_ms']:.5f} ({row['bound_by']}: {bytes_moved:,} bytes, "
-        f"{ops:,} operations) share {row['share_of_bound']:.3f}")
-    return rows
+    rows = {}
+    for leaves in (zone, 3 * zone):
+        clients = torch.arange(leaves, device=device) % data.n_clients
+        kw = dict(split=leaves, batch=batch, spans=data.n_train,
+                  clients=clients, masks=masks)
+        row = time_draws(key, kw, leaves, card, plain=leaves == zone)
+        row["shape"] = (f"{leaves} leaves from one key, batch {batch}, "
+                        f"masks {[list(m.shape) for m in masks]}")
+        row["max_abs_err"] = max(errs.values())
+        rows[leaves] = row
+        log(f"kernel threefry_draws, {leaves} leaves ({row['n_idx']} "
+            f"indices, {row['n_mask']:,} keep bytes): device ms "
+            f"{row['ms']:.5f} cold ({row['cold_sets']} output sets), "
+            f"{row['ms_warm']:.5f} warm, in {row['kernels_per_call']:.0f} "
+            f"launch(es); graph {row['graph_ms']:.5f} cold, "
+            f"{row['graph_ms_warm']:.5f} warm"
+            + (f"; plain device ms {row['plain_ms']:.4f} in "
+               f"{row['plain_kernels_per_call']:.0f} kernels"
+               if "plain_ms" in row else "")
+            + f"; bound_ms {row['bound_ms']:.5f} ({row['bound_by']}: "
+            f"{row['bytes']:,} bytes, {row['ops']:,} operations; "
+            f"{row['bound_rate']}) share {row['share_of_bound']:.3f}")
+    draws = [rows[zone], rows[3 * zone]]
+    draws[1]["plain_ms"] = None
+
+    cohort = prng.split(key[0], 10)
+    n_pairs = 10 * 10
+    timed = device_time_ms([lambda: tf.threefry_bits(cohort, 10, pair=True)],
+                           50)
+    plain = device_time_ms([lambda: ref.bits_ref(cohort, 10, 0, True)], 3,
+                           graph=False)
+    bits = {"shape": "10 keys × 10 counters, word pairs (a cohort's split "
+                     "per step)",
+            "ms": timed["profiler"], "graph_ms": timed["graph"],
+            "plain_ms": plain["profiler"], "library_ms": None,
+            "max_abs_err": 0.0,
+            **bound(16 * 10 + 16 * n_pairs, n_pairs * HASH_OPS, card)}
+    bits["share_of_bound"] = bits["bound_ms"] / bits["ms"]
+    log(f"kernel threefry_bits, {bits['shape']}: device ms "
+        f"{bits['ms']:.5f} (1.8 KB: the L2's state does not matter), graph "
+        f"{bits['graph_ms']:.5f}; plain {bits['plain_ms']:.4f}; bound_ms "
+        f"{bits['bound_ms']:.6f} ({bits['bound_by']}) share "
+        f"{bits['share_of_bound']:.3f}")
+    return {"threefry_draws": draws, "threefry_bits": [bits]}
 
 
 # ---------------------------------------------------------------------------
@@ -727,8 +835,9 @@ def drive(trainer, rounds: int, seed: int, update: str, label: str):
     """One ``run_simulation`` of ``scan_fused`` on a fresh trainer, with
     every launch count set to 0 just before and read just after. The
     wrappers' counts must be the windows' warm-up rounds and captures,
-    and what the replays ran must be one ``update`` launch and six
-    threefry launches per round (warm-up rounds included)."""
+    and what the replays ran must be one ``update`` launch and one
+    ``threefry_draws`` launch per round (warm-up rounds included), and no
+    other kernel's."""
     import torch
 
     from repro_torch.fl.simulation import run_simulation
@@ -1113,6 +1222,8 @@ GATES = dict(n_samples=1200, n_clients=10, clients_per_round=5, rounds=60,
                                       "apfl": 0.6, "walkman": 0.35})
 # benchmarks/table1.py's grid through its port twin; 120 rounds as there.
 TABLE1_ROUNDS = 120
+#: clients of each Table 1 dataset (``benchmarks/table1_torch.datasets``)
+TABLE1_CLIENTS = {"mnist_like": 10, "synthetic": 20}
 TABLE1_PERSONALIZED = ("perfedavg", "pfedme", "ditto", "apfl", "rwsadmm")
 # The reference's RWSADMM cells at seed 0 on the CPU (benchmarks/table1.py,
 # 120 rounds; ROADMAP Queue 3), beside which the port's card run prints
@@ -1190,10 +1301,24 @@ def final_losses_finite(res) -> bool:
     return bool(losses) and all(math.isfinite(v) for v in losses)
 
 
+def want_threefry(name: str, rounds: int, evals: int, n_clients: int
+                  ) -> dict:
+    """Threefry launches of a baseline's ``run_simulation``: its rounds'
+    (``BASELINE_THREEFRY``) and, for Per-FedAvg and pFedMe, one draws
+    launch per evaluated chunk of clients."""
+    from repro_torch.fl.base import EVAL_CHUNK
+
+    draws, bits = BASELINE_THREEFRY[name]
+    chunks = math.ceil(n_clients / EVAL_CHUNK) if name in EVAL_DRAWS else 0
+    return {"threefry_bits": bits * rounds,
+            "threefry_draws": draws * rounds + evals * chunks}
+
+
 def baseline_gates(device) -> dict:
     """The reference's own accuracy gates on the card, each run's host
     draws held against a numpy replay, no update kernel launched and the
-    draws through threefry."""
+    draws through threefry, each entry launched as often as the
+    baseline's key tree asks."""
     import torch
 
     from repro_torch.data import build_federated, make_image_dataset, \
@@ -1233,7 +1358,9 @@ def baseline_gates(device) -> dict:
                "replay_equal": got == want,
                "finite": final_losses_finite(res),
                "update_launches": sum(counts[k] for k in UPDATES),
-               "threefry_launches": sum(counts[k] for k in THREEFRY)}
+               "threefry": {k: counts[k] for k in THREEFRY},
+               "threefry_want": want_threefry(name, rounds, 1,
+                                              GATES["n_clients"])}
         log(f"baseline gate {name}: {rounds} rounds in "
             f"{res.wall_time_s:.2f} s, {which} "
             f"{acc:.4f} (gate > {row['threshold']}), host draws equal to "
@@ -1242,7 +1369,7 @@ def baseline_gates(device) -> dict:
             f"launches {counts}")
         if not (acc > row["threshold"] and row["replay_equal"]
                 and row["finite"] and row["update_launches"] == 0
-                and row["threefry_launches"] > 0):
+                and row["threefry"] == row["threefry_want"]):
             raise AssertionError(f"baseline gate {name} failed: {row}")
         out[name] = row
     return out
@@ -1266,14 +1393,24 @@ def table1_grid(device) -> dict:
         launches[algo] = counts
         # Only rwsadmm_cf's windows launch (and capture) the zone kernel;
         # every row draws its batches through threefry (no keep masks:
-        # MLR and MLP have no dropout).
+        # MLR and MLP have no dropout): a baseline as its key tree asks, a
+        # window's round (warm-up and capture) one draws launch, prox-SGD's
+        # after one split of the zone's keys.
         zone = (algo == "rwsadmm_cf") == (counts["zone_update"] > 0)
+        tf_counts = {k: counts[k] for k in THREEFRY}
+        if algo in BASELINE_THREEFRY:
+            want = [want_threefry(algo, r["rounds"], 1,
+                                  TABLE1_CLIENTS[r["dataset"]]) for r in got]
+            want = {k: sum(w[k] for w in want) for k in THREEFRY}
+        else:
+            draws = sum(r["rounds"] + 1 for r in got)
+            want = {"threefry_draws": draws,
+                    "threefry_bits": draws if algo == "rwsadmm" else 0}
         if not (zone and all(counts[k] == 0 for k in UPDATES[1:])
-                and counts["threefry_bits"] > 0
-                and counts["threefry_randint"] > 0
+                and tf_counts == want
                 and all(math.isfinite(r["loss"]) for r in got)):
-            raise AssertionError(f"table1 {algo}: launches {counts}, rows "
-                                 f"{got}")
+            raise AssertionError(f"table1 {algo}: launches {counts} (want "
+                                 f"{want}), rows {got}")
         rows += got
     for r in rows:
         log(f"table1 {r['dataset']}/{r['model']}/{r['algo']}: acc "
@@ -2044,12 +2181,13 @@ def profile_breakdown(fn, reps: int, label: str) -> dict:
 
 # ---------------------------------------------------------------------------
 _RW_SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
+_TF_SOURCE = "src/repro_torch/kernels/threefry/csrc/threefry.cu"
 SOURCE = {"zone_update": _RW_SOURCE, "multizone_update": _RW_SOURCE,
           "fused_update": _RW_SOURCE,
           "rglru_scan": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
           "flash_decode":
               "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
-          "threefry": "src/repro_torch/kernels/threefry/csrc/threefry.cu"}
+          "threefry_draws": _TF_SOURCE, "threefry_bits": _TF_SOURCE}
 REPLACES = {"zone_update": "src/repro/kernels/rwsadmm_update/kernel.py:176",
             "multizone_update":
                 "src/repro/kernels/rwsadmm_update/kernel.py:147",
@@ -2057,8 +2195,11 @@ REPLACES = {"zone_update": "src/repro/kernels/rwsadmm_update/kernel.py:176",
             "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:49",
             "flash_decode": "src/repro/kernels/flash_decode/kernel.py:82",
             # No pl.pallas_call: jax.random, which XLA fuses into the
-            # reference's round; the draw it replaces is sample_batch's.
-            "threefry": "src/repro/fl/base.py:110"}
+            # reference's round; the draws replace sample_batch's randint
+            # (and the CNN's bernoulli, models/small.py:112, :120), the
+            # bits the cohort's key split.
+            "threefry_draws": "src/repro/fl/base.py:110",
+            "threefry_bits": "src/repro/baselines/fedavg.py:43"}
 
 
 def main() -> int:
@@ -2083,7 +2224,7 @@ def main() -> int:
     model, data, hp = build_main_path(device, MAIN["seed"])
     rows = phase_kernels(hp, device, name)
     rows.update(phase_lm_kernels(device, name))
-    rows["threefry"] = phase_threefry(device, model, data, name)
+    rows.update(phase_threefry(device, model, data, name))
     paths = {"main_path": phase_main_path(device, model, data, hp),
              "fleet_path": phase_fleet(device, model, data, hp)}
     main_counts = paths["main_path"]["launches"]
@@ -2091,16 +2232,21 @@ def main() -> int:
                 "multizone_update":
                     paths["fleet_path"]["launches"]["multizone_update"],
                 "fused_update": phase_single_client(device, model, data, hp),
-                "threefry": sum(main_counts[k] for k in THREEFRY)}
+                "threefry_draws": main_counts["threefry_draws"]}
     ran = {"zone_update": paths["main_path"]["launches_run"]["zone_update"],
            "multizone_update":
                paths["fleet_path"]["launches_run"]["multizone_update"],
-           "threefry": sum(paths["main_path"]["launches_run"][k]
-                           for k in THREEFRY)}
+           "threefry_draws":
+               paths["main_path"]["launches_run"]["threefry_draws"]}
     paths["capture"] = phase_capture(device, model, data, hp)
     paths["device_parity"] = phase_device_parity(device, model, data, hp)
     paths["twins"] = phase_twins(device)
     paths["baselines"] = phase_baselines(device, model, data)
+    # threefry_bits runs on the baselines' path (their key trees): its
+    # launches over the accuracy gates' runs.
+    launches["threefry_bits"] = sum(
+        r["threefry"]["threefry_bits"]
+        for r in paths["baselines"]["gates"].values())
     model = data = None
     torch.cuda.empty_cache()
     paths["serve_path"] = phase_serve(device)
@@ -2124,7 +2270,7 @@ def main() -> int:
                "share_of_bound": timed["share_of_bound"],
                "shape": timed["shape"]}
         row.update({k: timed[k] for k in extra if k in timed})
-        if kernel in ("rglru_scan", "flash_decode", "threefry"):
+        if kernel in ("rglru_scan", "flash_decode", *THREEFRY):
             row["ptxas"] = {e: v for e, v in ptxas.items()
                             if e.startswith(kernel)}
         if "sign_flips" in timed:

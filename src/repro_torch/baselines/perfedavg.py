@@ -71,8 +71,8 @@ class PerFedAvgTrainer(CohortTrainer):
 
     def personalized_params(self, state: PerFedAvgState, rows: slice):
         clients = torch.arange(self.n_clients, device=self.device)
-        idx, keep = self.batch_draws(clients, prng.split(
-            self.round_key(EVAL_SEED), self.n_clients))
+        idx, keep = self.batch_draws(clients, self.round_key(EVAL_SEED),
+                                     split=self.n_clients)
         return self.adapt(state.w, clients[rows], idx[rows],
                           keep_at(keep, rows))
 

@@ -234,26 +234,30 @@ class TrainerBase:
         """The round's key, ``PRNGKey(seed)``, on the device."""
         return prng.prng_key(seed, self.device)
 
-    def batch_draws(self, clients: torch.Tensor, keys: torch.Tensor):
+    def batch_draws(self, clients: torch.Tensor, keys: torch.Tensor,
+                    split: int | None = None):
         """Batch indices and the CNN's dropout keep masks under ``keys``
         ``(..., m, 2)``, one key per client of ``clients`` ``(m,)`` along
-        the last lead axis: ``idx`` ``(..., m, B)``, as the reference's
-        ``randint(key, (B,), 0, n_train[client])``, and the masks its
-        model draws from the same key (or None)."""
-        idx = prng.randint(keys, (self.batch_size,), 0,
-                           self.data.n_train[clients])
-        keep = self.model.draw_keep(keys, self.batch_size)
+        the last lead axis, in one ``threefry_draws`` launch: ``idx``
+        ``(..., m, B)``, as the reference's ``randint(key, (B,), 0,
+        n_train[client])``, and the masks its model draws from the same
+        key (or None). With ``split`` the keys are first split
+        ``split`` ways in the launch, the split leading (``step_keys``)."""
+        idx, keep = prng.draws(keys, split=split, batch=self.batch_size,
+                               spans=self.data.n_train, clients=clients,
+                               masks=self.model.keep_masks(self.batch_size))
         return idx, (keep or None)
 
     def zone_batch_indices(self, clients: torch.Tensor, key: torch.Tensor,
                            steps: int | None = None):
         """:meth:`batch_draws` of a zone round's key tree: slot j's key is
         ``split(key, Z)[j]``, and with ``steps`` (prox-SGD's inner loop)
-        step t's is ``split(that, steps)[t]`` (``(steps, Z, B)``)."""
-        keys = prng.split(key, clients.shape[0])
-        if steps is not None:
-            keys = step_keys(keys, steps)
-        return self.batch_draws(clients, keys)
+        step t's is ``split(that, steps)[t]`` (``(steps, Z, B)``). The
+        last split runs inside the draws' launch."""
+        if steps is None:
+            return self.batch_draws(clients, key, split=clients.shape[0])
+        return self.batch_draws(clients, prng.split(key, clients.shape[0]),
+                                split=steps)
 
     def zone_loss_and_grad(self, x: torch.Tensor, clients: torch.Tensor,
                            idx: torch.Tensor, keep=None):

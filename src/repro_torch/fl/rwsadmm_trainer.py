@@ -71,8 +71,7 @@ class RWSADMMState(NamedTuple):
 COUNTED = {"zone_update": fused_ops.zone_fused_update,
            "multizone_update": fused_ops.multizone_fused_update,
            "threefry_bits": threefry_ops.threefry_bits,
-           "threefry_bernoulli": threefry_ops.threefry_bernoulli,
-           "threefry_randint": threefry_ops.threefry_randint}
+           "threefry_draws": threefry_ops.threefry_draws}
 
 
 def _counts() -> dict:

@@ -1,10 +1,12 @@
 """Wrappers of the threefry2x32 kernels (``csrc/threefry.cu``).
 
-Each takes ``keys`` ``(R, 2)`` int64 (uint32 words) and draws ``n``
-counters per key row. A CUDA tensor launches the kernel or raises; only
-tensors on the CPU take the plain version in :mod:`.ref`. Each wrapper
-counts its own kernel launches in ``<wrapper>.launches``; a launch
-recorded into a CUDA graph counts once, its replays not at all.
+``threefry_bits`` hashes ``n`` counters under each key row;
+``threefry_draws`` makes a round's batch indices and keep masks in one
+launch. Both take ``keys`` ``(R, 2)`` int64 (uint32 words). A CUDA
+tensor launches the kernel or raises; only tensors on the CPU take the
+plain version in :mod:`.ref`. Each wrapper counts its own kernel launches
+in ``<wrapper>.launches``; a launch recorded into a CUDA graph counts
+once, its replays not at all.
 
 The kernels are built at first use by :func:`..._build.build` (``nvcc``
 into ``build/`` beside this file, loaded with ``ctypes``).
@@ -18,13 +20,17 @@ import numpy as np
 import torch
 
 from .. import _build
-from .ref import bernoulli_ref, bits_ref, randint_ref
+from .ref import MaskSpec, bits_ref, draws_ref
 
 _SOURCE = Path(__file__).parent / "csrc" / "threefry.cu"
 NVCC_FLAGS = (*_build.BASE_FLAGS, "-Xptxas", "-v", *_build.LIBRARY_FLAGS)
+#: keep masks one ``threefry_draws`` launch makes (``kMaxMasks``)
+MAX_MASKS = 2
+#: a leaf's counters stay below this (32-bit counters and offsets)
+MAX_COUNT = 2**31
 
 _lib = None
-_PTR, _I64 = ctypes.c_void_p, ctypes.c_longlong
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def build() -> Path:
@@ -36,15 +42,12 @@ def _library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        # keys, rows, n, then each entry's own arguments, out, stream.
-        lib.threefry_bits.argtypes = [_PTR, _I64, _I64, _I64, ctypes.c_int,
-                                      _PTR, _PTR]
-        lib.threefry_bernoulli.argtypes = [_PTR, _I64, _I64, ctypes.c_float,
-                                           _PTR, _PTR]
-        lib.threefry_randint.argtypes = [_PTR, _I64, _I64, _PTR, _I64, _PTR,
-                                         _PTR]
-        for fn in (lib.threefry_bits, lib.threefry_bernoulli,
-                   lib.threefry_randint):
+        lib.threefry_bits.argtypes = [_PTR, _INT, _I64, ctypes.c_ulonglong,
+                                      _INT, _PTR, _PTR]
+        lib.threefry_draws.argtypes = [
+            _PTR, _INT, _INT, _PTR, _INT, _PTR, _INT, _I64, _INT, _PTR,
+            _INT, _PTR, _PTR, _PTR, _INT, _PTR]
+        for fn in (lib.threefry_bits, lib.threefry_draws):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -63,6 +66,16 @@ def _check_keys(keys: torch.Tensor, n: int) -> bool:
     if keys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"threefry runs on cuda or cpu, not {keys.device}")
     return keys.device.type == "cpu"
+
+
+def _check_table(name: str, t: torch.Tensor, keys: torch.Tensor) -> None:
+    if t.dim() != 1 or t.dtype != torch.int64 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-d int64 tensor, "
+                         f"got {tuple(t.shape)} {t.dtype}")
+    if t.device != keys.device:
+        raise ValueError(f"{name} is on {t.device}, keys on {keys.device}")
+    if t.numel() == 0:
+        raise ValueError(f"{name} is empty")
 
 
 def _launch(entry: str, keys: torch.Tensor, *args) -> None:
@@ -89,42 +102,63 @@ def threefry_bits(keys: torch.Tensor, n: int, offset: int = 0,
     return out
 
 
-def threefry_bernoulli(keys: torch.Tensor, n: int, p: float
-                       ) -> torch.Tensor:
-    """``(R, n)`` bool keep mask: uniform < float32(p)."""
-    if _check_keys(keys, n):
-        return bernoulli_ref(keys, n, p)
-    rows = keys.shape[0]
-    out = torch.empty((rows, n), dtype=torch.bool, device=keys.device)
-    _launch("threefry_bernoulli", keys, rows, n, float(np.float32(p)),
-            out.data_ptr())
-    threefry_bernoulli.launches += 1
-    return out
-
-
-def threefry_randint(keys: torch.Tensor, n: int, maxval: torch.Tensor,
-                     minval: int = 0) -> torch.Tensor:
-    """``(R, n)`` int64 in [minval, maxval[r]), ``jax.random.randint``'s
-    int32 draw; ``maxval`` ``(R,)`` int64 on the keys' device, each below
-    2^31 (a span ≤ 0 gives ``minval``)."""
-    cpu = _check_keys(keys, n)
-    if maxval.shape != (keys.shape[0],) or maxval.dtype != torch.int64:
-        raise ValueError(f"maxval must be ({keys.shape[0]},) int64, got "
-                         f"{tuple(maxval.shape)} {maxval.dtype}")
-    if maxval.device != keys.device:
-        raise ValueError(f"maxval is on {maxval.device}, keys on "
-                         f"{keys.device}")
+def threefry_draws(keys: torch.Tensor, *, split: int | None = None,
+                   batch: int = 0, spans: torch.Tensor | None = None,
+                   clients: torch.Tensor | None = None, minval: int = 0,
+                   masks: tuple[MaskSpec, ...] = (), fold: bool = True):
+    """A round's draws in one launch: ``(idx, masks)`` as
+    :func:`.ref.draws_ref` makes them. The leaves are ``keys`` or, with
+    ``split``, each row's ``split(key, split)``, fan-out-major; each draws
+    ``batch`` indices in ``[minval, span)``, its span ``spans[clients[l %
+    m]]`` (``spans[l % S]`` without ``clients``; ``spans`` and ``clients``
+    int64 on the keys' device, ``clients`` in range), and up to two keep
+    masks (:class:`.ref.MaskSpec`), each under ``fold_in(leaf, i + 1)`` or,
+    without ``fold``, the leaf."""
+    cpu = _check_keys(keys, batch)
+    if split is not None and split < 1:
+        raise ValueError(f"split must be ≥ 1, got {split}")
+    masks = tuple(masks)
+    if len(masks) > MAX_MASKS:
+        raise ValueError(f"at most {MAX_MASKS} masks a launch, got "
+                         f"{len(masks)}")
+    dims = [spec.dims() for spec in masks]
+    if batch >= MAX_COUNT or any(d[0] >= MAX_COUNT for d in dims):
+        raise ValueError(f"a leaf draws fewer than 2^31 values (32-bit "
+                         f"counters), got batch {batch}, masks "
+                         f"{[d[0] for d in dims]}")
+    if batch:
+        if spans is None:
+            raise ValueError("batch indices need spans")
+        _check_table("spans", spans, keys)
+    if clients is not None:
+        _check_table("clients", clients, keys)
+    leaves = keys.shape[0] * (split or 1)
+    if leaves >= MAX_COUNT:
+        raise ValueError(f"{leaves} leaves reach 2^31")
+    kw = dict(split=split, batch=batch, spans=spans, clients=clients,
+              minval=minval, masks=masks, fold=fold)
     if cpu:
-        return randint_ref(keys, n, maxval, minval)
-    rows = keys.shape[0]
-    maxval = maxval.contiguous()
-    out = torch.empty((rows, n), dtype=torch.int64, device=keys.device)
-    _launch("threefry_randint", keys, rows, n, maxval.data_ptr(),
-            int(minval), out.data_ptr())
-    threefry_randint.launches += 1
-    return out
+        return draws_ref(keys, **kw)
+    dev = keys.device
+    idx = torch.empty((leaves, batch), dtype=torch.int64, device=dev)
+    outs = tuple(torch.empty((leaves, *spec.out_shape), dtype=torch.bool,
+                             device=dev) for spec in masks)
+    if leaves * (batch + sum(d[0] for d in dims)) == 0:
+        return idx, outs
+    flat = [v for d in dims for v in d] or [0]
+    _launch("threefry_draws", keys, keys.shape[0], split or 0,
+            0 if spans is None else spans.data_ptr(),
+            0 if spans is None else spans.shape[0],
+            0 if clients is None else clients.data_ptr(),
+            0 if clients is None else clients.shape[0], int(minval), batch,
+            idx.data_ptr(), len(masks), (ctypes.c_int * len(flat))(*flat),
+            (ctypes.c_float * MAX_MASKS)(*(float(np.float32(s.p))
+                                          for s in masks)),
+            (ctypes.c_void_p * MAX_MASKS)(*(o.data_ptr() for o in outs)),
+            int(fold))
+    threefry_draws.launches += 1
+    return idx, outs
 
 
 threefry_bits.launches = 0
-threefry_bernoulli.launches = 0
-threefry_randint.launches = 0
+threefry_draws.launches = 0

@@ -12,10 +12,14 @@ gives the same bits on every device, and these are the bits of
 ``iota_2x32_shape``).
 
 Each function takes ``keys`` ``(R, 2)`` and a counter range ``[offset,
-offset + n)`` per key row, as the kernel does; ``core/prng.py`` shapes
-them into the ``jax.random`` API.
+offset + n)`` per key row, as the kernel does; :func:`draws_ref` composes
+them into a round's draws as ``threefry_draws`` makes them in one launch;
+``core/prng.py`` shapes them into the ``jax.random`` API.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -92,3 +96,63 @@ def randint_ref(keys: torch.Tensor, n: int, maxval: torch.Tensor,
     mult = (((65536 % span) ** 2) & MASK32) % span
     off = (_mulmod32(hi % span, mult) + lo % span) & MASK32
     return minval + off % span
+
+
+class MaskSpec(NamedTuple):
+    """A keep mask of ``threefry_draws``: ``bernoulli(key, p, shape)`` per
+    leaf, ``shape`` being the reference's (channels-last). With
+    ``channels_first`` the last axis is stored second, (N, H, W, C) as
+    (N, C, H, W), the bits still following the reference's index."""
+
+    shape: tuple[int, ...]
+    p: float
+    channels_first: bool = False
+
+    @property
+    def out_shape(self) -> tuple[int, ...]:
+        """The stored shape of one leaf's mask."""
+        if not self.channels_first:
+            return tuple(self.shape)
+        return (self.shape[0], self.shape[-1], *self.shape[1:-1])
+
+    def dims(self) -> tuple[int, int, int]:
+        """``(count, C, S)``: the kernel stores element (n, c, s) of
+        ``(count / (C·S), C, S)`` from counter (n·S + s)·C + c; C = 1 keeps
+        the reference's order."""
+        count = math.prod(self.shape)
+        if not self.channels_first:
+            return count, 1, count
+        return count, self.shape[-1], math.prod(self.shape[1:-1])
+
+
+def draws_ref(keys: torch.Tensor, *, split: int | None = None,
+              batch: int = 0, spans: torch.Tensor | None = None,
+              clients: torch.Tensor | None = None, minval: int = 0,
+              masks=(), fold: bool = True):
+    """A round's draws under every leaf: the rows of ``keys`` or, with
+    ``split``, each row's ``split(key, split)``, fan-out-major (leaf j·R +
+    r is ``split(keys[r], split)[j]``). ``idx`` ``(leaves, batch)`` int64,
+    leaf l's ``randint(leaf, (batch,), minval, spans[clients[l % m]])``
+    (``spans[l % S]`` without ``clients``), and one ``(leaves,
+    *spec.out_shape)`` bool mask per
+    :class:`MaskSpec`, mask i drawn by ``bernoulli(fold_in(leaf, i + 1),
+    p, shape)`` (under the leaf itself without ``fold``)."""
+    leaves = keys if split is None else bits_ref(
+        keys, split, pair=True).transpose(0, 1).reshape(-1, 2)
+    n = leaves.shape[0]
+    rows = torch.arange(n, device=keys.device)
+    if batch:
+        which = (rows % spans.shape[0] if clients is None
+                 else clients[rows % clients.shape[0]])
+        idx = randint_ref(leaves, batch, spans[which], minval)
+    else:
+        idx = torch.empty((n, 0), dtype=torch.int64, device=keys.device)
+    out = []
+    for i, spec in enumerate(masks):
+        key = bits_ref(leaves, 1, i + 1, True).view(n, 2) if fold else leaves
+        keep = bernoulli_ref(key, math.prod(spec.shape), spec.p)
+        keep = keep.view(n, *spec.shape)
+        if spec.channels_first:
+            keep = keep.movedim(-1, 2).contiguous()
+        out.append(keep)
+    return idx, tuple(out)

@@ -14,10 +14,11 @@ layout, so flat parameter vectors and inputs compare directly:
 
 Parameter names are ``<layer>.w`` / ``<layer>.b``, the keys of the flat
 layout (``core/tree.py``). Dropout takes keep masks that the caller draws
-with :meth:`SmallModel.draw_keep` from threefry keys, the bits the
-reference's ``bernoulli(fold_in(rng, i), p, shape)`` draws (per-client
-gradients under ``vmap`` draw them outside); ``train=False`` turns it
-off.
+from threefry keys, the bits the reference's ``bernoulli(fold_in(rng, i),
+p, shape)`` draws (per-client gradients under ``vmap`` draw them
+outside): :meth:`SmallModel.keep_masks` describes them for the trainers'
+fused draw, :meth:`SmallModel.draw_keep` draws them alone;
+``train=False`` turns it off.
 """
 from __future__ import annotations
 
@@ -93,20 +94,21 @@ class SmallModel(nn.Module):
         for a batch: the shapes its masks are drawn in."""
         return ()
 
+    def keep_masks(self, batch: int) -> tuple[prng.MaskSpec, ...]:
+        """Every dropout layer's keep mask for a batch: its reference
+        shape and keep probability, and the layout :meth:`forward`
+        applies it in."""
+        return tuple(prng.MaskSpec(shape, p)
+                     for shape, p in zip(self.dropout_shapes(batch),
+                                         self.keep_probs))
+
     def draw_keep(self, keys: torch.Tensor, batch: int
                   ) -> tuple[torch.Tensor, ...]:
         """Keep masks for every dropout layer under each key of ``keys``
         ``(..., 2)``: layer i draws ``bernoulli(fold_in(key, i + 1), p,
         shape)`` in the reference's shape, laid out as :meth:`forward`
         applies it; ``(...,)`` leads each mask."""
-        return tuple(
-            self._keep_layout(i, prng.bernoulli(prng.fold_in(keys, i + 1),
-                                                p, shape))
-            for i, (shape, p) in enumerate(zip(self.dropout_shapes(batch),
-                                               self.keep_probs)))
-
-    def _keep_layout(self, layer: int, keep: torch.Tensor) -> torch.Tensor:
-        return keep
+        return prng.draws(keys, masks=self.keep_masks(batch))[1]
 
 
 def _dropout(x, keep, p):
@@ -164,10 +166,11 @@ class CNN(SmallModel):
         (h, w), (c1, fc) = self.hw, self.widths
         return ((batch, h // 2, w // 2, c1), (batch, fc))
 
-    def _keep_layout(self, layer: int, keep: torch.Tensor) -> torch.Tensor:
+    def keep_masks(self, batch: int):
         # The conv block's mask is drawn NHWC (the bits follow the flat
-        # index) and applied to NCHW activations.
-        return keep.movedim(-1, -3) if layer == 0 else keep
+        # index) and stored NCHW, as its activations are.
+        conv, dense = super().keep_masks(batch)
+        return conv._replace(channels_first=True), dense
 
     def forward(self, x, *, train=False, keep=None):
         drop = train and keep is not None

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.core import prng
 from repro_torch.kernels.threefry import ops
+from repro_torch.kernels.threefry.ref import MaskSpec
 
 SEED = 20240611
 #: the CIFAR CNN's two keep-mask shapes at batch 20 (NHWC, then dense)
@@ -100,9 +101,9 @@ def test_wrappers_refuse_bad_keys():
         ops.threefry_bits(torch.zeros(3, dtype=torch.int64), 4)
     with pytest.raises(TypeError, match="int64"):
         ops.threefry_bits(torch.zeros(3, 2, dtype=torch.int32), 4)
-    with pytest.raises(ValueError, match="maxval"):
-        ops.threefry_randint(torch.zeros(3, 2, dtype=torch.int64), 4,
-                             torch.ones(2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="spans"):
+        ops.threefry_draws(torch.zeros(3, 2, dtype=torch.int64), batch=4,
+                           spans=torch.ones(2, 1, dtype=torch.int64))
 
 
 # ----------------------------------------------------------------- card --
@@ -115,7 +116,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card(cuda_device):
-    """Each entry at the CNN round's shapes, bit for bit."""
+    """Each entry at the CNN round's shapes, bit for bit (``bernoulli``
+    and ``randint`` as ``threefry_draws`` with one output)."""
     keys = prng.split(prng.prng_key(SEED), 8)
     spans = torch.tensor([1, 7, 150, 600, 4999, 70_000, 2**31 - 1, 0])
     n = int(np.prod(MASKS["conv"]))
@@ -124,8 +126,10 @@ def test_kernel_matches_plain_version_on_card(cuda_device):
         "fold": (lambda k: ops.threefry_bits(k, 1, offset=97, pair=True),
                  None),
         "bits": (lambda k: ops.threefry_bits(k, n), None),
-        "bernoulli": (lambda k: ops.threefry_bernoulli(k, n, 0.75), None),
-        "randint": (lambda k, s: ops.threefry_randint(k, 20, s), spans),
+        "bernoulli": (lambda k: ops.threefry_draws(
+            k, masks=(MaskSpec((n,), 0.75),), fold=False)[1][0], None),
+        "randint": (lambda k, s: ops.threefry_draws(k, batch=20, spans=s)[0],
+                    spans),
     }
     for name, (fn, extra) in cases.items():
         args = () if extra is None else (extra,)
