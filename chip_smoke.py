@@ -43,6 +43,23 @@ Phases (each prints its own lines; any failure exits non-zero):
    with one multi-zone launch each, steady times per engine, a profile,
    eager vs ``scan_fused``; then a round-robin fleet whose 12 rounds each
    launch the zone kernel.
+5a. scenarios — the paper's infrastructure-less field on the same model
+   and data: the single walker under ``field_trial`` (Gauss-Markov
+   mobility, lossy links, churn with 20 % stragglers) for 50 rounds of
+   ``scan_fused`` in one captured window, and the K = 3 simultaneous
+   fleet under ``lossy_links`` for 50 wall steps; each with exactly one
+   update launch (``zone_update`` / ``multizone_update``) and one
+   ``threefry_draws`` launch a round and no other threefry entry; its
+   host columns (client, zone, ``n_i``, ``latency_s``, ``energy_j``,
+   staleness, ``comm_bytes``) equal by ``==`` across ``scan_fused``, an
+   eager run and the same trainer's ``schedule()`` on the CPU; eager's
+   state against ``scan_fused`` at ``EAGER_ATOL``; the captured windows
+   bit for bit against eager (``scan``) and uncaptured rounds
+   (``scan_fused``), cuDNN deterministic; steady ms per round beside the
+   ``static_regen`` phases of the same call, ``schedule()``'s host ms a
+   window and the masks' dead-slot share. Then FedAvg under
+   ``duty_cycle`` (cohorts only from awake clients, star prices, no
+   update kernel) and ``benchmarks/scenario_sweep_torch.py --smoke``.
 6. single-client op — one client's update through ``ops.fused_update``
    at the CNN's width, launched once.
 6a. captured windows — on the same CNN, with cuDNN deterministic: the
@@ -785,22 +802,23 @@ def build_main_path(device, seed: int):
     return model, data, hp
 
 
-def make_trainer(model, data, hp, device, seed):
+def make_trainer(model, data, hp, device, seed, scenario=None):
     from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
 
     return RWSADMMTrainer(model, data, hp, batch_size=MAIN["batch"],
                           zone_size=MAIN["zone"], solver="closed_form",
-                          seed=seed, device=device)
+                          scenario=scenario, seed=seed, device=device)
 
 
-def make_fleet(model, data, hp, device, seed, mode="simultaneous"):
+def make_fleet(model, data, hp, device, seed, mode="simultaneous",
+               scenario=None):
     from repro_torch.fl.fleet_trainer import FleetRWSADMMTrainer
 
     return FleetRWSADMMTrainer(
         model, data, hp, n_walkers=FLEET["n_walkers"],
         sync_every=FLEET["sync_every"], fleet_mode=mode,
         batch_size=MAIN["batch"], zone_size=MAIN["zone"],
-        solver="closed_form", seed=seed, device=device)
+        solver="closed_form", scenario=scenario, seed=seed, device=device)
 
 
 def check_run(res, rounds: int, label: str) -> tuple[list, float]:
@@ -957,6 +975,232 @@ def phase_fleet(device, model, data, hp) -> dict:
             "rr_launches_run": rr_counts["ran"], **steady}
 
 
+# ---------------------------------------------------------------------------
+# Scenarios: the paper's infrastructure-less field (mobility, lossy links,
+# churn) on the main path's CNN and data.
+SCENARIOS = dict(single="field_trial", fleet="lossy_links",
+                 cohort="duty_cycle", cohort_rounds=5, schedule_windows=5)
+#: the columns a schedule decides on the host, held by ``==``
+HOST_COLUMNS = ("client", "clients", "zone", "n_i", "latency_s", "energy_j",
+                "staleness_p50", "staleness_max", "comm_bytes")
+
+
+def host_columns(metrics: list) -> dict:
+    return {k: [m.get(k) for m in metrics] for k in HOST_COLUMNS}
+
+
+def hold_host_columns(res, make, make_cpu, rounds: int, label: str):
+    """The ``scan_fused`` run's host columns against an eager run from the
+    same seed on the card and against the same trainer's ``schedule()``
+    on the CPU: equal by ``==``. Returns that schedule."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fl.simulation import run_simulation
+
+    seed = MAIN["seed"]
+    eager = run_simulation(make(), rounds=rounds, eval_every=rounds,
+                           seed=seed, engine="eager")
+    cpu = make_cpu()
+    sched = cpu.schedule(rounds, np.random.default_rng(seed))
+    zeros = torch.zeros(rounds)
+    planned = cpu.chunk_round_metrics(
+        sched, {"train_loss": zeros, "kappa": zeros}, 0)
+    cols = {"scan_fused": host_columns(res.round_metrics),
+            "eager": host_columns(eager.round_metrics),
+            "cpu schedule": host_columns(planned)}
+    equal = cols["scan_fused"] == cols["eager"] == cols["cpu schedule"]
+    log(f"{label}: host columns {', '.join(HOST_COLUMNS)} over {rounds} "
+        f"rounds equal by == across scan_fused, eager and the CPU's "
+        f"schedule(): {equal}; latency {res.total_latency_s:.4f} s, "
+        f"energy {res.total_energy_j:.4f} J in total")
+    if not equal or res.total_latency_s <= 0 or res.total_energy_j <= 0:
+        diff = {k: (cols["scan_fused"][k], cols["eager"][k],
+                    cols["cpu schedule"][k])
+                for k in HOST_COLUMNS
+                if not cols["scan_fused"][k] == cols["eager"][k]
+                == cols["cpu schedule"][k]}
+        raise AssertionError(f"{label}: host columns differ: {diff}")
+    return sched
+
+
+def dead_share(sched) -> float:
+    """Padded (dead) slots of a schedule's masks, as a share."""
+    return float(1.0 - sched.mask.sum() / sched.mask.size)
+
+
+def schedule_ms(make_cpu, rounds: int) -> float:
+    """Median host ms of one ``schedule()`` window, windows in turn."""
+    import numpy as np
+
+    tr, rng, times = make_cpu(), np.random.default_rng(0), []
+    for k in range(SCENARIOS["schedule_windows"]):
+        t0 = time.perf_counter()
+        tr.schedule(rounds, rng, start_round=k * rounds)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def cohort_under_churn(device, model, data) -> dict:
+    """FedAvg under ``duty_cycle`` on the CNN: each cohort drawn from the
+    clients awake that round, each round priced at the base station
+    (both against a replay of the scenario's positions-only lane), no
+    update kernel launched and the draws through threefry as counted."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fl.simulation import run_simulation
+    from repro_torch.scenarios import Scenario
+
+    seed, rounds = MAIN["seed"], SCENARIOS["cohort_rounds"]
+    fed = make_baseline("fedavg", model, data, device,
+                        clients_per_round=CNN_BASELINES["clients_per_round"],
+                        lr=CNN_BASELINES["lr"])
+    cohorts = record_cohorts(fed)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    res = run_simulation(fed, rounds=rounds, eval_every=rounds, seed=seed,
+                         scenario=SCENARIOS["cohort"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = want_threefry("fedavg", rounds, 1, fed.n_clients)
+    scn = Scenario(fed.n_clients, SCENARIOS["cohort"], seed=seed,
+                   positions_only=True)
+    awake, priced = [], []
+    for r, (cohort, m) in enumerate(zip(cohorts, res.round_metrics)):
+        if r:
+            scn.step()
+        pool = np.flatnonzero(scn.availability())
+        awake.append(len(pool) >= fed.m and set(cohort) <= set(pool))
+        priced.append((m["latency_s"], m["energy_j"]) == scn.price_star_round(
+            np.asarray(cohort), fed.params_bytes()))
+    ok = (all(awake) and all(priced) and len(cohorts) == rounds
+          and final_losses_finite(res)
+          and not any(counts[k] for k in UPDATES)
+          and {k: counts[k] for k in want} == want)
+    log(f"fedavg under {SCENARIOS['cohort']}: {rounds} rounds, cohorts "
+        f"from awake clients {all(awake)}, star prices equal the replay's "
+        f"{all(priced)} (latency {res.total_latency_s:.4f} s, energy "
+        f"{res.total_energy_j:.4f} J), update launches "
+        f"{ {k: counts[k] for k in UPDATES} }, threefry "
+        f"{ {k: counts[k] for k in THREEFRY} } (want {want}), final "
+        f"{res.final}")
+    if not ok:
+        raise AssertionError(f"fedavg under {SCENARIOS['cohort']}: awake "
+                             f"{awake}, priced {priced}, counts {counts}")
+    return {"rounds": rounds, "latency_s": res.total_latency_s,
+            "energy_j": res.total_energy_j, "threefry": want}
+
+
+def phase_scenarios(device, model, data, hp, static: dict) -> dict:
+    """The single walker under ``field_trial`` and the K = 3 simultaneous
+    fleet under ``lossy_links``, each driven once through
+    ``run_simulation`` (launch counts exact per round), its host columns
+    held against eager and the CPU's schedule, eager's state against
+    ``scan_fused`` at ``EAGER_ATOL``, its captured windows bit for bit;
+    steady times beside the ``static_regen`` runs of this call
+    (``static``), ``schedule()``'s host time and the masks' dead-slot
+    share; FedAvg under ``duty_cycle``; the scenario sweep's smoke."""
+    import numpy as np
+    import torch
+
+    from benchmarks import scenario_sweep_torch
+    from repro_torch.fl.base import DeviceData
+
+    seed, rounds = MAIN["seed"], MAIN["rounds"]
+    cpu_data = DeviceData(*(t.cpu() for t in data))
+    out = {}
+    for label, mode, scenario, update, steps in (
+            ("single walker", None, SCENARIOS["single"], "zone_update",
+             rounds),
+            ("fleet simultaneous", "simultaneous", SCENARIOS["fleet"],
+             "multizone_update", FLEET["wall_steps"])):
+        def make(dev=device, dat=data, mode=mode, scenario=scenario):
+            if mode is None:
+                return make_trainer(model, dat, hp, dev, seed, scenario)
+            return make_fleet(model, dat, hp, dev, seed, mode, scenario)
+
+        def make_cpu(make=make):
+            return make("cpu", cpu_data)
+
+        def make_static(mode=mode):
+            if mode is None:
+                return make_trainer(model, cpu_data, hp, "cpu", seed)
+            return make_fleet(model, cpu_data, hp, "cpu", seed, mode)
+
+        tag = f"scenarios, {label} under {scenario}"
+        trainer = make()
+        res, counts, peak, losses, acc = drive(trainer, steps, seed, update,
+                                               tag)
+        sched = hold_host_columns(res, make, make_cpu, steps, tag)
+        static_sched = make_static().schedule(steps,
+                                              np.random.default_rng(seed))
+        compare_eager(make, FLEET["eager_steps"] if mode else
+                      MAIN["eager_rounds"],
+                      lambda st: {k: v for k, v in state_leaves(st).items()
+                                  if k not in ("visited",)},
+                      "wall steps" if mode else "rounds")
+        steady = time_steady_rounds(trainer, "wall step" if mode else "round")
+        sched_ms = {"scenario": schedule_ms(make_cpu, steps),
+                    "static_regen": schedule_ms(make_static, steps)}
+        dead = {"scenario": dead_share(sched),
+                "static_regen": dead_share(static_sched)}
+        base = static["fleet_path" if mode else "main_path"]
+        unit = "wall step" if mode else "round"
+        log(f"{tag}: {steps} {unit}s scan_fused, wrapper counts "
+            f"{counts['counts']}, launches run {counts['ran']} in "
+            f"{counts['replays']} graph replay(s), loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, acc_personalized {acc:.4f}; steady "
+            f"scan_fused {steady['scan_fused_round_ms']:.3f} ms/{unit} "
+            f"against static_regen's {base['scan_fused_round_ms']:.3f} "
+            f"in this call (scan {steady['scan_round_ms']:.3f} against "
+            f"{base['scan_round_ms']:.3f}, eager "
+            f"{steady['eager_round_ms']:.3f} against "
+            f"{base['eager_round_ms']:.3f}), busy share "
+            f"{steady['busy_share']:.3f} against {base['busy_share']:.3f}; "
+            f"host schedule() of a {steps}-{unit} window "
+            f"{sched_ms['scenario']:.2f} ms against static_regen's "
+            f"{sched_ms['static_regen']:.2f} ms; dead slots "
+            f"{dead['scenario']:.3f} of the masks against static_regen's "
+            f"{dead['static_regen']:.3f}; peak {peak / 2**30:.3f} GiB")
+        out[label] = {"scenario": scenario, "launches": counts["counts"],
+                      "launches_run": counts["ran"],
+                      "graph_replays": counts["replays"],
+                      "acc_personalized": acc,
+                      "latency_s": res.total_latency_s,
+                      "energy_j": res.total_energy_j,
+                      "schedule_ms": sched_ms, "dead_share": dead,
+                      "static_regen_round_ms": base["scan_fused_round_ms"],
+                      **steady}
+        del trainer
+        torch.cuda.empty_cache()
+    out["capture"] = check_captures({
+        f"single walker under {SCENARIOS['single']}":
+            lambda: make_trainer(model, data, hp, device, seed,
+                                 SCENARIOS["single"]),
+        f"fleet simultaneous under {SCENARIOS['fleet']}":
+            lambda: make_fleet(model, data, hp, device, seed,
+                               scenario=SCENARIOS["fleet"])})
+    out["fedavg"] = cohort_under_churn(device, model, data)
+    t0 = time.perf_counter()
+    rows = scenario_sweep_torch.run(
+        n_clients=20, rounds=30, speedup_rounds=150, smoke=True,
+        out_dir=os.path.join(HERE, "results", "bench"), device=device)
+    drop = [r["scan_vs_eager"] for r in rows if r["link_dropout"]]
+    pure = [r["scan_vs_eager"] for r in rows if not r["link_dropout"]]
+    ratio = (sum(drop) / len(drop)) / (sum(pure) / len(pure))
+    log(f"scenario_sweep_torch --smoke in {time.perf_counter() - t0:.1f} s: "
+        + "; ".join(f"{r['scenario']} acc {r['final_acc']} latency "
+                    f"{r['latency_s']} s energy {r['energy_j']} J scan vs "
+                    f"eager {r['scan_vs_eager']}x" for r in rows)
+        + f"; dropout/mobility speedup ratio {ratio:.2f}")
+    if not all(math.isfinite(r["final_acc"]) and r["latency_s"] > 0
+               for r in rows):
+        raise AssertionError(f"scenario sweep: {rows}")
+    out["sweep"] = {"rows": rows, "dropout_vs_mobility": ratio}
+    return out
+
+
 def phase_single_client(device, model, data, hp) -> int:
     """One client's update through ``ops.fused_update`` at the CNN's
     width: the client's gradient at its x on one minibatch, then x, z and
@@ -1039,6 +1283,19 @@ def phase_capture(device, model, data, hp) -> dict:
     the captured ``scan_fused`` against the same rounds uncaptured, all
     from one seed; each pair must be equal bit for bit. Single walker,
     then the K = 3 fleet in both modes."""
+    seed = MAIN["seed"]
+    return check_captures({
+        "single walker": lambda: make_trainer(model, data, hp, device, seed),
+        "fleet simultaneous": lambda: make_fleet(model, data, hp, device,
+                                                 seed),
+        "fleet roundrobin": lambda: make_fleet(model, data, hp, device,
+                                               seed, mode="roundrobin")})
+
+
+def check_captures(configs: dict) -> dict:
+    """For each trainer factory of ``configs``: captured ``scan`` ≡ eager
+    and captured ``scan_fused`` ≡ the same rounds uncaptured, bit for
+    bit with cuDNN deterministic, over ``CAPTURE["windows"]`` windows."""
     import numpy as np
     import torch
 
@@ -1046,12 +1303,6 @@ def phase_capture(device, model, data, hp) -> dict:
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
         True, False
     seed, w = MAIN["seed"], CAPTURE["window"]
-    configs = {
-        "single walker": lambda: make_trainer(model, data, hp, device, seed),
-        "fleet simultaneous": lambda: make_fleet(model, data, hp, device,
-                                                 seed),
-        "fleet roundrobin": lambda: make_fleet(model, data, hp, device,
-                                               seed, mode="roundrobin")}
     out = {}
     try:
         for label, make in configs.items():
@@ -2227,12 +2478,22 @@ def main() -> int:
     rows.update(phase_threefry(device, model, data, name))
     paths = {"main_path": phase_main_path(device, model, data, hp),
              "fleet_path": phase_fleet(device, model, data, hp)}
+    paths["scenarios"] = phase_scenarios(device, model, data, hp, paths)
     main_counts = paths["main_path"]["launches"]
     launches = {"zone_update": main_counts["zone_update"],
                 "multizone_update":
                     paths["fleet_path"]["launches"]["multizone_update"],
                 "fused_update": phase_single_client(device, model, data, hp),
                 "threefry_draws": main_counts["threefry_draws"]}
+    # The scenarios phase's own runs (each driven with the counts at 0):
+    # the single walker under field_trial and the fleet under lossy_links.
+    scn = [paths["scenarios"][k] for k in ("single walker",
+                                          "fleet simultaneous")]
+    scenario_launches = {k: sum(p["launches"].get(k, 0) for p in scn)
+                         for k in ("zone_update", "multizone_update",
+                                   "threefry_draws")}
+    scenario_ran = {k: sum(p["launches_run"].get(k, 0) for p in scn)
+                    for k in scenario_launches}
     ran = {"zone_update": paths["main_path"]["launches_run"]["zone_update"],
            "multizone_update":
                paths["fleet_path"]["launches_run"]["multizone_update"],
@@ -2263,6 +2524,8 @@ def main() -> int:
                "replaces": REPLACES[kernel],
                "launches": launches.get(kernel),
                "launches_run": ran.get(kernel, launches.get(kernel)),
+               "launches_scenarios": scenario_launches.get(kernel, 0),
+               "launches_run_scenarios": scenario_ran.get(kernel, 0),
                "max_abs_err": max(r["max_abs_err"] for r in checks),
                "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

@@ -29,9 +29,11 @@ class DittoTrainer(CohortTrainer):
     def __init__(self, model, data, *, lam: float = 1.0, lr: float = 0.05,
                  local_steps: int = 10, personal_steps: int = 5,
                  clients_per_round: int = 10, batch_size: int = 20,
-                 device=None, **unported):
+                 device=None, scenario=None, seed: int = 0,
+                 **unported):
         reject_unported(unported)
-        super().__init__(model, data, batch_size, device=device)
+        super().__init__(model, data, batch_size, device=device,
+                         scenario=scenario, seed=seed)
         self.m = int(min(clients_per_round, self.n_clients))
         self.lam, self.lr = lam, lr
         self.local_steps, self.personal_steps = local_steps, personal_steps

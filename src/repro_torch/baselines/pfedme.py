@@ -30,9 +30,11 @@ class PFedMeTrainer(CohortTrainer):
                  inner_lr: float = 0.05, inner_steps: int = 5,
                  local_rounds: int = 5, eta: float = 0.05,
                  server_beta: float = 1.0, clients_per_round: int = 10,
-                 batch_size: int = 20, device=None, **unported):
+                 batch_size: int = 20, device=None, scenario=None,
+                 seed: int = 0, **unported):
         reject_unported(unported)
-        super().__init__(model, data, batch_size, device=device)
+        super().__init__(model, data, batch_size, device=device,
+                         scenario=scenario, seed=seed)
         self.m = int(min(clients_per_round, self.n_clients))
         self.lam, self.inner_lr = lam, inner_lr
         self.inner_steps, self.local_rounds = inner_steps, local_rounds

@@ -1,8 +1,8 @@
 """Walkman trainer: random-walk *consensus* ADMM (paper [35] ablation;
 port of ``repro/baselines/walkman_trainer.py``).
 
-The same mobile-server random walk as RWSADMM (``static_regen`` graph,
-degree walk), but one client a round and a consensus update instead of
+The same mobile-server random walk as RWSADMM (any scenario, degree
+walk), but one client a round and a consensus update instead of
 the paper's hard-inequality proximity, which isolates the personalization
 mechanism. Client x and z are ``(n, P)`` buffers whose visited row each
 round overwrites in place; a state passed to :meth:`round` is consumed.
@@ -15,8 +15,6 @@ import numpy as np
 import torch
 
 from ..core import markov, walkman
-from ..core.graph import DynamicGraph
-from ..core.markov import RandomWalkServer
 from ..fl.base import TrainerBase, reject_unported
 
 
@@ -31,16 +29,24 @@ class WalkmanTrainer(TrainerBase):
 
     def __init__(self, model, data, *, beta: float = 3.0,
                  min_degree: int = 5, regen_every: int = 10,
-                 batch_size: int = 20, seed: int = 0, device=None,
-                 **unported):
+                 batch_size: int = 20, scenario=None, seed: int = 0,
+                 device=None, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device)
         self.beta = beta
-        # static_regen: graph seeded with ``seed``, walker with seed + 1.
-        self.dyn_graph = DynamicGraph(self.n_clients, min_degree,
-                                      regen_every, seed=seed)
-        self.walker = RandomWalkServer(seed=seed + 1)
-        self.walker.reset(self.dyn_graph.current())
+        self._seed = int(seed)
+        self._min_degree = int(min_degree)
+        self._regen_every = int(regen_every)
+        self.attach_scenario(scenario, seed=seed)
+
+    def attach_scenario(self, spec, seed: int | None = None) -> None:
+        """Walkman walks the same environment as RWSADMM: the scenario
+        (mobility + link dropouts) drives its graph, seeded with
+        ``seed``, and the walker with ``seed + 1``."""
+        self._seed = self._seed if seed is None else int(seed)
+        self._attach_walking_scenario(spec, self._seed,
+                                      min_degree=self._min_degree,
+                                      regen_every=self._regen_every)
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> WalkmanState:
@@ -75,10 +81,13 @@ class WalkmanTrainer(TrainerBase):
         # One key for the batch and for dropout, as the reference.
         state, loss = self._round_impl(state, client,
                                        *self.batch_draws(client, key[None]))
-        # Latency and energy come with scenarios (ROADMAP Queue 1 item 2).
+        # The token changes hands with the one client the server stands
+        # at: a near-field hand-off, not a radio hop, so the wireless
+        # ledger prices it at zero (comm_bytes still counts the bytes).
         return state, {"round": rnd, "client": int(i_k),
                        "train_loss": float(loss),
-                       "comm_bytes": self.comm_bytes_per_round(1)}
+                       "comm_bytes": self.comm_bytes_per_round(1),
+                       "latency_s": 0.0, "energy_j": 0.0}
 
     def global_params(self, state: WalkmanState):
         return state.y

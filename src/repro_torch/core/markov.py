@@ -1,9 +1,12 @@
 """The mobile server's random walk and the precomputed zone schedule.
 
 The unbiased degree chain of ``repro/core/markov.py`` as its own numpy
-copy: [P]_ij = 1/deg(i) for j ~ i (paper §5). Zone planning and the
-per-round seed draws consume the shared host RNG exactly as the
-reference does, so the same seed gives the same walk, zones and seeds.
+copy: [P]_ij = 1/deg(i) for j ~ i (paper §5), on either graph backend,
+with the chain's spectral diagnostics (π, σ(P), λ₂, the mixing time of
+Eq. 6). Zone planning and the per-round seed draws consume the shared
+host RNG exactly as the reference does, so the same seed gives the same
+walk, zones and seeds. A scenario (``scenarios/``) adds its churn masks
+to zone planning and prices each round (``latency_s``, ``energy_j``).
 
 Each round's seed becomes the reference's threefry key,
 ``PRNGKey(seed)``, whose words the schedules carry (``core/prng.py``
@@ -12,11 +15,12 @@ draws from them).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Sequence
 
 import numpy as np
 
-from .graph import ClientGraph
+from .graph import ClientGraph, NeighborGraph
 
 
 def degree_transition_matrix(graph: ClientGraph) -> np.ndarray:
@@ -24,6 +28,79 @@ def degree_transition_matrix(graph: ClientGraph) -> np.ndarray:
     adj = graph.adjacency.astype(np.float64)
     deg = adj.sum(axis=1, keepdims=True)
     return adj / np.maximum(deg, 1.0)
+
+
+def stationary_distribution(p: np.ndarray, tol: float = 1e-12) -> np.ndarray:
+    """π with πᵀP = πᵀ, via power iteration on Pᵀ."""
+    n = p.shape[0]
+    pi = np.full(n, 1.0 / n)
+    for _ in range(100_000):
+        nxt = pi @ p
+        if np.abs(nxt - pi).max() < tol:
+            pi = nxt
+            break
+        pi = nxt
+    return pi / pi.sum()
+
+
+def sigma(p: np.ndarray) -> float:
+    """σ(P) := sup { ||fᵀP|| / ||f|| : fᵀ1 = 0 }  (paper Eq. 6): the
+    largest singular value of Pᵀ restricted to 1⊥."""
+    n = p.shape[0]
+    q, _ = np.linalg.qr(np.concatenate([np.ones((n, 1)) / math.sqrt(n),
+                                        np.eye(n)[:, : n - 1]], axis=1))
+    basis = q[:, 1:]  # (n, n-1), orthonormal, ⊥ 1
+    m = basis.T @ p @ p.T @ basis
+    ev = np.linalg.eigvalsh(m)
+    return float(np.sqrt(max(ev.max(), 0.0)))
+
+
+def lambda2(p: np.ndarray) -> float:
+    """Second-largest eigenvalue modulus (reversible-chain rate, Eq. 30)."""
+    ev = np.linalg.eigvals(p)
+    ev = np.sort(np.abs(ev))[::-1]
+    return float(ev[1]) if len(ev) > 1 else 0.0
+
+
+def mixing_time(p: np.ndarray, delta: float = 0.5,
+                pi: np.ndarray | None = None) -> int:
+    """τ(δ) = ceil( ln(√2/(δ π_*)) / (1 − σ(P)) )   (paper Eq. 6)."""
+    if pi is None:
+        pi = stationary_distribution(p)
+    pi_star = float(pi.min())
+    s = sigma(p)
+    if s >= 1.0 - 1e-12:
+        return 2**31 - 1  # non-ergodic chain: infinite mixing time
+    return int(math.ceil(math.log(math.sqrt(2.0) / (delta * pi_star))
+                         / (1.0 - s)))
+
+
+def p_max_envelope(ps: list[np.ndarray]) -> np.ndarray:
+    """Eq. (5): elementwise max over the dynamic chain's matrices P(k)."""
+    env = ps[0].copy()
+    for p in ps[1:]:
+        np.maximum(env, p, out=env)
+    return env
+
+
+def verify_assumption_3_1(p: np.ndarray, delta: float = 0.5) -> dict:
+    """Empirically verify the mixing inequality Eq. (3)/(4) for τ(δ)."""
+    pi = stationary_distribution(p)
+    tau = mixing_time(p, delta, pi)
+    if tau >= 2**30:  # non-ergodic (e.g. periodic bipartite chain)
+        return {"tau": tau, "holds": False, "max_dev": float("inf"),
+                "pi_star": float(pi.min()), "sigma": sigma(p),
+                "lambda2": lambda2(p)}
+    pt = np.linalg.matrix_power(p, tau)
+    dev = np.abs(pt - pi[None, :]).max()
+    return {
+        "tau": tau,
+        "pi_star": float(pi.min()),
+        "sigma": sigma(p),
+        "lambda2": lambda2(p),
+        "max_dev": float(dev),
+        "holds": bool(dev <= delta * pi.min() + 1e-9),
+    }
 
 
 class RandomWalkServer:
@@ -59,19 +136,43 @@ class RandomWalkServer:
         self.history.append(i)
 
     @staticmethod
-    def transition_row(graph: ClientGraph, i: int) -> np.ndarray:
+    def transition_row(graph: ClientGraph | NeighborGraph,
+                       i: int) -> np.ndarray:
         """Row i of P(k), bit-identical to ``degree_transition_matrix``'s
-        row (0/1 sums are exact, one division either way). The degree
-        chain has no self-loop; an isolated node's all-zero row keeps
-        its divisor clamped at 1."""
+        row (0/1 sums are exact, one division either way). Only the O(n)
+        row is built, never the matrix: under link dropout every round
+        has a fresh graph. The degree chain has no self-loop; an
+        isolated node's all-zero row keeps its divisor clamped at 1."""
+        if isinstance(graph, NeighborGraph):
+            nbrs = graph.neighbors(i)
+            row = np.zeros(graph.n)
+            row[nbrs] = 1.0 / max(float(len(nbrs)), 1.0)
+            return row
         row = graph.adjacency[i].astype(np.float64)
         return row / max(row.sum(), 1.0)
 
-    def step(self, graph: ClientGraph) -> int:
-        """One random-walk move: i_{k+1} ~ [P(k)]_{i_k, ·} (Eq. 2)."""
+    def _sample_sparse(self, graph: NeighborGraph, u: float) -> int:
+        """Map one uniform through row ``position``'s CDF over its
+        neighbors (ascending), as the reference's sparse walk does: the
+        O(deg) row of a neighbor-list graph, never a length-n one."""
+        nbrs = graph.neighbors(self.position)
+        probs = np.full(len(nbrs), 1.0) / max(float(len(nbrs)), 1.0)
+        cdf = probs.cumsum()
+        cdf /= cdf[-1]
+        j = int(np.searchsorted(cdf, u, side="right"))
+        return int(nbrs[min(j, len(nbrs) - 1)])
+
+    def step(self, graph: ClientGraph | NeighborGraph) -> int:
+        """One random-walk move: i_{k+1} ~ [P(k)]_{i_k, ·} (Eq. 2). A
+        neighbor-list graph draws one uniform (``Generator.random``), a
+        dense one ``Generator.choice`` over the row, each as the
+        reference's backend does."""
         assert self.position is not None, "call reset() first"
-        row = self.transition_row(graph, self.position)
-        self.position = int(self._rng.choice(graph.n, p=row))
+        if isinstance(graph, NeighborGraph):
+            self.position = self._sample_sparse(graph, self._rng.random())
+        else:
+            row = self.transition_row(graph, self.position)
+            self.position = int(self._rng.choice(graph.n, p=row))
         self._record_visit(self.position, graph.n)
         return self.position
 
@@ -120,6 +221,12 @@ class ZoneSchedule:
              ``PRNGKey(seed)``.
     clients: (R,) int32 — the visited client i_k per round.
     active:  (R,) int32 — number of live slots per round (≤ Z).
+
+    A schedule priced by a scenario's comm model carries two more host
+    columns, which never reach the device:
+
+    latency_s: (R,) float64 — expected round latency, or None.
+    energy_j:  (R,) float64 — expected round radio energy, or None.
     """
 
     idx: np.ndarray
@@ -128,6 +235,8 @@ class ZoneSchedule:
     keys: np.ndarray
     clients: np.ndarray
     active: np.ndarray
+    latency_s: np.ndarray | None = None
+    energy_j: np.ndarray | None = None
 
     @property
     def rounds(self) -> int:
@@ -138,13 +247,20 @@ class ZoneSchedule:
         return int(self.idx.shape[1])
 
 
-def plan_zone_round(graph: ClientGraph, i_k: int, zone_size: int,
-                    rng: np.random.Generator
+def plan_zone_round(graph, i_k: int, zone_size: int,
+                    rng: np.random.Generator,
+                    avail: np.ndarray | None = None
                     ) -> tuple[np.ndarray, np.ndarray, int]:
     """Form the active zone S(i_k) ⊆ N(i_k) (Eq. 31 subset): i_k plus, when
     N(i_k) is larger than ``zone_size``, random neighbors drawn from
-    ``rng``. Returns (idx (Z,), mask (Z,), n_i)."""
+    ``rng``. Returns (idx (Z,), mask (Z,), n_i).
+
+    ``avail`` is an optional (n,) bool availability mask (a scenario's
+    churn): offline neighbors leave the zone before subsampling, and the
+    visited client i_k always stays (the server is at its location)."""
     zone = graph.neighborhood(i_k)
+    if avail is not None:
+        zone = zone[avail[zone] | (zone == i_k)]
     n_i = len(zone)
     if n_i > zone_size:
         others = zone[zone != i_k]
@@ -159,7 +275,7 @@ def plan_zone_round(graph: ClientGraph, i_k: int, zone_size: int,
     return idx, mask, n_i
 
 
-def _plan_rounds(graphs, positions, zone_size, rng):
+def _plan_rounds(graphs, positions, zone_size, rng, avails=None):
     """Zone membership + seeds per round, interleaving the subsample and
     seed draws in round order as the eager engine does."""
     rounds = len(graphs)
@@ -170,26 +286,44 @@ def _plan_rounds(graphs, positions, zone_size, rng):
     active = np.zeros((rounds,), np.int32)
     for k in range(rounds):
         idx[k], mask[k], n_i[k] = plan_zone_round(
-            graphs[k], int(positions[k]), zone_size, rng)
+            graphs[k], int(positions[k]), zone_size, rng,
+            avail=None if avails is None else avails[k])
         active[k] = int(mask[k].sum())
         seeds[k] = round_key_seed(rng)
     return idx, mask, n_i, seeds, active
 
 
+def _pop_avails(dyn_graph):
+    """The (R, n) availability masks of ``dyn_graph``'s last
+    ``schedule`` call, or None (no churn, or a plain ``DynamicGraph``)."""
+    pop = getattr(dyn_graph, "pop_avail_trace", None)
+    return pop() if pop is not None else None
+
+
 def zone_schedule(dyn_graph, walker: RandomWalkServer, rounds: int,
                   zone_size: int, rng: np.random.Generator,
-                  *, start_round: int = 0) -> ZoneSchedule:
+                  *, start_round: int = 0, price=None) -> ZoneSchedule:
     """Precompute ``rounds`` zone rounds: graphs (regeneration epochs
     included), walk positions, padded zones and seeds. Advances
     ``dyn_graph``, ``walker`` and ``rng`` exactly as the same number of
-    eager rounds would, so consecutive chunks compose into one run."""
+    eager rounds would, so consecutive chunks compose into one run.
+
+    ``dyn_graph`` is a ``DynamicGraph`` or a ``scenarios.Scenario``,
+    whose churn masks feed zone planning. ``price(graphs, clients, idx,
+    mask) -> ((R,), (R,))`` prices the window (no RNG) into the
+    ``latency_s`` and ``energy_j`` columns."""
     first = start_round == 0
     graphs = dyn_graph.schedule(rounds, include_current=first)
+    avails = _pop_avails(dyn_graph)
     positions = walker.walk_schedule(graphs, advance_first=not first)
     idx, mask, n_i, seeds, active = _plan_rounds(
-        graphs, positions, zone_size, rng)
+        graphs, positions, zone_size, rng, avails)
+    latency = energy = None
+    if price is not None:
+        latency, energy = price(graphs, positions, idx, mask)
     return ZoneSchedule(idx=idx, mask=mask, n_i=n_i, keys=round_keys(seeds),
-                        clients=positions.astype(np.int32), active=active)
+                        clients=positions.astype(np.int32), active=active,
+                        latency_s=latency, energy_j=energy)
 
 
 # ---------------------------------------------------------------------------
@@ -211,11 +345,16 @@ class FleetZoneSchedule(ZoneSchedule):
             follows the round, 0.0 otherwise.
 
     Simultaneous mode gains a walker axis: idx/mask are (R, K, Z) and
-    clients/n_i/active are (R, K).
+    clients/n_i/active are (R, K). Its latency/energy columns are the
+    (R,) wall-step aggregates (latency the max over walkers, whose zones
+    are served in parallel; energy the sum), with the per-walker (R, K)
+    prices in ``latency_s_walkers``/``energy_j_walkers``.
     """
 
     walker: np.ndarray | None = None
     sync: np.ndarray | None = None
+    latency_s_walkers: np.ndarray | None = None
+    energy_j_walkers: np.ndarray | None = None
     mode: str = "roundrobin"
 
     @property
@@ -223,8 +362,9 @@ class FleetZoneSchedule(ZoneSchedule):
         return int(self.idx.shape[-1])
 
 
-def plan_fleet_zone_round(graph: ClientGraph, positions: np.ndarray,
-                          zone_size: int, rng: np.random.Generator
+def plan_fleet_zone_round(graph, positions: np.ndarray,
+                          zone_size: int, rng: np.random.Generator,
+                          avail: np.ndarray | None = None
                           ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """K zone plans for one simultaneous wall step: (idx (K, Z), mask
     (K, Z), n_i (K,)).
@@ -234,7 +374,9 @@ def plan_fleet_zone_round(graph: ClientGraph, positions: np.ndarray,
     the K zones are pairwise disjoint and the round's scatter-add has no
     duplicate live ids. A walker whose own position was already claimed
     serves whatever unclaimed neighbors remain, possibly none: an
-    all-padding row, the walker idles."""
+    all-padding row, the walker idles. ``avail`` drops offline
+    neighbors as in :func:`plan_zone_round`; a walker's own position
+    always stays unless an earlier walker claimed it."""
     k_walkers = len(positions)
     idx = np.zeros((k_walkers, zone_size), np.int32)
     mask = np.zeros((k_walkers, zone_size), np.float32)
@@ -243,6 +385,8 @@ def plan_fleet_zone_round(graph: ClientGraph, positions: np.ndarray,
     for k, i_k in enumerate(positions):
         i_k = int(i_k)
         zone = graph.neighborhood(i_k)
+        if avail is not None:
+            zone = zone[avail[zone] | (zone == i_k)]
         zone = zone[~taken[zone]]
         n_i[k] = len(zone)
         if len(zone) > zone_size:
@@ -263,20 +407,24 @@ def plan_fleet_zone_round(graph: ClientGraph, positions: np.ndarray,
 def fleet_zone_schedule(dyn_graph, walkers: Sequence[RandomWalkServer],
                         rounds: int, zone_size: int,
                         rng: np.random.Generator, *, start_round: int = 0,
-                        sync_every: int = 20, mode: str = "roundrobin"
-                        ) -> FleetZoneSchedule:
+                        sync_every: int = 20, mode: str = "roundrobin",
+                        price=None, price_fleet=None) -> FleetZoneSchedule:
     """Precompute ``rounds`` fleet rounds: active walker, per-walker walk
-    positions, zone plan(s), rendezvous (sync) mask and seeds. Consumes
-    ``dyn_graph``, each walker's RNG and the shared ``rng`` exactly as
-    the eager fleet rounds would, so chunks compose.
+    positions, zone plan(s), rendezvous (sync) mask, seeds and prices.
+    Consumes ``dyn_graph``, each walker's RNG and the shared ``rng``
+    exactly as the eager fleet rounds would, so chunks compose.
 
     Round-robin: walker ``(start_round + r) % K`` serves round r; for the
     first K rounds of a run the graph holds still and nobody moves
     (every vehicle starts parked at a client), then the graph advances
-    per round and the active walker steps.
+    per round and the active walker steps. ``price`` prices each round's
+    zone as :func:`zone_schedule`'s does.
 
     Simultaneous: every walker moves every wall step and
-    :func:`plan_fleet_zone_round` forms K disjoint zones per round."""
+    :func:`plan_fleet_zone_round` forms K disjoint zones per round.
+    ``price_fleet(graphs, clients (R, K), idx, mask) -> ((R, K), (R, K))``
+    prices each walker's zone. Parked rounds plan against the current
+    availability mask, stepped ones against the window's."""
     k_walkers = len(walkers)
     if mode == "roundrobin":
         lead = min(max(k_walkers - start_round, 0), rounds)
@@ -285,10 +433,19 @@ def fleet_zone_schedule(dyn_graph, walkers: Sequence[RandomWalkServer],
     else:
         raise ValueError(
             f"mode must be roundrobin|simultaneous, got {mode!r}")
+    avail_fn = getattr(dyn_graph, "availability", None)
+    cur_avail = avail_fn() if avail_fn is not None else None
     parked_graphs = [dyn_graph.current()] * lead   # before it advances
-    stepped = (dyn_graph.schedule(rounds - lead, include_current=False)
-               if rounds > lead else [])
+    stepped, trace = [], None
+    if rounds > lead:
+        stepped = dyn_graph.schedule(rounds - lead, include_current=False)
+        trace = _pop_avails(dyn_graph)
     graphs = parked_graphs + stepped
+    if cur_avail is None and trace is None:
+        avails = None
+    else:
+        avails = [cur_avail] * lead + (list(trace) if trace is not None
+                                       else [None] * len(stepped))
     sync = _sync_mask(start_round, rounds, sync_every)
 
     if mode == "roundrobin":
@@ -308,10 +465,14 @@ def fleet_zone_schedule(dyn_graph, walkers: Sequence[RandomWalkServer],
                 positions[moving] = w.walk_schedule(
                     [graphs[r] for r in moving], advance_first=True)
         idx, mask, n_i, seeds, active = _plan_rounds(
-            graphs, positions, zone_size, rng)
+            graphs, positions, zone_size, rng, avails)
+        latency = energy = None
+        if price is not None:
+            latency, energy = price(graphs, positions, idx, mask)
         return FleetZoneSchedule(
             idx=idx, mask=mask, n_i=n_i, keys=round_keys(seeds),
             clients=positions.astype(np.int32), active=active,
+            latency_s=latency, energy_j=energy,
             walker=active_walker, sync=sync, mode=mode)
 
     positions = np.empty((rounds, k_walkers), np.int64)
@@ -329,12 +490,19 @@ def fleet_zone_schedule(dyn_graph, walkers: Sequence[RandomWalkServer],
     seeds = np.zeros((rounds,), np.int64)
     for r in range(rounds):
         idx[r], mask[r], n_i[r] = plan_fleet_zone_round(
-            graphs[r], positions[r], z, rng)
+            graphs[r], positions[r], z, rng,
+            avail=None if avails is None else avails[r])
         seeds[r] = round_key_seed(rng)
+    latency = energy = lat_kw = en_kw = None
+    if price_fleet is not None:
+        lat_kw, en_kw = price_fleet(graphs, positions, idx, mask)
+        latency, energy = lat_kw.max(axis=1), en_kw.sum(axis=1)
     return FleetZoneSchedule(
         idx=idx, mask=mask, n_i=n_i, keys=round_keys(seeds),
         clients=positions.astype(np.int32),
-        active=mask.sum(axis=2).astype(np.int32), sync=sync, mode=mode)
+        active=mask.sum(axis=2).astype(np.int32),
+        latency_s=latency, energy_j=energy, sync=sync,
+        latency_s_walkers=lat_kw, energy_j_walkers=en_kw, mode=mode)
 
 
 def _sync_mask(start_round: int, rounds: int, sync_every: int) -> np.ndarray:

@@ -18,10 +18,11 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from .. import resolve_device
 from ..core import prng
-from ..core.markov import round_key_seed
+from ..core.markov import RandomWalkServer, round_key_seed
 from ..core.tree import ParamLayout
 from ..data.loader import FederatedData
 from ..models.small import SmallModel, accuracy, cross_entropy
+from ..scenarios import build_scenario
 
 # ---------------------------------------------------------------------------
 # round_metrics schema: one contract for every engine.
@@ -35,6 +36,7 @@ ROUND_METRIC_TYPES: dict[str, type] = {
     "round": int, "comm_bytes": int, "client": int, "zone": int,
     "n_i": int, "walker": int, "staleness_max": int, "train_loss": float,
     "kappa": float, "staleness_p50": float, "clients": tuple,
+    "latency_s": float, "energy_j": float,
 }
 
 
@@ -129,7 +131,6 @@ EVAL_CHUNK = 32
 #: the reference trainers' arguments the port does not take yet, and the
 #: ROADMAP Queue 1 item that brings each
 UNPORTED = {
-    "scenario": "item 2 (scenarios and pricing)",
     "transition": "item 3 (walk policies)",
     "walk_policy": "item 3 (walk policies)",
     "walk_bias": "item 3 (walk policies)",
@@ -194,6 +195,7 @@ class TrainerBase:
         self.batch_size = int(batch_size)
         self.n_clients = data.n_clients
         self.layout = ParamLayout.from_module(model)
+        self.scenario = None   # attach_scenario() / the trainers' kwarg
 
         def loss(params, xb, yb, keep):
             logits = functional_call(model, params, (xb,),
@@ -222,13 +224,66 @@ class TrainerBase:
             params = self.layout.flatten(init)
         return params.to(device=self.device, dtype=torch.float32)
 
+    # -- scenario plumbing (mobility / links / churn, scenarios/) ---------
+    def attach_scenario(self, spec, seed: int = 0) -> None:
+        """Attach an environment scenario (a preset name or a
+        ``ScenarioConfig``).
+
+        For the infrastructure-based baselines the scenario contributes
+        client churn (availability gates selection) and wireless round
+        pricing against a central base station. They never read the
+        connectivity graph, so the scenario runs positions-only:
+        mobility advances positions (the same RNG stream) and no
+        adjacency is built. Graph-walking trainers override this with
+        :meth:`_attach_walking_scenario`."""
+        self.scenario = build_scenario(spec, self.n_clients, seed=seed,
+                                       positions_only=True)
+
+    def _attach_walking_scenario(self, spec, seed: int, *,
+                                 min_degree: int = 5,
+                                 regen_every: int = 10) -> None:
+        """Shared attach path of the graph-walking trainers (RWSADMM,
+        Walkman, fleets): build the full scenario, expose it as the
+        ``dyn_graph`` the schedules step, and reset a degree walker
+        seeded with ``seed + 1`` on its current graph. ``spec=None``
+        is ``static_regen`` from ``min_degree``/``regen_every``, the
+        ``DynamicGraph`` trajectory bit for bit."""
+        self.scenario = build_scenario(spec, self.n_clients, seed=seed,
+                                       min_degree=min_degree,
+                                       regen_every=regen_every)
+        self.dyn_graph = self.scenario
+        self.walker = RandomWalkServer(seed=seed + 1)
+        self.walker.reset(self.dyn_graph.current())
+
     def select_clients(self, rnd: int, rng: np.random.Generator,
                        m: int) -> np.ndarray:
-        """Uniform cohort of ``m`` distinct clients, consuming ``rng``
-        exactly like the reference's ``rng.choice(n, m, replace=False)``
-        (its no-scenario branch; churn-aware selection comes with
-        scenarios, ROADMAP Queue 1 item 2)."""
-        return rng.choice(self.n_clients, size=m, replace=False)
+        """Uniform client selection, churn-aware when a scenario is
+        attached. Without one this consumes ``rng`` exactly like the
+        reference's ``rng.choice(n, m, replace=False)``."""
+        if self.scenario is None:
+            return rng.choice(self.n_clients, size=m, replace=False)
+        if rnd > 0:
+            self.scenario.step()
+        avail = self.scenario.availability()
+        pool = (np.flatnonzero(avail) if avail is not None
+                else np.arange(self.n_clients))
+        if len(pool) == 0:
+            pool = np.arange(self.n_clients)
+        # The round needs a fixed cohort size: when churn leaves fewer
+        # than m clients awake, resample the pool (duplicates reweight
+        # the average).
+        return rng.choice(pool, size=m, replace=len(pool) < m)
+
+    def scenario_round_costs(self, members: np.ndarray) -> dict:
+        """Wireless latency/energy of one baseline round against the base
+        station, or {} with no scenario attached. Every cohort slot is
+        priced (duplicates from churn resampling count as transfers, as
+        in ``comm_bytes_per_round``)."""
+        if self.scenario is None:
+            return {}
+        lat, en = self.scenario.price_star_round(np.asarray(members),
+                                                 self.params_bytes())
+        return {"latency_s": lat, "energy_j": en}
 
     def round_key(self, seed: int) -> torch.Tensor:
         """The round's key, ``PRNGKey(seed)``, on the device."""
@@ -337,12 +392,22 @@ class TrainerBase:
 
 class CohortTrainer(TrainerBase):
     """The FedAvg family's round (port of the baselines' shared
-    ``round``): a cohort of ``m`` distinct clients, then one seed for the
-    round's key, both drawn from the host RNG as the reference draws
-    them. A subclass sets ``m``, implements :meth:`round_keys` (its key
-    tree) and :meth:`_round_impl`."""
+    ``round``): a cohort of ``m`` clients, then one seed for the round's
+    key, both drawn from the host RNG as the reference draws them. A
+    subclass sets ``m``, implements :meth:`round_keys` (its key tree)
+    and :meth:`_round_impl`. ``scenario`` (a preset name or
+    ``ScenarioConfig``, seeded with ``seed``) gates selection by churn
+    and prices each round against the base station, as
+    ``run_simulation(scenario=)`` attaches it."""
 
     m: int
+
+    def __init__(self, model: SmallModel, data: DeviceData,
+                 batch_size: int = 20, *, device=None, scenario=None,
+                 seed: int = 0):
+        super().__init__(model, data, batch_size, device=device)
+        if scenario is not None:
+            self.attach_scenario(scenario, seed=seed)
 
     def round_keys(self, key: torch.Tensor) -> tuple[torch.Tensor, ...]:
         """The round's key blocks ``(T, m, 2)``, one per batch block the
@@ -364,4 +429,5 @@ class CohortTrainer(TrainerBase):
         state = self._round_impl(state, clients,
                                  self.round_draws(clients, key))
         return state, {"round": rnd,
-                       "comm_bytes": self.comm_bytes_per_round(self.m)}
+                       "comm_bytes": self.comm_bytes_per_round(self.m),
+                       **self.scenario_round_costs(sel)}

@@ -1,7 +1,7 @@
 """Fleet-RWSADMM: K mobile servers over one client graph.
 
-Port of ``repro/fl/fleet_trainer.py`` for the dense client plane, the
-``static_regen`` environment and the degree walk. K walkers each carry
+Port of ``repro/fl/fleet_trainer.py`` for the dense client plane and
+the degree walk, in any scenario (``scenarios/``). K walkers each carry
 their own token y_k and walk the same dynamic graph independently; every
 ``sync_every`` rounds the fleet rendezvouses and the tokens average.
 Client states (x_i, z_i) are shared: a client updates against whichever
@@ -20,7 +20,8 @@ Two fleet modes:
   one call, and the K masked Eq. 31 updates from one launch of the
   multi-zone kernel on ``scan_fused`` (the plain
   ``rwsadmm.multizone_round_masked`` otherwise). κ decays once per wall
-  step.
+  step. A wall step's latency is the slowest walker's zone (the zones
+  are served in parallel), its energy the sum over walkers.
 
 The tokens are one ``(K, P)`` tensor. As in the single-walker trainer,
 client buffers are updated in place: a state passed to :meth:`round` or
@@ -83,12 +84,23 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         if fleet_mode == "simultaneous" and self.solver != "closed_form":
             raise ValueError("simultaneous fleet mode runs the closed-form "
                              "Eq. 31 zone update; use solver='closed_form'")
-        # Walker k's stream is seed + 1 + 10k: walker 0 replays the
-        # single-walker trainer's walker (seed + 1) draw for draw.
-        self.walkers = [RandomWalkServer(seed=seed + 1 + 10 * k)
+        self._reset_fleet()
+
+    def _reset_fleet(self) -> None:
+        """K walkers on the current graph. Walker k's stream is
+        seed + 1 + 10k: walker 0 replays the single-walker trainer's
+        walker (seed + 1) draw for draw."""
+        self.walkers = [RandomWalkServer(seed=self._seed + 1 + 10 * k)
                         for k in range(self.n_walkers)]
         for w in self.walkers:
             w.reset(self.dyn_graph.current())
+
+    def attach_scenario(self, spec, seed: int | None = None) -> None:
+        """The single walker's attach, then the K walkers over the new
+        environment's graph (once the fleet exists)."""
+        super().attach_scenario(spec, seed=seed)
+        if hasattr(self, "walkers"):
+            self._reset_fleet()
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> FleetState:
@@ -179,9 +191,11 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         graph = self.dyn_graph.current() if parked else self.dyn_graph.step()
         walker = self.walkers[k]
         i_k = walker.position if parked else walker.step(graph)
-        idx, mask, n_i = markov.plan_zone_round(graph, int(i_k),
-                                                self.zone_size, rng)
+        idx, mask, n_i = markov.plan_zone_round(
+            graph, int(i_k), self.zone_size, rng,
+            avail=self.scenario.availability())
         n_active = int(mask.sum())
+        latency_s, energy_j = self._price(graph, i_k, idx, mask)
         key = self.round_key(markov.round_key_seed(rng))
         state, loss = self._rr_step(
             state, torch.as_tensor(idx, dtype=torch.int64,
@@ -194,6 +208,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             "train_loss": float(loss),
             "kappa": float(state.base.server.kappa),
             "comm_bytes": self.comm_bytes_per_round(n_active),
+            "latency_s": latency_s,
+            "energy_j": energy_j,
             **self._staleness_metrics(idx, mask, rnd),
         }
         return state, metrics
@@ -204,13 +220,16 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         positions = np.array([w.step(graph) if rnd > 0 else w.position
                               for w in self.walkers])
         idx, mask, n_i = markov.plan_fleet_zone_round(
-            graph, positions, self.zone_size, rng)
+            graph, positions, self.zone_size, rng,
+            avail=self.scenario.availability())
         key = self.round_key(markov.round_key_seed(rng))
         state, loss = self._sim_step(
             state, torch.as_tensor(idx, dtype=torch.int64,
                                    device=self.device),
             torch.as_tensor(mask, device=self.device),
             self._sync_flag(rnd), key)
+        lat_kw, en_kw = self._price_fleet_schedule(
+            [graph], positions[None], idx[None], mask[None])
         active = mask.sum(axis=1).astype(int)
         metrics = {
             "round": rnd,
@@ -219,6 +238,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             "train_loss": float(loss),
             "kappa": float(state.base.server.kappa),
             "comm_bytes": self._fleet_comm_bytes(active),
+            "latency_s": float(lat_kw.max()),
+            "energy_j": float(en_kw.sum()),
             **self._staleness_metrics(idx, mask, rnd),
         }
         return state, metrics
@@ -231,6 +252,11 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
     # ------------------------------------------------------------------
     # Scan engines.
     # ------------------------------------------------------------------
+    def _price_fleet_schedule(self, graphs, clients, idx, mask):
+        """Per-walker prices of a simultaneous window: (R, K) columns."""
+        return self.scenario.price_fleet_schedule(graphs, clients, idx, mask,
+                                                  self.params_bytes())
+
     def schedule(self, rounds: int, rng: np.random.Generator,
                  *, start_round: int = 0) -> FleetZoneSchedule:
         """Precompute ``rounds`` fleet rounds, consuming the graph, walker
@@ -238,7 +264,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         return markov.fleet_zone_schedule(
             self.dyn_graph, self.walkers, rounds, self.zone_size, rng,
             start_round=start_round, sync_every=self.sync_every,
-            mode=self.fleet_mode)
+            mode=self.fleet_mode, price=self._price_schedule,
+            price_fleet=self._price_fleet_schedule)
 
     def _window_columns(self, sched: FleetZoneSchedule) -> dict:
         cols = super()._window_columns(sched)
@@ -286,6 +313,9 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
                 "kappa": float(kappas[j]),
                 "comm_bytes": self._fleet_comm_bytes(sched.active[j]),
             }
+            if sched.latency_s is not None:
+                entry["latency_s"] = float(sched.latency_s[j])
+                entry["energy_j"] = float(sched.energy_j[j])
             entry.update(self._staleness_metrics(
                 sched.idx[j], sched.mask[j], start_round + j))
             out.append(entry)

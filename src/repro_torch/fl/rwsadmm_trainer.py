@@ -1,18 +1,23 @@
 """RWSADMM federated trainer (paper Algorithm 1 + Eq. 31 multi-client zone).
 
-Port of ``repro/fl/rwsadmm_trainer.py`` for the dense client plane, the
-``static_regen`` environment (``core.graph.DynamicGraph``) and the degree
-walk. Host side per round k:
+Port of ``repro/fl/rwsadmm_trainer.py`` for the dense client plane and
+the degree walk, in any scenario (``scenarios/``; ``scenario=None`` is
+``static_regen``, the ``core.graph.DynamicGraph`` trajectory). Host side
+per round k:
 
-  1. advance the dynamic graph (regenerated every ``regen_every`` rounds),
+  1. advance the environment (mobility, link dropouts, churn),
   2. the mobile server random-walks to client i_k  (Markov chain, Eq. 2),
-  3. the active zone S(i_k) ⊆ N(i_k) is formed (up to ``zone_size``),
+  3. the active zone S(i_k) ⊆ N(i_k) is formed from the available
+     clients (up to ``zone_size``) and priced (``latency_s``,
+     ``energy_j``),
   4. one zone round on the device: stochastic gradients at the active
      clients' x'_j, closed-form (or prox-SGD) x/z updates, the masked
      incremental y update,
   5. κ ← 0.99 κ.
 
 Zones are padded to ``zone_size`` with a mask; padded slots fold zero.
+A scenario changes only which slots are live, never a shape, so every
+scenario runs the same captured windows.
 
 Client x and z are flat ``(n, P)`` buffers (``core/tree.py``) that each
 round updates **in place**: the zone's new rows are scattered back with
@@ -49,8 +54,7 @@ import numpy as np
 import torch
 
 from ..core import markov, rwsadmm
-from ..core.graph import DynamicGraph
-from ..core.markov import RandomWalkServer, ZoneSchedule
+from ..core.markov import ZoneSchedule
 from ..core.rwsadmm import ClientState, RWSADMMHparams, ServerState
 from ..kernels.rwsadmm_update import ops as fused_ops
 from ..kernels.threefry import ops as threefry_ops
@@ -150,6 +154,7 @@ class RWSADMMTrainer(TrainerBase):
                                     # "closed_form" (Eq. 10/11, one step)
         inner_steps: int = 10,
         inner_lr: float = 0.05,
+        scenario=None,              # a preset name or ScenarioConfig
         seed: int = 0,
         device=None,
         **unported,
@@ -164,19 +169,39 @@ class RWSADMMTrainer(TrainerBase):
         self.inner_lr = float(inner_lr)
         self.zone_size = int(min(zone_size, self.n_clients))
         self.warm_init = warm_init
-        # static_regen: the graph stream is seeded with ``seed`` and the
-        # walker with ``seed + 1``, as the reference's scenario=None.
-        self.dyn_graph = DynamicGraph(self.n_clients, min_degree,
-                                      regen_every, seed=seed)
-        self.walker = RandomWalkServer(seed=seed + 1)
-        self.walker.reset(self.dyn_graph.current())
-        # Per-client service clock for the staleness metrics.
-        self._last_served = np.full(self.n_clients, -1, dtype=np.int64)
+        self._seed = int(seed)
+        self._min_degree = int(min_degree)
+        self._regen_every = int(regen_every)
+        # The environment: mobility + links + churn behind the
+        # DynamicGraph contract, seeded with ``seed`` and the walker with
+        # ``seed + 1``. A named or explicit ScenarioConfig is
+        # authoritative: its mobility knobs win over min_degree and
+        # regen_every.
+        self.attach_scenario(scenario, seed=seed)
         # CUDA graphs: one per (engine, window length, fleet mode), all on
         # one carry, captured and replayed on one side stream.
         self.windows: dict[tuple, CapturedWindow] = {}
         self._carry = None
         self._stream = None
+
+    def attach_scenario(self, spec, seed: int | None = None) -> None:
+        """(Re)build the environment and reset the walker onto it;
+        ``seed`` (when given) becomes the trainer's seed, so every
+        derived stream (scenario layers, walker) reseeds with it."""
+        self._seed = self._seed if seed is None else int(seed)
+        self._attach_walking_scenario(spec, self._seed,
+                                      min_degree=self._min_degree,
+                                      regen_every=self._regen_every)
+        # Per-client service clock for the staleness metrics.
+        self._last_served = np.full(self.n_clients, -1, dtype=np.int64)
+
+    def _price(self, graph, i_k, idx, mask):
+        return self.scenario.price_round(graph, int(i_k), idx, mask,
+                                         self.params_bytes())
+
+    def _price_schedule(self, graphs, clients, idx, mask):
+        return self.scenario.price_schedule(graphs, clients, idx, mask,
+                                            self.params_bytes())
 
     def _staleness_metrics(self, idx, mask, rnd: int) -> dict:
         """Update the per-client service clock with one round's zone and
@@ -273,9 +298,11 @@ class RWSADMMTrainer(TrainerBase):
         """Eager engine: plan one round on the host, run it, sync once."""
         graph = self.dyn_graph.step() if rnd > 0 else self.dyn_graph.current()
         i_k = self.walker.step(graph) if rnd > 0 else self.walker.position
-        idx, mask, n_i = markov.plan_zone_round(graph, int(i_k),
-                                                self.zone_size, rng)
+        idx, mask, n_i = markov.plan_zone_round(
+            graph, int(i_k), self.zone_size, rng,
+            avail=self.scenario.availability())
         n_active = int(mask.sum())
+        latency_s, energy_j = self._price(graph, i_k, idx, mask)
         key = self.round_key(markov.round_key_seed(rng))
         state, zone_loss = self._round_impl(
             state, torch.as_tensor(idx, dtype=torch.int64,
@@ -289,6 +316,8 @@ class RWSADMMTrainer(TrainerBase):
             "train_loss": float(zone_loss),
             "kappa": float(state.server.kappa),
             "comm_bytes": self.comm_bytes_per_round(n_active),
+            "latency_s": latency_s,
+            "energy_j": energy_j,
             **self._staleness_metrics(idx, mask, rnd),
         }
         return state, metrics
@@ -300,7 +329,8 @@ class RWSADMMTrainer(TrainerBase):
         graph/walker/sim RNGs exactly as the eager engine would."""
         return markov.zone_schedule(self.dyn_graph, self.walker, rounds,
                                     self.zone_size, rng,
-                                    start_round=start_round)
+                                    start_round=start_round,
+                                    price=self._price_schedule)
 
     def _engine_use_fused(self, engine: str) -> bool:
         if engine not in SCAN_ENGINES:
@@ -423,6 +453,9 @@ class RWSADMMTrainer(TrainerBase):
                 "kappa": float(kappas[j]),
                 "comm_bytes": self.comm_bytes_per_round(n_active),
             }
+            if sched.latency_s is not None:
+                entry["latency_s"] = float(sched.latency_s[j])
+                entry["energy_j"] = float(sched.energy_j[j])
             entry.update(self._staleness_metrics(
                 sched.idx[j], sched.mask[j], start_round + j))
             out.append(entry)

@@ -14,6 +14,10 @@ The trainer fixes the device (cuda unless it was built for the CPU).
 A ``FleetRWSADMMTrainer`` runs through the same calls: its own
 ``round``/``schedule``/``run_chunk``/``chunk_round_metrics`` carry the
 walker axis, and ``evaluate`` sees the fleet-mean token.
+
+``scenario=`` (a preset name or a ``ScenarioConfig``) attaches the
+environment to the trainer, seeded with ``seed``, before the run; the
+rounds' ``latency_s`` and ``energy_j`` add up to the result's totals.
 """
 from __future__ import annotations
 
@@ -33,6 +37,14 @@ class SimulationResult:
     final: dict                     # last eval snapshot
     total_comm_bytes: int
     wall_time_s: float
+    total_latency_s: float = 0.0    # wireless cost totals (0 when the
+    total_energy_j: float = 0.0     # trainer prices no scenario comm)
+
+    def curve(self, key: str = "acc") -> tuple[np.ndarray, np.ndarray]:
+        """(eval rounds, the snapshots' ``key`` values; NaN where absent)."""
+        rounds = np.array([h["round"] for h in self.history])
+        vals = np.array([h.get(key, np.nan) for h in self.history])
+        return rounds, vals
 
 
 def _snapshot(trainer, state, rnd: int, total_comm: int,
@@ -48,10 +60,12 @@ def _snapshot(trainer, state, rnd: int, total_comm: int,
 
 def run_simulation(trainer: TrainerBase, *, rounds: int = 100,
                    eval_every: int = 10, seed: int = 0,
-                   verbose: bool = False, engine: str = "eager"
-                   ) -> SimulationResult:
+                   verbose: bool = False, engine: str = "eager",
+                   scenario=None) -> SimulationResult:
     """Run ``rounds`` rounds from ``trainer.init_state(seed)`` with the
-    host RNG seeded by ``seed``."""
+    host RNG seeded by ``seed``, in ``scenario`` when given."""
+    if scenario is not None:
+        trainer.attach_scenario(scenario, seed=seed)
     rng = np.random.default_rng(seed)
     state = trainer.init_state(seed)
     history: list[dict] = []
@@ -91,4 +105,8 @@ def run_simulation(trainer: TrainerBase, *, rounds: int = 100,
     return SimulationResult(
         algo=trainer.name, history=history, round_metrics=round_metrics,
         final=history[-1] if history else {}, total_comm_bytes=total_comm,
-        wall_time_s=wall)
+        wall_time_s=wall,
+        total_latency_s=float(sum(m.get("latency_s", 0.0)
+                                  for m in round_metrics)),
+        total_energy_j=float(sum(m.get("energy_j", 0.0)
+                                 for m in round_metrics)))

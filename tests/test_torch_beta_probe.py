@@ -26,6 +26,7 @@ import json
 import math
 
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def run_port(args, beta, seed):

@@ -20,6 +20,7 @@ from repro_torch.core import prng
 from repro_torch.kernels.threefry import ops
 from repro_torch.kernels.threefry.ref import MaskSpec, draws_ref
 from repro_torch.models.small import CNN, MLR
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SEED, BATCH = 20240611, 20
 #: a client table with the edge spans: 1, 2^31 − 1 and 0 (minval back)

@@ -28,6 +28,7 @@ from repro_torch.kernels.flash_decode import ops
 from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
                                                   flash_decode_split_ref)
 from repro_torch.models import attention as TA
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 3e-2)}

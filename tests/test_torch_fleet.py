@@ -47,6 +47,7 @@ from repro_torch.fl import FleetRWSADMMTrainer, RWSADMMTrainer, \
     run_simulation, to_device_data
 from repro_torch.fl.base import validate_round_metrics
 from repro_torch.models.small import MLP, MLR
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPE, N_CLIENTS, ZONE = (8, 8, 1), 12, 4
 ROUNDS = 13                      # chunks (6, 7) cross the regen at round 10
@@ -87,6 +88,11 @@ def _ref(mode, n_walkers=3, sync_every=4, seed=0):
 # ----------------------------------------------------------------------
 # Control plane (exact)
 # ----------------------------------------------------------------------
+#: the schedule columns a mode leaves empty
+NONE_COLUMNS = {"roundrobin": ("latency_s_walkers", "energy_j_walkers"),
+                "simultaneous": ("walker",)}
+
+
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("seed", [0, 3])
 def test_fleet_schedule_columns_equal(port_data, mode, seed):
@@ -97,9 +103,10 @@ def test_fleet_schedule_columns_equal(port_data, mode, seed):
         sp = port.schedule(rounds, rng_p, start_round=start)
         assert sp.mode == mode
         for col in ("idx", "mask", "n_i", "clients", "active", "walker",
-                    "sync"):
+                    "sync", "latency_s", "energy_j", "latency_s_walkers",
+                    "energy_j_walkers"):
             a, b = getattr(sr, col), getattr(sp, col)
-            if mode == "simultaneous" and col == "walker":
+            if col in NONE_COLUMNS[mode]:
                 assert a is None and b is None
                 continue
             assert a.dtype == b.dtype and np.array_equal(a, b), col
@@ -145,11 +152,11 @@ def test_eager_round_host_metrics_equal(port_data, mode):
     ref, port = _ref(mode, seed=1), _port(port_data, mode, seed=1)
     s_r, s_p = ref.init_state(jax.random.PRNGKey(0)), port.init_state(0)
     rng_r, rng_p = (np.random.default_rng(1) for _ in range(2))
-    drop = {"train_loss", "kappa", "latency_s", "energy_j"}
+    drop = {"train_loss", "kappa"}
     for r in range(8):
         s_r, m_r = ref.round(s_r, r, rng_r)
         s_p, m_p = port.round(s_p, r, rng_p)
-        assert set(m_r) - {"latency_s", "energy_j"} == set(m_p)
+        assert set(m_r) == set(m_p)
         assert ({k: v for k, v in m_r.items() if k not in drop}
                 == {k: v for k, v in m_p.items() if k not in drop})
         assert float(m_r["kappa"]) == m_p["kappa"]
@@ -411,8 +418,12 @@ def test_fleet_rejects_unsupported_settings(port_data):
         _port(port_data, "simultaneous", solver="prox_sgd")
     with pytest.raises(ValueError, match="fleet_mode"):
         _port(port_data, "convoy")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-        _port(port_data, "roundrobin", scenario="field_trial")
+    # Scenarios are ported: field_trial is taken, and its environment
+    # (Gauss-Markov mobility, lossy links, churn) drives the fleet.
+    fleet = _port(port_data, "roundrobin", scenario="field_trial")
+    assert fleet.scenario.cfg.name == "field_trial"
+    assert fleet.dyn_graph is fleet.scenario
+    assert fleet.scenario.link is not None and fleet.scenario.churn is not None
     with pytest.raises(TypeError, match="no_such_argument"):
         _port(port_data, "roundrobin", no_such_argument=1)
 

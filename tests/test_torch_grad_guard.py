@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 

@@ -19,13 +19,20 @@ from repro_torch.data import build_federated, make_image_dataset, \
 from repro_torch.fl.base import to_device_data
 from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
 from repro_torch.models.small import MLR
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 TWINS = {"table1": ROOT / "benchmarks" / "table1_torch.py",
          "quickstart": ROOT / "examples" / "quickstart_torch.py"}
+#: the scenario slice's entry points (run on the CPU in
+#: tests/test_torch_scenarios.py)
+SCENARIO_TWINS = [ROOT / "benchmarks" / "scenario_sweep_torch.py",
+                  ROOT / "benchmarks" / "comm_cost_torch.py",
+                  ROOT / "benchmarks" / "scan_scaling_torch.py",
+                  ROOT / "examples" / "mobile_server_sim_torch.py"]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py",
-    *TWINS.values()]
+    *TWINS.values(), *SCENARIO_TWINS]
 
 
 def _forbidden(name: str) -> bool:
@@ -60,6 +67,9 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.launch.serve, repro_torch.models.registry\n"
         "import repro_torch.baselines\n"
         "import benchmarks.table1_torch, examples.quickstart_torch\n"
+        "import repro_torch.scenarios, benchmarks.scenario_sweep_torch\n"
+        "import benchmarks.comm_cost_torch, benchmarks.scan_scaling_torch\n"
+        "import examples.mobile_server_sim_torch\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -40,6 +40,7 @@ from repro_torch.fl import FleetRWSADMMTrainer, RWSADMMTrainer, \
     run_simulation, to_device_data
 from repro_torch.fl.base import UNPORTED
 from repro_torch.models.small import CNN, MLP, MLR
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPE, N_CLIENTS, ZONE, BATCH, STEPS = (8, 8, 1), 10, 4, 6, 3
 HP = dict(beta=10.0, kappa=0.01, epsilon=1e-3)

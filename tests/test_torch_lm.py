@@ -25,6 +25,7 @@ from repro_torch import convert
 from repro_torch.configs import get_config
 from repro_torch.launch import serve
 from repro_torch.models.registry import build_model, random_batch
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 ARCH = "recurrentgemma-9b"

@@ -19,6 +19,7 @@ from repro_torch import convert
 from repro_torch.core import prng
 from repro_torch.core.tree import ParamLayout
 from repro_torch.models import small as T
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 DENSE_TOL = dict(rtol=1e-5, atol=1e-5)
 CNN_TOL = dict(rtol=1e-4, atol=1e-5)

@@ -22,6 +22,7 @@ from repro_torch.core import rwsadmm as P
 from repro_torch.kernels.rwsadmm_update import ops
 from repro_torch.kernels.rwsadmm_update.ref import fused_update_ref, \
     multizone_fused_update_ref, zone_fused_update_ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-6, rtol=1e-6)
 HP = dict(beta=2.0, eps_half=5e-4, n_total=8.0)

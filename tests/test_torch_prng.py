@@ -16,6 +16,7 @@ import torch
 from repro_torch.core import prng
 from repro_torch.kernels.threefry import ops
 from repro_torch.kernels.threefry.ref import MaskSpec
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SEED = 20240611
 #: the CIFAR CNN's two keep-mask shapes at batch 20 (NHWC, then dense)

@@ -24,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.kernels.rglru_scan import ops
 from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from repro_torch.models import recurrent as T
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 

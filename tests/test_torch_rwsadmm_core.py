@@ -11,6 +11,7 @@ import torch
 
 from repro.core import rwsadmm as R
 from repro_torch.core import rwsadmm as T
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-6, rtol=1e-6)
 HP = dict(beta=4.0, kappa=0.01, kappa_decay=0.99, epsilon=1e-3)

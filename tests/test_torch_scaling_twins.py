@@ -8,6 +8,7 @@ import pytest
 
 from benchmarks import fleet_scaling_torch, scan_scaling_torch
 from repro_torch.fl.rwsadmm_trainer import ENGINES
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _rows(path):

@@ -29,6 +29,7 @@ from repro_torch.fl.base import to_device_data, validate_round_metrics
 from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
 from repro_torch.fl.simulation import run_simulation
 from repro_torch.models.small import MLP
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPE, N_CLIENTS, ZONE, ROUNDS = (8, 8, 1), 8, 4, 5
 HP = dict(beta=10.0, kappa=0.01, epsilon=1e-3)

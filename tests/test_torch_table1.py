@@ -19,6 +19,7 @@ import argparse
 import json
 
 import pytest
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 ROUNDS, BAND = 120, 0.2
 CELLS = [("mnist_like", "mlr"), ("mnist_like", "mlp"), ("synthetic", "mlr"),

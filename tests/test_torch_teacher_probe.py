@@ -36,6 +36,7 @@ from pathlib import Path
 
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402

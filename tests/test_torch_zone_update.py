@@ -15,6 +15,7 @@ from repro.kernels.rwsadmm_update.ops import rwsadmm_zone_fused_update
 from repro.kernels.rwsadmm_update.ref import rwsadmm_zone_fused_update_ref
 from repro_torch.kernels.rwsadmm_update import ops
 from repro_torch.kernels.rwsadmm_update.ref import zone_fused_update_ref
+from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-6, rtol=1e-6)
 
