@@ -60,6 +60,26 @@ Phases (each prints its own lines; any failure exits non-zero):
    window and the masks' dead-slot share. Then FedAvg under
    ``duty_cycle`` (cohorts only from awake clients, star prices, no
    update kernel) and ``benchmarks/scenario_sweep_torch.py --smoke``.
+5b. walks — the walk policies on the same model and data: the single
+   walker with ``transition="metropolis"``, with ``walk_policy=
+   "staleness"`` and ``"label_skew"`` (γ = 0.5), with ``staleness`` and
+   ``batched_walk=True``, and the K = 3 simultaneous fleet under
+   ``staleness``; each 50 rounds (wall steps) of ``scan_fused`` in one
+   captured window with exactly one update launch and one
+   ``threefry_draws`` launch a round; host columns and importance
+   weights (``iw``, every walker's ``weight_history``) equal by ``==``
+   across ``scan_fused``, eager and the CPU's ``schedule()``; eager and
+   the fused rounds in lockstep for 5 rounds, each round from the eager
+   state through the kernel at ``KERNEL_TOL`` and ``scan_fused`` bit for
+   bit against the fused rounds (the end states' gap printed); captured
+   windows bit for bit over two windows, the second a replay with new
+   weights (``batched_walk`` walks another stream than eager: held to
+   the CPU's ``schedule()`` and to its rounds uncaptured); a window's
+   dispatched operations exactly the static trainer's (Metropolis, a
+   uniform chain, must also carry no ``iw``) or those and the ``iw``
+   fold's; steady ms, busy share and kernels a round beside the
+   ``static_regen`` paths of this call, ``schedule()``'s host ms a
+   window.
 6. single-client op — one client's update through ``ops.fused_update``
    at the CNN's width, launched once.
 6a. captured windows — on the same CNN, with cuDNN deterministic: the
@@ -88,6 +108,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    final state held at 1e-6); then
    every baseline on the CNN path's configuration: rounds/s, steady ms
    per round, peak memory and a profiled round's busy share.
+7a. paper scripts — ``benchmarks/{convergence,table2_scaling,hyperparam,
+   mixing,ablations}_torch.py`` and ``examples/
+   personalization_comparison_torch.py`` at the reference's sizes
+   (``PAPER``), then ``examples/quickstart_torch.py`` for its full 300
+   rounds. Gated: the policy sweep's hitting times and staleness equal
+   a CPU run of the same twin, Table 2's ``comm_mb`` the CPU
+   ``schedule()`` of the same trainers, the literal Eq. 11's first step
+   0.0, the quickstart's hitting time and MB a round the reference's
+   (58; 2.92 and 7.17). The accuracies are printed beside the
+   reference's.
 8. serve path — RecurrentGemma-9B at full width (bf16, seeded random
    weights) through ``launch/serve.py``: prefill 4 × 2040 tokens (one
    ``rglru_scan`` launch per RG-LRU layer, 26) and 15 greedy decode steps
@@ -989,37 +1019,61 @@ def host_columns(metrics: list) -> dict:
     return {k: [m.get(k) for m in metrics] for k in HOST_COLUMNS}
 
 
-def hold_host_columns(res, make, make_cpu, rounds: int, label: str):
+def walk_weights(trainer) -> list:
+    """Every walker's ``weight_history`` (the fleet's walkers, or the
+    single walker)."""
+    return [list(w.weight_history)
+            for w in getattr(trainer, "walkers", None) or [trainer.walker]]
+
+
+def hold_host_columns(res, make, make_cpu, rounds: int, label: str,
+                      trainer=None, eager_walks: bool = True):
     """The ``scan_fused`` run's host columns against an eager run from the
     same seed on the card and against the same trainer's ``schedule()``
-    on the CPU: equal by ``==``. Returns that schedule."""
+    on the CPU: equal by ``==``. Under a biased policy (``trainer`` the
+    ``scan_fused`` run's) the importance weights too: every walker's
+    ``weight_history`` and the CPU schedule's ``iw`` column. Without
+    ``eager_walks`` (``batched_walk``, whose eager rounds walk another
+    stream) the eager run is left out. Returns the CPU schedule."""
     import numpy as np
     import torch
 
     from repro_torch.fl.simulation import run_simulation
 
     seed = MAIN["seed"]
-    eager = run_simulation(make(), rounds=rounds, eval_every=rounds,
-                           seed=seed, engine="eager")
-    cpu = make_cpu()
+    runs = {"scan_fused": res.round_metrics}
+    trainers = {"scan_fused": trainer}
+    if eager_walks:
+        trainers["eager"] = make()
+        runs["eager"] = run_simulation(trainers["eager"], rounds=rounds,
+                                       eval_every=rounds, seed=seed,
+                                       engine="eager").round_metrics
+    cpu = trainers["cpu schedule"] = make_cpu()
     sched = cpu.schedule(rounds, np.random.default_rng(seed))
     zeros = torch.zeros(rounds)
-    planned = cpu.chunk_round_metrics(
+    runs["cpu schedule"] = cpu.chunk_round_metrics(
         sched, {"train_loss": zeros, "kappa": zeros}, 0)
-    cols = {"scan_fused": host_columns(res.round_metrics),
-            "eager": host_columns(eager.round_metrics),
-            "cpu schedule": host_columns(planned)}
-    equal = cols["scan_fused"] == cols["eager"] == cols["cpu schedule"]
+    cols = {k: host_columns(v) for k, v in runs.items()}
+    first = cols["scan_fused"]
+    equal = all(c == first for c in cols.values())
+    iw = "no iw column"
+    if sched.iw is not None:
+        weights = {k: walk_weights(t) for k, t in trainers.items()}
+        iw_col = np.asarray(weights["cpu schedule"]).T.reshape(
+            sched.iw.shape)
+        iw_equal = (all(w == weights["cpu schedule"]
+                        for w in weights.values())
+                    and np.array_equal(sched.iw, iw_col))
+        equal = equal and iw_equal
+        iw = (f"iw and weight_history equal {iw_equal} (iw "
+              f"{sched.iw.min():.4f}..{sched.iw.max():.4f})")
     log(f"{label}: host columns {', '.join(HOST_COLUMNS)} over {rounds} "
-        f"rounds equal by == across scan_fused, eager and the CPU's "
-        f"schedule(): {equal}; latency {res.total_latency_s:.4f} s, "
-        f"energy {res.total_energy_j:.4f} J in total")
+        f"rounds equal by == across {', '.join(cols)}: {equal}; {iw}; "
+        f"latency {res.total_latency_s:.4f} s, energy "
+        f"{res.total_energy_j:.4f} J in total")
     if not equal or res.total_latency_s <= 0 or res.total_energy_j <= 0:
-        diff = {k: (cols["scan_fused"][k], cols["eager"][k],
-                    cols["cpu schedule"][k])
-                for k in HOST_COLUMNS
-                if not cols["scan_fused"][k] == cols["eager"][k]
-                == cols["cpu schedule"][k]}
+        diff = {k: [c[k] for c in cols.values()] for k in HOST_COLUMNS
+                if any(c[k] != first[k] for c in cols.values())}
         raise AssertionError(f"{label}: host columns differ: {diff}")
     return sched
 
@@ -1123,10 +1177,10 @@ def phase_scenarios(device, model, data, hp, static: dict) -> dict:
         def make_cpu(make=make):
             return make("cpu", cpu_data)
 
-        def make_static(mode=mode):
+        def make_static(mode=mode, dev="cpu", dat=cpu_data):
             if mode is None:
-                return make_trainer(model, cpu_data, hp, "cpu", seed)
-            return make_fleet(model, cpu_data, hp, "cpu", seed, mode)
+                return make_trainer(model, dat, hp, dev, seed)
+            return make_fleet(model, dat, hp, dev, seed, mode)
 
         tag = f"scenarios, {label} under {scenario}"
         trainer = make()
@@ -1201,6 +1255,212 @@ def phase_scenarios(device, model, data, hp, static: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Walk policies: the Metropolis chain and the importance-biased walks
+# (staleness, label skew; mixing's γ = 0.5) on the main path's CNN.
+WALK_BIAS = 0.5
+# Rounds of the window whose dispatched operations are counted.
+OPS_WINDOW = 3
+# What a biased walk adds to each round: the fold y₀ + iw·(y₁ − y₀) (a
+# subtract, a multiply, an add) and the round's iw picked from the
+# window's column; the fleet also views iw as (K, 1).
+FOLD_OPS = {"aten.add": 1, "aten.mul": 1, "aten.select": 1, "aten.sub": 1}
+#: (label, fleet mode or None, trainer keywords, update kernel)
+WALK_RUNS = (
+    ("metropolis", None, dict(transition="metropolis"), "zone_update"),
+    ("staleness", None, dict(walk_policy="staleness", walk_bias=WALK_BIAS),
+     "zone_update"),
+    ("label_skew", None, dict(walk_policy="label_skew", walk_bias=WALK_BIAS),
+     "zone_update"),
+    ("staleness batched_walk", None,
+     dict(walk_policy="staleness", walk_bias=WALK_BIAS, batched_walk=True),
+     "zone_update"),
+    ("fleet3 staleness", "simultaneous",
+     dict(walk_policy="staleness", walk_bias=WALK_BIAS), "multizone_update"))
+
+
+def window_ops(trainer, rounds: int = OPS_WINDOW):
+    """The ATen operations, by name, and the kernel wrappers' launches
+    that the rounds of a new ``scan_fused`` window of ``rounds`` rounds
+    dispatch (its warm-up round and its capture: what its CUDA graph
+    replays), apart from the carry and input copies around them, and the
+    number of rounds dispatched."""
+    import collections
+
+    import numpy as np
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    ops = collections.Counter()
+    seen = []
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops[str(func.overloadpacket)] += 1
+            return func(*args, **(kwargs or {}))
+
+    rounds_of = trainer._window
+
+    def counted(state, ins, *args, **kw):
+        seen.append(int(ins["idx"].shape[0]))
+        with Count():
+            return rounds_of(state, ins, *args, **kw)
+
+    sched = trainer.schedule(rounds, np.random.default_rng(3), start_round=1)
+    state = trainer.init_state(0)
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    trainer._window = counted
+    try:
+        trainer.run_chunk(state, sched, "scan_fused")
+    finally:
+        del trainer._window
+    torch.cuda.synchronize()
+    ops.update({f"wrapper {k}": n for k, n in launch_counts().items() if n})
+    return ops, sum(seen)
+
+
+def ops_delta(got, want) -> dict:
+    """``got − want`` per operation, where they differ."""
+    return {k: got[k] - want[k] for k in sorted(set(got) | set(want))
+            if got[k] != want[k]}
+
+
+def phase_walks(device, model, data, hp, static: dict) -> dict:
+    """Each of ``WALK_RUNS`` driven once through ``run_simulation``
+    (``scan_fused``, 50 rounds in one captured window; launch counts
+    exact per round), its host columns and importance weights held
+    against eager and the CPU's ``schedule()``, eager against
+    ``scan_fused`` in lockstep (:func:`compare_lockstep`), its captured
+    windows bit for bit over two windows (the second a replay with new
+    weights); steady times, busy share and kernels a round beside the
+    ``static_regen`` paths of this call (``static``), and
+    ``schedule()``'s host ms. The uniform Metropolis chain must carry no
+    ``iw``, and a window of it must dispatch exactly the operations and
+    launches of the static trainer's (:func:`window_ops`), a biased
+    window exactly those and the fold's (``FOLD_OPS``) each round.
+    ``batched_walk`` walks another stream than eager: its host columns
+    are held to the CPU's ``schedule()`` and its captured ``scan`` to
+    its rounds uncaptured."""
+    import torch
+
+    from repro_torch.fl.base import DeviceData
+    from repro_torch.fl.fleet_trainer import FleetRWSADMMTrainer
+    from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
+
+    seed = MAIN["seed"]
+    cpu_data = DeviceData(*(t.cpu() for t in data))
+    out = {}
+    captures = {}
+    for label, mode, kw, update in WALK_RUNS:
+        def make(dev=device, dat=data, mode=mode, kw=kw):
+            common = dict(batch_size=MAIN["batch"], zone_size=MAIN["zone"],
+                          solver="closed_form", seed=seed, device=dev, **kw)
+            if mode is None:
+                return RWSADMMTrainer(model, dat, hp, **common)
+            return FleetRWSADMMTrainer(
+                model, dat, hp, n_walkers=FLEET["n_walkers"],
+                sync_every=FLEET["sync_every"], fleet_mode=mode, **common)
+
+        def make_cpu(make=make):
+            return make("cpu", cpu_data)
+
+        def make_static(mode=mode, dev="cpu", dat=cpu_data):
+            if mode is None:
+                return make_trainer(model, dat, hp, dev, seed)
+            return make_fleet(model, dat, hp, dev, seed, mode)
+
+        eager_walks = not kw.get("batched_walk", False)
+        steps = FLEET["wall_steps"] if mode else MAIN["rounds"]
+        unit = "wall step" if mode else "round"
+        tag = f"walks, {label}"
+        trainer = make()
+        res, counts, peak, losses, acc = drive(trainer, steps, seed, update,
+                                               tag)
+        hit = (trainer.fleet_hitting_time() if mode
+               else trainer.walker.hitting_time())
+        sched = hold_host_columns(res, make, make_cpu, steps, tag, trainer,
+                                  eager_walks)
+        carries_iw = [k[-1] for k in trainer.windows]
+        biased = trainer.walker.is_biased
+        if (sched.iw is not None) != biased or any(
+                c != biased for c in carries_iw):
+            raise AssertionError(f"{tag}: iw column {sched.iw is not None}, "
+                                 f"windows carrying iw {carries_iw}")
+        lockstep = None
+        if eager_walks:
+            lock = compare_lockstep(make, FLEET["eager_steps"] if mode
+                                    else MAIN["eager_rounds"],
+                                    lambda st: {k: v for k, v in
+                                                state_leaves(st).items()
+                                                if k != "visited"},
+                                    unit + "s", hp, tag)
+            lockstep = {k: lock[k] for k in (
+                "one_round_max", "scan_fused_equals_lockstep",
+                "eager_vs_scan_fused", "cudnn_default_g_nondeterminism")}
+        steady = time_steady_rounds(trainer, unit)
+        ops, dispatched = window_ops(trainer)
+        ref = make_static(dev=device, dat=data)
+        surplus = ops_delta(ops, window_ops(ref)[0])
+        del ref
+        fold = dict(FOLD_OPS, **({"aten.view": 1} if mode else {}))
+        want = {k: n * dispatched for k, n in fold.items()} if biased else {}
+        base = static["fleet_path" if mode else "main_path"]
+        sched_ms = {"walk": schedule_ms(make_cpu, steps),
+                    "static_regen": schedule_ms(make_static, steps)}
+        extra = (steady["kernel_launches_per_round"]
+                 - base["kernel_launches_per_round"])
+        log(f"{tag}: {steps} {unit}s scan_fused, wrapper counts "
+            f"{counts['counts']}, launches run {counts['ran']} in "
+            f"{counts['replays']} graph replay(s), loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}, acc_personalized {acc:.4f}, hitting time "
+            f"{hit}; steady scan_fused "
+            f"{steady['scan_fused_round_ms']:.4f} ms/{unit} against "
+            f"static_regen's {base['scan_fused_round_ms']:.4f} in this call "
+            f"(scan {steady['scan_round_ms']:.4f} against "
+            f"{base['scan_round_ms']:.4f}, eager "
+            f"{steady['eager_round_ms']:.4f} against "
+            f"{base['eager_round_ms']:.4f}), busy share "
+            f"{steady['busy_share']:.3f} against {base['busy_share']:.3f}, "
+            f"kernels a {unit} {steady['kernel_launches_per_round']:.1f} "
+            f"against {base['kernel_launches_per_round']:.1f} "
+            f"({extra:+.1f}); a {OPS_WINDOW}-{unit} window dispatches "
+            f"{sum(ops.values())} operations and launches over "
+            f"{dispatched} rounds, {surplus or 'none'} beside "
+            f"static_regen's; host schedule() "
+            f"of a {steps}-{unit} window "
+            f"{sched_ms['walk']:.2f} ms against static_regen's "
+            f"{sched_ms['static_regen']:.2f} ms; peak {peak / 2**30:.3f} GiB")
+        if surplus != want:
+            raise AssertionError(f"{tag}: its window dispatched {surplus} "
+                                 f"beside static_regen's, not {want}")
+        out[label] = {"launches": counts["counts"],
+                      "launches_run": counts["ran"],
+                      "graph_replays": counts["replays"],
+                      "acc_personalized": acc,
+                      "hitting_time": hit,
+                      "iw_range": (None if sched.iw is None else
+                                   [float(sched.iw.min()),
+                                    float(sched.iw.max())]),
+                      "schedule_ms": sched_ms,
+                      "static_regen_round_ms": base["scan_fused_round_ms"],
+                      "static_regen_kernels_per_round":
+                          base["kernel_launches_per_round"],
+                      "static_regen_busy_share": base["busy_share"],
+                      "window_ops": sum(ops.values()),
+                      "window_ops_beside_static": surplus,
+                      "lockstep": lockstep,
+                      **steady}
+        captures[label] = (make, eager_walks)
+        del trainer
+        torch.cuda.empty_cache()
+    out["capture"] = {}
+    for label, (make, eager_walks) in captures.items():
+        out["capture"].update(check_captures({f"walks, {label}": make},
+                                             eager_walks))
+    return out
+
+
 def phase_single_client(device, model, data, hp) -> int:
     """One client's update through ``ops.fused_update`` at the CNN's
     width: the client's gradient at its x on one minibatch, then x, z and
@@ -1243,9 +1503,13 @@ CAPTURE = dict(window=5, windows=2)
 PARITY = dict(n_samples=1200, n_clients=10, rounds=5, tol=1e-6)
 
 
-def uncaptured_rounds(trainer, state, sched):
-    """A window's rounds in a loop outside any graph: ``_round_impl`` for
-    the single walker, the fleet's round-robin or simultaneous step."""
+def uncaptured_rounds(trainer, state, sched, use_fused: bool = True,
+                      rounds=None, weighted: bool = True):
+    """A window's rounds (or those of ``rounds``) in a loop outside any
+    graph: ``_round_impl`` for the single walker, the fleet's round-robin
+    or simultaneous step, each with the round's importance weight (fp32)
+    under a biased policy unless ``weighted`` is False."""
+    import numpy as np
     import torch
 
     dev = trainer.device
@@ -1254,17 +1518,20 @@ def uncaptured_rounds(trainer, state, sched):
                   for a in (sched.mask, sched.keys))
     sync = getattr(sched, "sync", None)
     sync = None if sync is None else torch.as_tensor(sync, device=dev)
-    for r in range(sched.rounds):
+    iw = None if sched.iw is None or not weighted else torch.as_tensor(
+        sched.iw.astype(np.float32), device=dev)
+    for r in range(sched.rounds) if rounds is None else rounds:
+        w = None if iw is None else iw[r]
         if sync is None:
             state, _ = trainer._round_impl(state, idx[r], mask[r], keys[r],
-                                           use_fused=True)
+                                           w, use_fused=use_fused)
         elif sched.mode == "roundrobin":
             a = torch.tensor(int(sched.walker[r]), device=dev)
             state, _ = trainer._rr_step(state, idx[r], mask[r], a, sync[r],
-                                        keys[r], use_fused=True)
+                                        keys[r], w, use_fused=use_fused)
         else:
             state, _ = trainer._sim_step(state, idx[r], mask[r], sync[r],
-                                         keys[r], use_fused=True)
+                                         keys[r], w, use_fused=use_fused)
     return state
 
 
@@ -1292,10 +1559,14 @@ def phase_capture(device, model, data, hp) -> dict:
                                                seed, mode="roundrobin")})
 
 
-def check_captures(configs: dict) -> dict:
+def check_captures(configs: dict, eager_walks: bool = True) -> dict:
     """For each trainer factory of ``configs``: captured ``scan`` ≡ eager
     and captured ``scan_fused`` ≡ the same rounds uncaptured, bit for
-    bit with cuDNN deterministic, over ``CAPTURE["windows"]`` windows."""
+    bit with cuDNN deterministic, over ``CAPTURE["windows"]`` windows;
+    under a biased policy the second window (a replay) must carry other
+    importance weights than the first. A ``batched_walk`` trainer's eager
+    rounds walk another stream than its schedules (``eager_walks`` False):
+    its captured ``scan`` is held to its rounds uncaptured instead."""
     import numpy as np
     import torch
 
@@ -1306,18 +1577,22 @@ def check_captures(configs: dict) -> dict:
     out = {}
     try:
         for label, make in configs.items():
-            runs = {}
+            runs, iws = {}, []
             for engine in ("eager", "scan", "uncaptured", "scan_fused"):
                 tr = make()
                 rng = np.random.default_rng(seed)
                 state = tr.init_state(seed)
                 for k in range(CAPTURE["windows"]):
-                    if engine == "eager":
+                    if engine == "eager" and eager_walks:
                         for r in range(k * w, (k + 1) * w):
                             state, _ = tr.round(state, r, rng)
                         continue
                     sched = tr.schedule(w, rng, start_round=k * w)
-                    if engine == "uncaptured":
+                    if engine == "scan_fused" and sched.iw is not None:
+                        iws.append(sched.iw)
+                    if engine == "eager":      # the scan rounds uncaptured
+                        state = uncaptured_rounds(tr, state, sched, False)
+                    elif engine == "uncaptured":
                         state = uncaptured_rounds(tr, state, sched)
                     else:
                         state, _ = tr.run_chunk(state, sched, engine)
@@ -1343,13 +1618,22 @@ def check_captures(configs: dict) -> dict:
             row["fused_equal"] = all(torch.equal(runs["scan_fused"][k],
                                                  runs["uncaptured"][k])
                                      for k in runs["uncaptured"])
+            if iws:
+                row["iw_windows_differ"] = not np.array_equal(*iws)
+                row["iw_range"] = [float(min(a.min() for a in iws)),
+                                   float(max(a.max() for a in iws))]
+            against = "eager" if eager_walks else "the scan rounds uncaptured"
             log(f"captured windows, {label}: {CAPTURE['windows']} windows "
                 f"of {w} rounds ({row['replays']} replays): captured scan "
-                f"vs eager bitwise {row['scan_equal']} (max_abs_diff "
+                f"vs {against} bitwise {row['scan_equal']} (max_abs_diff "
                 f"{row['scan_vs_eager']}); captured scan_fused vs the same "
                 f"rounds uncaptured bitwise {row['fused_equal']} "
-                f"(max_abs_diff {row['scan_fused_vs_uncaptured']})")
-            if not (row["scan_equal"] and row["fused_equal"]):
+                f"(max_abs_diff {row['scan_fused_vs_uncaptured']})"
+                + (f"; importance weights {row['iw_range']}, the replayed "
+                   f"window's differ from the first's "
+                   f"{row['iw_windows_differ']}" if iws else ""))
+            if not (row["scan_equal"] and row["fused_equal"]
+                    and row.get("iw_windows_differ", True)):
                 raise AssertionError(f"captured windows, {label}: {row}")
             out[label] = row
     finally:
@@ -1459,6 +1743,138 @@ def phase_twins(device) -> dict:
             "fleet_scaling": {f"{m}/n{n}/K{k}": v
                               for (m, n, k), v in fleet.items()},
             "hitting_time": hits}
+
+
+# ---------------------------------------------------------------------------
+# The paper's result scripts on the card, at the reference's sizes (a cut
+# is named here and in PERF.md §4), and the full-length quickstart.
+PAPER = dict(convergence_rounds=100, hyperparam_rounds=80,
+             ablation_rounds=80, comparison_rounds=200,
+             table2_clients=(20, 50, 100), table2_rounds_per_client=8,
+             quickstart_rounds=300)
+# The reference's quickstart on the CPU (ROADMAP Queue 1 item 9): its
+# hitting time and MB a round (the port's CPU run gives the same), and
+# its accuracies, printed beside the card's.
+QUICKSTART_REF = dict(hitting_time=58, rwsadmm_mb=2.92, fedavg_mb=7.17,
+                      rwsadmm_acc=0.9700, fedavg_acc=0.9509)
+
+
+def phase_paper(device) -> dict:
+    """The six paper-script twins on the card, then the quickstart at its
+    full 300 rounds. Gated: the walk-policy sweep's hitting times and
+    staleness equal a CPU run of the same twin; Table 2's ``comm_mb``
+    equals the CPU ``schedule()`` of the same trainers; the ablations'
+    literal Eq. 11 moves 0.0; the quickstart's hitting time and MB a
+    round equal the reference's. Accuracies are printed."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from benchmarks import ablations_torch, convergence_torch, \
+        hyperparam_torch, mixing_torch, table1_torch, table2_scaling_torch
+    from repro_torch.models.small import get_model
+
+    out_dir = os.path.join(HERE, "results", "bench")
+    rows_file = os.path.join(out_dir, "BENCH_torch_scaling.json")
+    out, times = {}, {}
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        times[name] = time.perf_counter() - t0
+        return res
+
+    curves = timed("convergence", convergence_torch.run,
+                   PAPER["convergence_rounds"], out_dir, device)
+    out["convergence"] = {f"{m}/{a}": float(acc[-1])
+                          for (m, a), (_, acc) in curves.items()}
+    t2 = timed("table2_scaling", table2_scaling_torch.run, out_dir, device,
+               PAPER["table2_clients"], PAPER["table2_rounds_per_client"])
+    planned = []
+    for row in t2:
+        n = row["n_clients"]
+        data, shape = table1_torch.mnist_like_fed(n_clients=n,
+                                                  n_samples=200 * n,
+                                                  device="cpu")
+        tr = table1_torch.make_trainer("rwsadmm", get_model("mlp", shape),
+                                       data, zone=8, device="cpu")
+        sched = tr.schedule(row["rounds"], np.random.default_rng(0))
+        zeros = torch.zeros(row["rounds"])
+        total = sum(m["comm_bytes"] for m in tr.chunk_round_metrics(
+            sched, {"train_loss": zeros, "kappa": zeros}, 0))
+        planned.append(round(total / 1e6, 1))
+    out["table2"] = t2
+    hyper = timed("hyperparam", hyperparam_torch.run,
+                  PAPER["hyperparam_rounds"], out_dir, device)
+    out["hyperparam"] = hyper
+    report = timed("mixing report", mixing_torch.mixing_report)
+    sweep = timed("mixing sweep", mixing_torch.policy_sweep, device=device,
+                  out=rows_file)
+    cpu_sweep = timed("mixing sweep on the CPU", mixing_torch.policy_sweep,
+                      device="cpu", out=os.path.join(out_dir,
+                                                     "mixing_cpu.json"))
+    host = ("hitting_time", "staleness_max", "staleness_p50")
+    out["mixing"] = {"report": report, "sweep": sweep}
+    abl = timed("ablations", ablations_torch.run, PAPER["ablation_rounds"],
+                device)
+    out["ablations"] = abl
+
+    def load(path):
+        spec = importlib.util.spec_from_file_location(Path(path).stem, path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    comparison = load(os.path.join(HERE, "examples",
+                                   "personalization_comparison_torch.py"))
+    out["personalization_comparison"] = timed(
+        "personalization_comparison", comparison.main,
+        PAPER["comparison_rounds"], device)
+    quick = load(os.path.join(HERE, "examples", "quickstart_torch.py"))
+    rounds = PAPER["quickstart_rounds"]
+    res, fed_res, trainer = timed("quickstart", quick.main, rounds, device)
+    q = {"hitting_time": trainer.walker.hitting_time(),
+         "rwsadmm_mb": round(res.total_comm_bytes / rounds / 1e6, 2),
+         "fedavg_mb": round(fed_res.total_comm_bytes / rounds / 1e6, 2),
+         "rwsadmm_acc": res.final["acc_personalized"],
+         "fedavg_acc": fed_res.final["acc_global"]}
+    out["quickstart"] = q
+    out["seconds"] = times
+
+    checks = {
+        "sweep host columns equal the CPU run's":
+            [{k: r[k] for k in host} for r in sweep]
+            == [{k: r[k] for k in host} for r in cpu_sweep],
+        "table2 comm_mb equals the CPU schedule's":
+            [r["comm_mb"] for r in t2] == planned,
+        "literal Eq. 11 moves 0.0": abl["literal_eq11_first_step"] == 0.0,
+        "quickstart hitting time and MB a round equal the reference's":
+            all(q[k] == QUICKSTART_REF[k]
+                for k in ("hitting_time", "rwsadmm_mb", "fedavg_mb")),
+    }
+    log("paper scripts on the card (s): " + ", ".join(
+        f"{k} {v:.1f}" for k, v in times.items()))
+    log(f"paper scripts: Fig. 2 final accuracies {out['convergence']}; "
+        f"Table 2 {t2} (comm_mb from the CPU schedule {planned}); Fig. 3/4 "
+        f"{hyper}; mixing report {[(r['graph'], r['tau'], r['holds']) for r in report]}; "
+        f"policy sweep "
+        f"{[(r['name'], r['hitting_time'], r['staleness_max'], r['acc']) for r in sweep]}"
+        f" (CPU {[(r['hitting_time'], r['staleness_max']) for r in cpu_sweep]}); "
+        f"ablations {abl}")
+    log(f"quickstart, {rounds} rounds on the card: RWSADMM "
+        f"acc_personalized {q['rwsadmm_acc']:.4f} (reference on the CPU "
+        f"{QUICKSTART_REF['rwsadmm_acc']}), FedAvg acc_global "
+        f"{q['fedavg_acc']:.4f} (reference {QUICKSTART_REF['fedavg_acc']}); "
+        f"MB a round {q['rwsadmm_mb']} and {q['fedavg_mb']} (reference "
+        f"{QUICKSTART_REF['rwsadmm_mb']}, {QUICKSTART_REF['fedavg_mb']}), "
+        f"hitting time {q['hitting_time']} (reference "
+        f"{QUICKSTART_REF['hitting_time']})")
+    log(f"paper scripts gates: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"paper scripts: {checks}")
+    out["checks"] = checks
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1965,6 +2381,165 @@ def compare_eager(make, steps: int, leaves, unit: str) -> None:
         f"(atol {EAGER_ATOL})")
     if not all(v <= EAGER_ATOL for v in diff.values()):
         raise AssertionError(f"eager and scan_fused disagree: {diff}")
+
+
+def clone_state(state):
+    """A copy of a trainer's state that a round may update in place."""
+    base = getattr(state, "base", state)
+    copy = base._replace(
+        clients=base.clients._replace(x=base.clients.x.clone(),
+                                      z=base.clients.z.clone()),
+        server=base.server._replace(y=base.server.y.clone()))
+    if base is state:
+        return copy
+    return state._replace(base=copy, tokens=state.tokens.clone())
+
+
+def tokens_of(state):
+    """The walkers' tokens: ``(K, P)`` for a fleet, y ``(P,)`` else."""
+    return state.tokens if hasattr(state, "tokens") else state.server.y
+
+
+def round_slots(trainer, state, sched, r: int) -> dict:
+    """Round ``r``'s live slots as ``state`` holds them: client ids, and
+    per slot the token its update reads (y'), x', z' and the gradient at
+    x' on the round's draws."""
+    import torch
+
+    dev = trainer.device
+    flat = torch.as_tensor(sched.idx[r].reshape(-1), dtype=torch.int64,
+                           device=dev)
+    live = torch.as_tensor(sched.mask[r].reshape(-1) > 0,
+                           device=dev).nonzero().squeeze(1)
+    base = getattr(state, "base", state)
+    if not hasattr(state, "tokens"):
+        y = base.server.y.expand(flat.numel(), -1)
+    elif sched.mode == "roundrobin":
+        y = state.tokens[int(sched.walker[r])].expand(flat.numel(), -1)
+    else:
+        y = state.tokens.repeat_interleave(sched.idx.shape[-1], dim=0)
+    x = base.clients.x[flat]
+    batch_idx, keep = trainer.zone_batch_indices(
+        flat, torch.as_tensor(sched.keys[r], device=dev))
+    _, g = trainer.zone_loss_and_grad(x, flat, batch_idx, keep)
+    return {"clients": flat[live], "y": y[live], "x": x[live],
+            "z": base.clients.z[flat][live], "g": g[live]}
+
+
+#: A coordinate's gap counts as more than rounding above this.
+ROUNDING_GAP = 1e-6
+
+
+def compare_lockstep(make, steps: int, leaves, unit: str, hp,
+                     label: str) -> dict:
+    """Eager (the plain update) and the fused rounds (the kernel: the
+    code a ``scan_fused`` window captures) stepped in lockstep from one
+    seed, cuDNN deterministic. Held: at every step, one round from the
+    eager state through the kernel equals the eager round at
+    ``KERNEL_TOL`` (x, z, y or the tokens, κ; under a biased walk with
+    the ``iw`` fold); and a ``scan_fused`` run from the same seed equals
+    the lockstep fused rounds bit for bit. Printed: that one-round gap
+    in y before and after the ``iw`` rescale, and how the two
+    trajectories part: their gaps going into each step (y, x', the
+    gradients at x'), the live coordinates where sgn(y' − x') differs
+    between them, and where x⁺ then parts beyond rounding, by sign
+    mismatch, gradient gap (> ``ROUNDING_GAP``·β) or neither. On the
+    CNN a last-bit gap in x' moves the gradient by up to ~1e-3 at
+    ReLU and max-pool near-ties, and that grows every round, so the
+    trajectories' end states are printed against ``EAGER_ATOL``, not
+    held to it."""
+    import numpy as np
+    import torch
+
+    def amax(t) -> float:
+        return float(t.abs().max()) if t.numel() else 0.0
+
+    def gap(a, b) -> float:
+        return amax(a - b)
+
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    seed = MAIN["seed"]
+    eager, lock = make(), make()
+    sched = lock.schedule(steps, np.random.default_rng(seed))
+    s_e, s_f = eager.init_state(seed), lock.init_state(seed)
+    y_key = "tokens" if hasattr(s_e, "tokens") else "y"
+    nondet = gap(round_slots(lock, s_e, sched, 0)["g"],
+                 round_slots(lock, s_e, sched, 0)["g"])
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    rows = []
+    try:
+        rng = np.random.default_rng(seed)
+        for r in range(steps):
+            one = {}
+            for fused in (False, True):
+                for weighted in (False, True):
+                    one[fused, weighted] = leaves(uncaptured_rounds(
+                        lock, clone_state(s_e), sched, fused, (r,),
+                        weighted))
+            e = round_slots(lock, s_e, sched, r)
+            f = round_slots(lock, s_f, sched, r)
+            flip = torch.sign(e["y"] - e["x"]) != torch.sign(f["y"] - f["x"])
+            row = {"iw": (None if sched.iw is None
+                          else np.asarray(sched.iw[r]).tolist()),
+                   "one_round": {k: gap(one[True, True][k],
+                                        one[False, True][k])
+                                 for k in one[True, True]},
+                   "one_round_y_unweighted": gap(one[True, False][y_key],
+                                                 one[False, False][y_key]),
+                   "y_in": gap(tokens_of(s_e), tokens_of(s_f)),
+                   "x_in": gap(e["x"], f["x"]),
+                   "g_in": gap(e["g"], f["g"]),
+                   "sign_mismatches": int(flip.sum())}
+            del one
+            s_e, _ = eager.round(s_e, r, rng)
+            s_f = uncaptured_rounds(lock, s_f, sched, True, (r,))
+            dx = (getattr(s_e, "base", s_e).clients.x[e["clients"]]
+                  - getattr(s_f, "base", s_f).clients.x[f["clients"]]).abs()
+            big = dx > ROUNDING_GAP
+            kink = (e["g"] - f["g"]).abs() / hp.beta > ROUNDING_GAP
+            row.update({"x_out": amax(dx), "x_out_coords": int(big.sum()),
+                        "of_them_sign": int((big & flip).sum()),
+                        "of_them_gradient": int((big & kink & ~flip).sum()),
+                        "of_them_neither": int((big & ~kink & ~flip).sum())})
+            rows.append(row)
+            log(f"lockstep {label}, {unit[:-1]} {r}: iw {row['iw']}; one "
+                f"round from the eager state, kernel vs plain "
+                f"{row['one_round']} (y {row['one_round_y_unweighted']:.3g} "
+                f"before the iw rescale); the trajectories going in: y "
+                f"{row['y_in']:.3g}, x' {row['x_in']:.3g}, gradient "
+                f"{row['g_in']:.3g}; sgn(y' − x') differs at "
+                f"{row['sign_mismatches']} live coordinates; x⁺ parts by "
+                f"> {ROUNDING_GAP:g} at {row['x_out_coords']} "
+                f"({row['of_them_sign']} sign mismatches, "
+                f"{row['of_them_gradient']} gradient gaps > "
+                f"{ROUNDING_GAP:g}·β, {row['of_them_neither']} neither), "
+                f"max {row['x_out']:.3g}")
+        fused = make()
+        s_sf, _ = fused.run_chunk(
+            fused.init_state(seed),
+            fused.schedule(steps, np.random.default_rng(seed)), "scan_fused")
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    a, b, c = leaves(s_e), leaves(s_sf), leaves(s_f)
+    out = {"steps": rows, "cudnn_default_g_nondeterminism": nondet,
+           "one_round_max": max(max(r["one_round"].values()) for r in rows),
+           "scan_fused_equals_lockstep": all(torch.equal(b[k], c[k])
+                                             for k in b),
+           "eager_vs_scan_fused": {k: gap(a[k], b[k]) for k in a}}
+    log(f"eager vs scan_fused, {label}, {steps} {unit} in lockstep (cuDNN "
+        f"deterministic; its default backward twice on one zone's inputs "
+        f"differs by {nondet:.3g}): one round from the eager state, kernel "
+        f"vs plain, at most {out['one_round_max']:.3g} (held at "
+        f"{KERNEL_TOL}); scan_fused equals the lockstep fused rounds "
+        f"bitwise {out['scan_fused_equals_lockstep']}; the end states part "
+        f"by {out['eager_vs_scan_fused']} (printed beside {EAGER_ATOL})")
+    if not (out["scan_fused_equals_lockstep"]
+            and out["one_round_max"] <= KERNEL_TOL):
+        raise AssertionError(f"eager and scan_fused disagree: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2479,6 +3054,7 @@ def main() -> int:
     paths = {"main_path": phase_main_path(device, model, data, hp),
              "fleet_path": phase_fleet(device, model, data, hp)}
     paths["scenarios"] = phase_scenarios(device, model, data, hp, paths)
+    paths["walks"] = phase_walks(device, model, data, hp, paths)
     main_counts = paths["main_path"]["launches"]
     launches = {"zone_update": main_counts["zone_update"],
                 "multizone_update":
@@ -2494,6 +3070,12 @@ def main() -> int:
                                    "threefry_draws")}
     scenario_ran = {k: sum(p["launches_run"].get(k, 0) for p in scn)
                     for k in scenario_launches}
+    # The walks phase's own runs, each driven with the counts at 0.
+    walks = [paths["walks"][label] for label, *_ in WALK_RUNS]
+    walk_launches = {k: sum(p["launches"].get(k, 0) for p in walks)
+                     for k in scenario_launches}
+    walk_ran = {k: sum(p["launches_run"].get(k, 0) for p in walks)
+                for k in scenario_launches}
     ran = {"zone_update": paths["main_path"]["launches_run"]["zone_update"],
            "multizone_update":
                paths["fleet_path"]["launches_run"]["multizone_update"],
@@ -2503,6 +3085,7 @@ def main() -> int:
     paths["device_parity"] = phase_device_parity(device, model, data, hp)
     paths["twins"] = phase_twins(device)
     paths["baselines"] = phase_baselines(device, model, data)
+    paths["paper_scripts"] = phase_paper(device)
     # threefry_bits runs on the baselines' path (their key trees): its
     # launches over the accuracy gates' runs.
     launches["threefry_bits"] = sum(
@@ -2526,6 +3109,8 @@ def main() -> int:
                "launches_run": ran.get(kernel, launches.get(kernel)),
                "launches_scenarios": scenario_launches.get(kernel, 0),
                "launches_run_scenarios": scenario_ran.get(kernel, 0),
+               "launches_walks": walk_launches.get(kernel, 0),
+               "launches_run_walks": walk_ran.get(kernel, 0),
                "max_abs_err": max(r["max_abs_err"] for r in checks),
                "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],

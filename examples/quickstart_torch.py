@@ -68,7 +68,7 @@ def main(rounds: int = 300, device=None):
     print(f"server visits: min={server.visit_counts.min()} "
           f"max={server.visit_counts.max()} "
           f"hitting_time={server.hitting_time()}")
-    return res, fed_res
+    return res, fed_res, trainer
 
 
 if __name__ == "__main__":

@@ -31,15 +31,27 @@ class ClientGraph:
     def n(self) -> int:
         return int(self.adjacency.shape[0])
 
+    def degree(self, i: int | None = None):
+        """deg(i), or every client's degree as an (n,) array."""
+        deg = self.adjacency.sum(axis=1)
+        return int(deg[i]) if i is not None else deg
+
     def neighborhood(self, i: int) -> np.ndarray:
         """N(i): client i plus its neighbors (paper's vertex set N(i))."""
         mask = self.adjacency[i].copy()
         mask[i] = True
         return np.flatnonzero(mask)
 
+    def neighbors(self, i: int) -> np.ndarray:
+        """N(i) \\ {i}."""
+        return np.flatnonzero(self.adjacency[i])
+
     @property
     def n_edges(self) -> int:
         return int(self.adjacency.sum()) // 2
+
+    def is_connected(self) -> bool:
+        return adjacency_connected(self.adjacency)
 
 
 def adjacency_connected(adj: np.ndarray) -> bool:
@@ -353,6 +365,11 @@ class NeighborGraph:
     def k_cap(self) -> int:
         return int(self.nbrs.shape[1])
 
+    def degree(self, i: int | None = None):
+        """deg(i), or every client's degree as an (n,) array."""
+        deg = self.nbr_mask.sum(axis=1)
+        return int(deg[i]) if i is not None else deg
+
     def neighbors(self, i: int) -> np.ndarray:
         """N(i) \\ {i}, sorted ascending (packed-left invariant)."""
         return self.nbrs[i, : int(self.nbr_mask[i].sum())]
@@ -367,6 +384,9 @@ class NeighborGraph:
     @property
     def n_edges(self) -> int:
         return int(self.nbr_mask.sum()) // 2
+
+    def is_connected(self) -> bool:
+        return neighbor_lists_connected(self.nbrs, self.nbr_mask)
 
     def undirected_edges(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Canonical (i < j) edge arrays (ei, ej, d2), sorted by (i, j)
@@ -531,3 +551,23 @@ def patch_connected_lists(nbrs, mask, nd2, positions):
         ia, ib, d2 = _nearest_cross_pair(positions, a, b)
         nbrs, mask, nd2 = _insert_edge_lists(nbrs, mask, nd2, ia, ib, d2)
     return nbrs, mask, nd2
+
+
+def line_graph(n: int) -> ClientGraph:
+    """The path 0 – 1 – … – n−1: the worst-mixing connected topology."""
+    adj = np.zeros((n, n), dtype=bool)
+    for i in range(n - 1):
+        adj[i, i + 1] = adj[i + 1, i] = True
+    pos = np.stack([np.linspace(0, 1, n), np.zeros(n)], axis=1)
+    return ClientGraph(adjacency=adj, positions=pos)
+
+
+def complete_graph(n: int) -> ClientGraph:
+    """Every pair linked, clients on the unit circle."""
+    adj = ~np.eye(n, dtype=bool)
+    pos = np.stack(
+        [np.cos(np.linspace(0, 2 * np.pi, n, endpoint=False)),
+         np.sin(np.linspace(0, 2 * np.pi, n, endpoint=False))],
+        axis=1,
+    )
+    return ClientGraph(adjacency=adj, positions=pos)

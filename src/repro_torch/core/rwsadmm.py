@@ -8,6 +8,9 @@ The closed-form updates (reference: ``repro/core/rwsadmm.py``):
         with contribution  c(x, z) = x − (z/β + ε) ⊙ sgn(y' − x)
 
 ε here is ``hp.eps_half`` (the split ε/2 of Eq. 7), as in the reference.
+``literal_eq11`` gives the paper's printed Eq. 11 for the ablation, and
+the diagnostics at the end (L_β, M_β, the constraint residuals, the β
+threshold) monitor the theory of §4.
 Every update is elementwise, so the functions below take tensors of any
 shape and broadcast: a client row ``(P,)`` or a zone ``(Z, P)`` against
 the token ``(P,)``. ``torch.sign(0) == 0``, like ``jnp.sign``.
@@ -84,11 +87,17 @@ def init_states_warm(params: torch.Tensor, hp: RWSADMMHparams,
     return client, _server(params.clone(), hp)
 
 
-def x_update(y_prev, x_prev, z_prev, grad, hp: RWSADMMHparams):
+def x_update(y_prev, x_prev, z_prev, grad, hp: RWSADMMHparams, *,
+             literal_eq11: bool = False):
     """Solver of the linearized x-subproblem (Eq. 10):
-    x = y' − g/β + sgn(y' − x') ⊙ (z' − βε)/β."""
+    x = y' − g/β + sgn(y' − x') ⊙ (z' − βε)/β. ``literal_eq11`` takes
+    the paper's printed Eq. 11 instead, x = y' + sgn(y' − x')⊙(z' − ε −
+    g)/β, which never moves from Eq. 32's initialization (sgn(0) = 0);
+    the ablation benchmark shows it."""
     beta, eps = hp.beta, hp.eps_half
     s = torch.sign(y_prev - x_prev)
+    if literal_eq11:
+        return y_prev + (s * (z_prev - eps - grad)) / beta
     return y_prev - grad / beta + s * (z_prev - beta * eps) / beta
 
 
@@ -120,14 +129,24 @@ def subproblem_grad(x, y_prev, z, grad_f, hp: RWSADMMHparams):
 
 
 def client_round(client: ClientState, y_prev, grad, hp: RWSADMMHparams,
-                 kappa):
+                 kappa, *, literal_eq11: bool = False):
     """One client's (or, broadcast, a whole zone's) closed-form update.
     Returns the new state and the (c_new, c_old) contribution pair."""
     c_old = contribution(client.x, client.z, y_prev, hp)
-    x_new = x_update(y_prev, client.x, client.z, grad, hp)
+    x_new = x_update(y_prev, client.x, client.z, grad, hp,
+                     literal_eq11=literal_eq11)
     z_new = z_update(x_new, y_prev, client.z, hp, kappa)
     c_new = contribution(x_new, z_new, y_prev, hp)
     return ClientState(x=x_new, z=z_new), c_new, c_old
+
+
+def zone_round(clients: ClientState, y_prev, grads, hp: RWSADMMHparams,
+               kappa, n_total):
+    """Multi-client zone update (paper Eq. 31) without padding: every
+    row of ``clients``/``grads`` ``(S, P)`` is live, and y folds their
+    summed contribution deltas at 1/n."""
+    new, c_new, c_old = client_round(clients, y_prev, grads, hp, kappa)
+    return new, y_prev + torch.sum(c_new - c_old, dim=0) / n_total
 
 
 def zone_round_masked(clients: ClientState, y_prev, grads, mask,
@@ -165,3 +184,47 @@ def server_round_done(server: ServerState, y_new,
     """Advance the server token: store y, decay κ (Algorithm 1)."""
     return ServerState(y=y_new, kappa=server.kappa * hp.kappa_decay,
                        round=server.round + 1)
+
+
+# ---------------------------------------------------------------------------
+# Theory diagnostics (Eq. 7, 8, 25; Lemma 4.7) for monitoring and tests.
+# ---------------------------------------------------------------------------
+
+def augmented_lagrangian(y, xs: ClientState, losses,
+                         hp: RWSADMMHparams) -> torch.Tensor:
+    """L_β(y, X; Z) of Eq. (8) with the one token y ``(P,)``, stacked
+    client states ``(n, P)`` and per-client losses f_i(x_i) ``(n,)``."""
+    beta, eps = hp.beta, hp.eps_half
+    r = torch.abs(y.unsqueeze(0) - xs.x) - eps      # |y − x_i| − ε
+    per_client = torch.sum(xs.z * r, dim=1) \
+        + (beta / 2.0) * torch.sum(r * r, dim=1)
+    return (torch.sum(losses) + torch.sum(per_client)) / losses.shape[0]
+
+
+def lyapunov_m(l_beta, last_x_delta_sq, lipschitz: float, n: int):
+    """M_β = L_β + (L²/n) Σ_i ‖x_i^{τ(k,i)+1} − x_i^{τ(k,i)}‖² (Eq. 25,
+    Lemma B.4); ``last_x_delta_sq`` is each client's squared norm of its
+    latest x update."""
+    return l_beta + (lipschitz**2 / n) * torch.sum(last_x_delta_sq)
+
+
+def constraint_violation(y, xs_stacked, hp: RWSADMMHparams) -> torch.Tensor:
+    """max_i ‖max(|y − x_i| − ε/2, 0)‖_∞: the residual of Eq. (7)'s hard
+    constraint, 0 at feasibility."""
+    v = torch.clamp(torch.abs(y.unsqueeze(0) - xs_stacked) - hp.eps_half,
+                    min=0.0)
+    return torch.max(v)
+
+
+def pairwise_violation(xs_stacked, adjacency, hp: RWSADMMHparams
+                       ) -> torch.Tensor:
+    """max over edges (i, j) of ‖max(|x_i − x_j| − ε, 0)‖_∞: Eq. (1)'s
+    original constraint. ``adjacency`` is an (n, n) bool tensor."""
+    diff = torch.abs(xs_stacked.unsqueeze(1) - xs_stacked.unsqueeze(0))
+    v = torch.clamp(diff - hp.epsilon, min=0.0).amax(dim=2)
+    return torch.max(torch.where(adjacency, v, torch.zeros_like(v)))
+
+
+def beta_lower_bound(lipschitz: float) -> float:
+    """Theory threshold β > 2L² + L + 2 (Lemma 4.7, Theorem 4.8)."""
+    return 2.0 * lipschitz**2 + lipschitz + 2.0

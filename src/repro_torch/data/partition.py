@@ -1,8 +1,10 @@
-"""Federated partitioners (numpy copy of the parts of
-``repro/data/partition.py`` this port uses; same seed, same indices).
+"""Federated partitioners (numpy copy of ``repro/data/partition.py``;
+same seed, same indices).
 
 ``pathological_split`` is the paper's §5 setting: each client holds two of
-the ten labels, with variable allocation sizes.
+the ten labels, with variable allocation sizes; ``dirichlet_split`` the
+Dir(α) label skew. The label histograms and ``label_skew_weights`` give
+the ``label_skew`` walk policy its per-client utilities.
 """
 from __future__ import annotations
 
@@ -59,6 +61,83 @@ def pathological_split(
                 ptr[c] += cnt
         out.append(np.concatenate(take))
     return out
+
+
+def dirichlet_split(
+    labels: np.ndarray,
+    n_clients: int,
+    *,
+    alpha: float = 0.3,
+    min_per_client: int = 8,
+    seed: int = 0,
+) -> list[np.ndarray]:
+    """Per-client index arrays with each class spread over the clients by
+    Dir(``alpha``) proportions; a client left with fewer than
+    ``min_per_client`` samples is topped up with random indices."""
+    rng = np.random.default_rng(seed)
+    n_classes = int(labels.max()) + 1
+    out = [[] for _ in range(n_clients)]
+    for c in range(n_classes):
+        idx = np.flatnonzero(labels == c)
+        rng.shuffle(idx)
+        props = rng.dirichlet([alpha] * n_clients)
+        cuts = (np.cumsum(props) * len(idx)).astype(int)[:-1]
+        for k, part in enumerate(np.split(idx, cuts)):
+            out[k].extend(part.tolist())
+    result = []
+    all_idx = np.arange(len(labels))
+    for k in range(n_clients):
+        arr = np.asarray(out[k], dtype=np.int64)
+        if len(arr) < min_per_client:
+            arr = np.concatenate(
+                [arr, rng.choice(all_idx, size=min_per_client - len(arr))]
+            )
+        result.append(arr)
+    return result
+
+
+def client_label_histograms(labels: np.ndarray, parts: list[np.ndarray],
+                            n_classes: int | None = None) -> np.ndarray:
+    """(n_clients, C) row-normalized label histograms of a partition."""
+    if n_classes is None:
+        n_classes = int(labels.max()) + 1
+    hist = np.zeros((len(parts), n_classes), np.float64)
+    for k, idx in enumerate(parts):
+        cnt = np.bincount(np.asarray(labels)[idx], minlength=n_classes)
+        hist[k] = cnt / max(int(cnt.sum()), 1)
+    return hist
+
+
+def padded_label_histograms(y_padded: np.ndarray, n_valid: np.ndarray,
+                            n_classes: int | None = None) -> np.ndarray:
+    """(n, C) label histograms from the trainers' padded layout:
+    ``y_padded`` (n, m) labels with only the first ``n_valid[i]`` entries
+    of row i real (``DeviceData.y_train`` / ``n_train`` on the host)."""
+    y = np.asarray(y_padded)
+    n_valid = np.asarray(n_valid)
+    if n_classes is None:
+        n_classes = int(y.max()) + 1
+    hist = np.zeros((y.shape[0], n_classes), np.float64)
+    for k in range(y.shape[0]):
+        cnt = np.bincount(y[k, : int(n_valid[k])], minlength=n_classes)
+        hist[k] = cnt / max(int(cnt.sum()), 1)
+    return hist
+
+
+def label_skew_weights(hist: np.ndarray, *, gamma: float = 1.0
+                       ) -> np.ndarray:
+    """Per-client utilities for the ``label_skew`` walk policy: the mean
+    inverse global propensity of a client's labels, u_i = Σ_c h_ic·q̄/q_c
+    (q the fleet-average label distribution, q̄ = 1/C), so u_i = 1 for a
+    client with the global mix and u_i ≫ 1 for one holding rare labels;
+    raised to ``gamma``. Strictly positive."""
+    h = np.asarray(hist, np.float64)
+    n_classes = h.shape[1]
+    q = h.mean(axis=0)
+    q = np.maximum(q, 1e-12)
+    u = (h * ((1.0 / n_classes) / q)[None, :]).sum(axis=1)
+    u = np.maximum(u, 1e-12)
+    return u ** float(gamma)
 
 
 def train_test_split_indices(

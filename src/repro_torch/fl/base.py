@@ -131,10 +131,6 @@ EVAL_CHUNK = 32
 #: the reference trainers' arguments the port does not take yet, and the
 #: ROADMAP Queue 1 item that brings each
 UNPORTED = {
-    "transition": "item 3 (walk policies)",
-    "walk_policy": "item 3 (walk policies)",
-    "walk_bias": "item 3 (walk policies)",
-    "batched_walk": "item 3 (walk policies)",
     "telemetry": "item 7 (telemetry)",
     "store_capacity": "item 7 (the lazy plane)",
     "prefetch": "item 7 (the lazy plane)",
@@ -205,6 +201,7 @@ class TrainerBase:
         has_dropout = bool(model.keep_probs)
         self._grad_zone = vmap(grad_and_value(loss),
                                in_dims=(0, 0, 0, 0 if has_dropout else None))
+        self._loss_stacked = vmap(loss, in_dims=(0, 0, 0, None))
 
         def eval_row(params, x, y, m):
             logits = functional_call(model, params, (x,))
@@ -241,18 +238,29 @@ class TrainerBase:
 
     def _attach_walking_scenario(self, spec, seed: int, *,
                                  min_degree: int = 5,
-                                 regen_every: int = 10) -> None:
+                                 regen_every: int = 10,
+                                 transition: str = "degree",
+                                 walk_policy: str | None = None,
+                                 walk_bias: float = 1.0,
+                                 label_weights=None) -> None:
         """Shared attach path of the graph-walking trainers (RWSADMM,
         Walkman, fleets): build the full scenario, expose it as the
-        ``dyn_graph`` the schedules step, and reset a degree walker
-        seeded with ``seed + 1`` on its current graph. ``spec=None``
-        is ``static_regen`` from ``min_degree``/``regen_every``, the
-        ``DynamicGraph`` trajectory bit for bit."""
+        ``dyn_graph`` the schedules step, and reset a walker seeded with
+        ``seed + 1`` on its current graph: the ``transition`` chain, or
+        the walk policy ``walk_policy`` (``markov.WALK_POLICIES``) with
+        bias ``walk_bias`` and, for ``label_skew``, ``label_weights``.
+        ``spec=None`` is ``static_regen`` from
+        ``min_degree``/``regen_every``, the ``DynamicGraph`` trajectory
+        bit for bit."""
         self.scenario = build_scenario(spec, self.n_clients, seed=seed,
                                        min_degree=min_degree,
                                        regen_every=regen_every)
         self.dyn_graph = self.scenario
-        self.walker = RandomWalkServer(seed=seed + 1)
+        self.walker = RandomWalkServer(transition=transition, seed=seed + 1,
+                                       policy=walk_policy,
+                                       bias_gamma=float(walk_bias))
+        if label_weights is not None:
+            self.walker.set_label_weights(label_weights)
         self.walker.reset(self.dyn_graph.current())
 
     def select_clients(self, rnd: int, rng: np.random.Generator,
@@ -322,6 +330,13 @@ class TrainerBase:
         params = self.layout.views(x)
         grads, losses = self._grad_zone(params, xb, yb, keep)
         return losses, self.layout.flatten(grads, batch_dims=1)
+
+    def _loss_rows(self, x: torch.Tensor, clients: torch.Tensor,
+                   idx: torch.Tensor) -> torch.Tensor:
+        """Each row's training loss at its params ``x`` ``(m, P)`` on the
+        batch ``idx`` ``(m, B)`` of its client, without dropout."""
+        xb, yb = gather_batch(self.data, clients, idx)
+        return self._loss_stacked(self.layout.views(x), xb, yb, None)
 
     def local_sgd(self, w: torch.Tensor, clients: torch.Tensor, lr: float,
                   idx: torch.Tensor, keep=None) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Fleet-RWSADMM: K mobile servers over one client graph.
 
-Port of ``repro/fl/fleet_trainer.py`` for the dense client plane and
-the degree walk, in any scenario (``scenarios/``). K walkers each carry
+Port of ``repro/fl/fleet_trainer.py`` for the dense client plane, under
+every walk policy (each walker runs the lead walker's chain; a biased
+policy scales each walker's y fold by its visit's importance weight), in
+any scenario (``scenarios/``). K walkers each carry
 their own token y_k and walk the same dynamic graph independently; every
 ``sync_every`` rounds the fleet rendezvouses and the tokens average.
 Client states (x_i, z_i) are shared: a client updates against whichever
@@ -87,12 +89,18 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         self._reset_fleet()
 
     def _reset_fleet(self) -> None:
-        """K walkers on the current graph. Walker k's stream is
+        """K walkers on the current graph, each on the lead walker's
+        chain, policy, bias and label weights. Walker k's stream is
         seed + 1 + 10k: walker 0 replays the single-walker trainer's
         walker (seed + 1) draw for draw."""
-        self.walkers = [RandomWalkServer(seed=self._seed + 1 + 10 * k)
+        lead = self.walker
+        self.walkers = [RandomWalkServer(transition=lead.transition,
+                                         seed=self._seed + 1 + 10 * k,
+                                         policy=lead.policy,
+                                         bias_gamma=lead.bias_gamma)
                         for k in range(self.n_walkers)]
         for w in self.walkers:
+            w.set_label_weights(lead.label_weights)
             w.reset(self.dyn_graph.current())
 
     def attach_scenario(self, spec, seed: int | None = None) -> None:
@@ -112,25 +120,27 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
     # One round of each mode; the eager and scan engines share them.
     # ------------------------------------------------------------------
     def _rr_step(self, state: FleetState, idx, mask, a: torch.Tensor, sync,
-                 key, *, use_fused: bool = False, batch_idx=None, keep=None):
+                 key, iw=None, *, use_fused: bool = False, batch_idx=None,
+                 keep=None):
         """Round-robin round: walker ``a`` (a 0-d int64 device tensor)
-        serves one zone against its own token, then the optional
-        rendezvous."""
+        serves one zone against its own token (its fold scaled by ``iw``
+        under a biased policy), then the optional rendezvous."""
         a = a.reshape(1)
         base = state.base._replace(server=state.base.server._replace(
             y=state.tokens.index_select(0, a)[0]))
-        base, loss = self._round_impl(base, idx, mask, key,
+        base, loss = self._round_impl(base, idx, mask, key, iw,
                                       use_fused=use_fused,
                                       batch_idx=batch_idx, keep=keep)
         tokens = state.tokens.index_copy(0, a, base.server.y.unsqueeze(0))
         return FleetState(base, _rendezvous(tokens, sync)), loss
 
-    def _sim_step(self, state: FleetState, idx, mask, sync, key, *,
-                  use_fused: bool = False, batch_idx=None, keep=None):
+    def _sim_step(self, state: FleetState, idx, mask, sync, key, iw=None,
+                  *, use_fused: bool = False, batch_idx=None, keep=None):
         """Simultaneous wall step: K disjoint zones (idx/mask ``(K, Z)``)
         update against their own walkers' tokens in one pass. Batch
         indices (``(K·Z, B)``) are drawn for the flattened slots from
-        ``split(key, K·Z)`` unless given."""
+        ``split(key, K·Z)`` unless given. ``iw`` ``(K,)`` (a biased
+        policy) rescales each walker's token fold after the update."""
         clients, server = state.base.clients, state.base.server
         hp = self.hp
         k_walkers, zone = idx.shape
@@ -154,6 +164,10 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
                 state.tokens, grads.view(stacked), mask, hp, server.kappa,
                 n_total)
             x_new, z_new = new
+        if iw is not None:
+            # Each walker's Walk-for-Learning correction, post hoc.
+            y_new = state.tokens + iw.reshape(k_walkers, 1) * (
+                y_new - state.tokens)
         # One scatter for all K zones: the planner keeps them disjoint,
         # and padding repeats id 0 with a zero delta.
         m = flat_mask.unsqueeze(-1)
@@ -201,7 +215,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             state, torch.as_tensor(idx, dtype=torch.int64,
                                    device=self.device),
             torch.as_tensor(mask, device=self.device),
-            torch.tensor(k, device=self.device), self._sync_flag(rnd), key)
+            torch.tensor(k, device=self.device), self._sync_flag(rnd), key,
+            self._visit_weight([walker]))
         metrics = {
             "round": rnd, "walker": k, "client": int(i_k),
             "zone": n_active, "n_i": int(n_i),
@@ -227,7 +242,7 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             state, torch.as_tensor(idx, dtype=torch.int64,
                                    device=self.device),
             torch.as_tensor(mask, device=self.device),
-            self._sync_flag(rnd), key)
+            self._sync_flag(rnd), key, self._visit_weight(self.walkers))
         lat_kw, en_kw = self._price_fleet_schedule(
             [graph], positions[None], idx[None], mask[None])
         active = mask.sum(axis=1).astype(int)
@@ -265,7 +280,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             self.dyn_graph, self.walkers, rounds, self.zone_size, rng,
             start_round=start_round, sync_every=self.sync_every,
             mode=self.fleet_mode, price=self._price_schedule,
-            price_fleet=self._price_fleet_schedule)
+            price_fleet=self._price_fleet_schedule,
+            batched_walk=self.batched_walk)
 
     def _window_columns(self, sched: FleetZoneSchedule) -> dict:
         cols = super()._window_columns(sched)
@@ -279,13 +295,14 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         for r in range(ins["idx"].shape[0]):
             idx, mask, sync, key = (ins[k][r] for k in ("idx", "mask",
                                                         "sync", "keys"))
+            iw = ins["iw"][r] if "iw" in ins else None
             if "walker" in ins:
                 state, loss = self._rr_step(state, idx, mask,
-                                            ins["walker"][r], sync, key,
+                                            ins["walker"][r], sync, key, iw,
                                             use_fused=use_fused)
             else:
                 state, loss = self._sim_step(state, idx, mask, sync, key,
-                                             use_fused=use_fused)
+                                             iw, use_fused=use_fused)
             losses.append(loss)
             kappas.append(state.base.server.kappa)
         return state, torch.stack(losses), torch.stack(kappas)

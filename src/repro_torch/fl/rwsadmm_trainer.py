@@ -1,9 +1,10 @@
 """RWSADMM federated trainer (paper Algorithm 1 + Eq. 31 multi-client zone).
 
-Port of ``repro/fl/rwsadmm_trainer.py`` for the dense client plane and
-the degree walk, in any scenario (``scenarios/``; ``scenario=None`` is
-``static_regen``, the ``core.graph.DynamicGraph`` trajectory). Host side
-per round k:
+Port of ``repro/fl/rwsadmm_trainer.py`` for the dense client plane, under
+every walk policy (``core/markov.py``: the degree and Metropolis chains,
+and the importance-biased ``staleness`` and ``label_skew`` walks), in any
+scenario (``scenarios/``; ``scenario=None`` is ``static_regen``, the
+``core.graph.DynamicGraph`` trajectory). Host side per round k:
 
   1. advance the environment (mobility, link dropouts, churn),
   2. the mobile server random-walks to client i_k  (Markov chain, Eq. 2),
@@ -12,7 +13,8 @@ per round k:
      ``energy_j``),
   4. one zone round on the device: stochastic gradients at the active
      clients' x'_j, closed-form (or prox-SGD) x/z updates, the masked
-     incremental y update,
+     incremental y update (under a biased policy scaled by the visit's
+     importance weight iw = 1/(n·π_{i_k})),
   5. κ ← 0.99 κ.
 
 Zones are padded to ``zone_size`` with a mask; padded slots fold zero.
@@ -39,12 +41,14 @@ Every draw of a round comes from its threefry key as the reference's
 ``split(key, Z)[j]``. The keys are device tensors, so on a CUDA device
 :meth:`run_chunk` runs a window as one CUDA graph, the counterpart of the
 reference's ``lax.scan`` under ``jit``: captured once per (engine, window
-length, fleet mode) and replayed after that. The graph's state is the
+length, fleet mode, whether the window carries ``iw``) and replayed after
+that. The graph's state is the
 trainer's carry (static x, z, y, κ, round counter, visited and the
 fleet's tokens): a state handed in that is not the carry is copied into
 it first, and the state returned *is* the carry. The window's inputs
-(zones, masks, keys) are static device buffers, each filled from pinned
-host memory with one copy per window. On the CPU the window is a loop.
+(zones, masks, keys and, under a biased policy, the importance weights)
+are static device buffers, each filled from pinned host memory with one
+copy per window. On the CPU the window is a loop.
 """
 from __future__ import annotations
 
@@ -53,12 +57,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import markov, rwsadmm
+from ..core import markov, prng, rwsadmm
 from ..core.markov import ZoneSchedule
 from ..core.rwsadmm import ClientState, RWSADMMHparams, ServerState
+from ..data import partition
 from ..kernels.rwsadmm_update import ops as fused_ops
 from ..kernels.threefry import ops as threefry_ops
-from .base import DeviceData, TrainerBase, reject_unported
+from .base import EVAL_CHUNK, DeviceData, TrainerBase, reject_unported
 
 SCAN_ENGINES = ("scan", "scan_fused")
 ENGINES = ("eager",) + SCAN_ENGINES
@@ -155,6 +160,13 @@ class RWSADMMTrainer(TrainerBase):
         inner_steps: int = 10,
         inner_lr: float = 0.05,
         scenario=None,              # a preset name or ScenarioConfig
+        transition: str = "degree",       # "degree" | "metropolis"
+        walk_policy: str | None = None,   # markov.WALK_POLICIES; None →
+                                          # the unbiased ``transition``
+        walk_bias: float = 1.0,           # staleness exponent / label-
+                                          # skew sharpening γ
+        batched_walk: bool = False,       # inverse-CDF walk in schedule()
+                                          # (another stream than eager's)
         seed: int = 0,
         device=None,
         **unported,
@@ -172,6 +184,14 @@ class RWSADMMTrainer(TrainerBase):
         self._seed = int(seed)
         self._min_degree = int(min_degree)
         self._regen_every = int(regen_every)
+        self._transition = transition
+        self.walk_policy = walk_policy
+        self.walk_bias = float(walk_bias)
+        self.batched_walk = bool(batched_walk)
+        # Biased policies scale the y fold by each round's importance
+        # weight; the uniform ones run the unweighted round unchanged.
+        self._use_iw = walk_policy in markov.BIASED_POLICIES
+        self._label_weights = self._label_skew_weights()
         # The environment: mobility + links + churn behind the
         # DynamicGraph contract, seeded with ``seed`` and the walker with
         # ``seed + 1``. A named or explicit ScenarioConfig is
@@ -189,11 +209,23 @@ class RWSADMMTrainer(TrainerBase):
         ``seed`` (when given) becomes the trainer's seed, so every
         derived stream (scenario layers, walker) reseeds with it."""
         self._seed = self._seed if seed is None else int(seed)
-        self._attach_walking_scenario(spec, self._seed,
-                                      min_degree=self._min_degree,
-                                      regen_every=self._regen_every)
+        self._attach_walking_scenario(
+            spec, self._seed, min_degree=self._min_degree,
+            regen_every=self._regen_every, transition=self._transition,
+            walk_policy=self.walk_policy, walk_bias=self.walk_bias,
+            label_weights=self._label_weights)
         # Per-client service clock for the staleness metrics.
         self._last_served = np.full(self.n_clients, -1, dtype=np.int64)
+
+    def _label_skew_weights(self) -> np.ndarray | None:
+        """Per-client utilities of the ``label_skew`` policy from the
+        device label arrays, copied to the host once (None for the other
+        policies)."""
+        if self.walk_policy != "label_skew":
+            return None
+        hist = partition.padded_label_histograms(
+            self.data.y_train.cpu().numpy(), self.data.n_train.cpu().numpy())
+        return partition.label_skew_weights(hist, gamma=self.walk_bias)
 
     def _price(self, graph, i_k, idx, mask):
         return self.scenario.price_round(graph, int(i_k), idx, mask,
@@ -230,16 +262,17 @@ class RWSADMMTrainer(TrainerBase):
 
     # ------------------------------------------------------------------
     def _round_impl(self, state: RWSADMMState, zone_idx: torch.Tensor,
-                    zone_mask: torch.Tensor, key: torch.Tensor, *,
+                    zone_mask: torch.Tensor, key: torch.Tensor, iw=None, *,
                     use_fused: bool = False, batch_idx=None, keep=None):
         """One zone round on the device. ``zone_idx`` ``(Z,)`` int64,
         ``zone_mask`` ``(Z,)`` fp32 and the round's key ``(2,)`` int64
         device tensors; the batches and masks come from ``key`` unless
         ``batch_idx`` (``(Z, B)``, or ``(inner_steps, Z, B)`` for
         prox-SGD) is given, with ``keep`` (the CNN's dropout masks, or
-        None). Updates ``state``'s client buffers in place; returns the
-        new state and the zone's mean training loss as a 0-d device
-        tensor."""
+        None). ``iw`` (a 0-d fp32 device tensor, biased policies only)
+        scales the zone's y fold. Updates ``state``'s client buffers in
+        place; returns the new state and the zone's mean training loss
+        as a 0-d device tensor."""
         clients, server = state.clients, state.server
         hp, kappa, y = self.hp, server.kappa, server.y
         act = ClientState(x=clients.x[zone_idx], z=clients.z[zone_idx])
@@ -276,8 +309,16 @@ class RWSADMMTrainer(TrainerBase):
             c_new = rwsadmm.contribution(x_new, z_new, y, hp)
 
         if not use_fused:
-            # Masked incremental y-update: y += (1/n) Σ_active (c⁺ − c).
-            y_new = y + torch.sum(m * (c_new - c_old), dim=0) / n_total
+            # Masked incremental y-update: y += (1/n) Σ_active (c⁺ − c),
+            # under a biased policy scaled by the visit's importance
+            # weight so the estimator stays unbiased (docs/walks.md).
+            delta = torch.sum(m * (c_new - c_old), dim=0) / n_total
+            y_new = y + (delta if iw is None else iw * delta)
+        elif iw is not None:
+            # The kernel folded the unweighted delta; rescale it after,
+            # in the reference's form (scaling inside the kernel would
+            # round differently).
+            y_new = y + iw * (y_new - y)
 
         # Scatter the active deltas back in place (zone ids are unique;
         # padded slots add m·Δ = ±0.0 to client 0's row, as the reference).
@@ -307,7 +348,8 @@ class RWSADMMTrainer(TrainerBase):
         state, zone_loss = self._round_impl(
             state, torch.as_tensor(idx, dtype=torch.int64,
                                    device=self.device),
-            torch.as_tensor(mask, device=self.device), key)
+            torch.as_tensor(mask, device=self.device), key,
+            self._visit_weight([self.walker]))
         metrics = {
             "round": rnd,
             "client": int(i_k),
@@ -322,15 +364,27 @@ class RWSADMMTrainer(TrainerBase):
         }
         return state, metrics
 
+    def _visit_weight(self, walkers):
+        """Eager rounds' importance weights: each walker's latest visit's
+        (the float the schedule's ``iw`` column carries), rounded to fp32
+        on the device, 0-d for one walker; None for an unbiased policy."""
+        if not self._use_iw:
+            return None
+        w = torch.tensor([wk.weight_history[-1] for wk in walkers],
+                         dtype=torch.float32, device=self.device)
+        return w[0] if len(walkers) == 1 else w
+
     # ------------------------------------------------------------------
     def schedule(self, rounds: int, rng: np.random.Generator,
                  *, start_round: int = 0) -> ZoneSchedule:
         """Precompute the next ``rounds`` zone rounds, consuming the
-        graph/walker/sim RNGs exactly as the eager engine would."""
+        graph/walker/sim RNGs exactly as the eager engine would (unless
+        ``batched_walk``)."""
         return markov.zone_schedule(self.dyn_graph, self.walker, rounds,
                                     self.zone_size, rng,
                                     start_round=start_round,
-                                    price=self._price_schedule)
+                                    price=self._price_schedule,
+                                    batched_walk=self.batched_walk)
 
     def _engine_use_fused(self, engine: str) -> bool:
         if engine not in SCAN_ENGINES:
@@ -358,15 +412,19 @@ class RWSADMMTrainer(TrainerBase):
             state, losses, kappas = self._window(state, ins, use_fused)
         else:
             state, losses, kappas = self._replay(
-                state, cols, (engine, sched.rounds, getattr(sched, "mode",
-                                                            None)),
+                state, cols, (engine, sched.rounds,
+                              getattr(sched, "mode", None), "iw" in cols),
                 use_fused)
         return state, {"train_loss": losses, "kappa": kappas}
 
     def _window_columns(self, sched: ZoneSchedule) -> dict:
-        """A window's per-round device inputs, as host arrays."""
-        return {"idx": sched.idx.astype(np.int64), "mask": sched.mask,
+        """A window's per-round device inputs, as host arrays: under a
+        biased policy the importance weights too, rounded to fp32."""
+        cols = {"idx": sched.idx.astype(np.int64), "mask": sched.mask,
                 "keys": sched.keys}
+        if self._use_iw:
+            cols["iw"] = sched.iw.astype(np.float32)
+        return cols
 
     def _window(self, state, ins: dict, use_fused: bool):
         """The window's rounds in order: ``(state, losses (R,), κ (R,))``."""
@@ -374,6 +432,8 @@ class RWSADMMTrainer(TrainerBase):
         for r in range(ins["idx"].shape[0]):
             state, loss = self._round_impl(state, ins["idx"][r],
                                            ins["mask"][r], ins["keys"][r],
+                                           ins["iw"][r] if "iw" in ins
+                                           else None,
                                            use_fused=use_fused)
             losses.append(loss)
             kappas.append(state.server.kappa)
@@ -475,3 +535,24 @@ class RWSADMMTrainer(TrainerBase):
         # y is broadcast once into the zone; each active client uploads
         # its contribution delta — O(1) in n, the paper's claim.
         return int((1 + participants) * self.params_bytes())
+
+    # -- diagnostics -----------------------------------------------------
+    @torch.no_grad()
+    def lyapunov(self, state: RWSADMMState, key: torch.Tensor) -> dict:
+        """L_β (Eq. 8) and the constraint residual (Eq. 7) over all n
+        clients, each client's training loss taken at its x on the batch
+        ``randint(key, (B,), 0, n_i)`` without dropout (the reference's
+        key, shared by every client). A dense-plane diagnostic."""
+        clients = torch.arange(self.n_clients, device=self.device)
+        idx, _ = prng.draws(key.expand(self.n_clients, 2),
+                            batch=self.batch_size, spans=self.data.n_train,
+                            clients=clients)
+        losses = torch.cat([
+            self._loss_rows(state.clients.x[rows], clients[rows], idx[rows])
+            for rows in (slice(c, c + EVAL_CHUNK)
+                         for c in range(0, self.n_clients, EVAL_CHUNK))])
+        l_beta = rwsadmm.augmented_lagrangian(state.server.y, state.clients,
+                                              losses, self.hp)
+        viol = rwsadmm.constraint_violation(state.server.y, state.clients.x,
+                                            self.hp)
+        return {"L_beta": float(l_beta), "violation": float(viol)}

@@ -67,7 +67,8 @@ def test_degree_chain_rows_equal():
     p = degree_transition_matrix(graph)
     assert np.array_equal(p, r_degree_matrix(graph))
     for i in range(graph.n):
-        assert np.array_equal(RandomWalkServer.transition_row(graph, i), p[i])
+        assert np.array_equal(RandomWalkServer().transition_row(graph, i),
+                              p[i])
 
 
 def _trainers(seed, n_clients=12, zone=4):

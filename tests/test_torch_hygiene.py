@@ -1,7 +1,7 @@
 """The port stands alone: no JAX and nothing of ``repro`` in its import
 graph, and its entry points default to the GPU instead of quietly running
-on the CPU. The Table 1 and quickstart twins run end to end on the CPU at
-a few rounds."""
+on the CPU. The Table 1, quickstart and paper-script twins run end to end
+on the CPU at a few rounds."""
 import ast
 import importlib.util
 import math
@@ -30,9 +30,15 @@ SCENARIO_TWINS = [ROOT / "benchmarks" / "scenario_sweep_torch.py",
                   ROOT / "benchmarks" / "comm_cost_torch.py",
                   ROOT / "benchmarks" / "scan_scaling_torch.py",
                   ROOT / "examples" / "mobile_server_sim_torch.py"]
+#: the paper's other result scripts (Fig. 2, Table 2, Fig. 3/4, mixing,
+#: ablations, the personalization comparison)
+PAPER_TWINS = {name: ROOT / sub / f"{name}_torch.py" for sub, name in (
+    ("benchmarks", "convergence"), ("benchmarks", "table2_scaling"),
+    ("benchmarks", "hyperparam"), ("benchmarks", "mixing"),
+    ("benchmarks", "ablations"), ("examples", "personalization_comparison"))}
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py",
-    *TWINS.values(), *SCENARIO_TWINS]
+    *TWINS.values(), *SCENARIO_TWINS, *PAPER_TWINS.values()]
 
 
 def _forbidden(name: str) -> bool:
@@ -70,6 +76,10 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.scenarios, benchmarks.scenario_sweep_torch\n"
         "import benchmarks.comm_cost_torch, benchmarks.scan_scaling_torch\n"
         "import examples.mobile_server_sim_torch\n"
+        "import benchmarks.convergence_torch, benchmarks.hyperparam_torch\n"
+        "import benchmarks.table2_scaling_torch, benchmarks.mixing_torch\n"
+        "import benchmarks.ablations_torch\n"
+        "import examples.personalization_comparison_torch\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -111,7 +121,9 @@ def test_twin_runs_on_cpu(twin, tmp_path, capsys):
     results, and the lines the reference's entry point prints."""
     module = _load(TWINS[twin])
     if twin == "quickstart":
-        res, fed_res = module.main(rounds=2, device="cpu")
+        res, fed_res, trainer = module.main(rounds=2, device="cpu")
+        visits = [m["client"] for m in res.round_metrics]
+        assert trainer.walker.history[:len(visits)] == visits
         assert math.isfinite(res.final["loss_personalized"])
         assert math.isfinite(fed_res.final["loss_global"])
         assert "RWSADMM comm/round" in capsys.readouterr().out
@@ -125,3 +137,54 @@ def test_twin_runs_on_cpu(twin, tmp_path, capsys):
     assert all(math.isfinite(r["loss"]) and r["comm_mb"] > 0 for r in rows)
     assert [r["rounds"] for r in rows[:len(algos)]] == [2] * 7 + [8]
     assert (tmp_path / "table1_torch.csv").read_text().count("\n") == 33
+
+
+@pytest.mark.parametrize("twin", sorted(PAPER_TWINS))
+def test_paper_twin_runs_on_cpu(twin, tmp_path, capsys):
+    """Each paper-script twin end to end with ``device="cpu"`` at 2
+    rounds (Walkman's ablation 10; Table 2 at 2 clients for a round
+    each): finite results and the reference's output lines. The walk
+    policy sweep runs at its smoke size (40 rounds, two seeds), where
+    its acceptance assertion is meant to hold."""
+    path = PAPER_TWINS[twin]
+    module = (importlib.import_module(f"benchmarks.{path.stem}")
+              if path.parent.name == "benchmarks" else _load(path))
+    out = str(tmp_path)
+    if twin == "convergence":
+        curves = module.run(rounds=2, out_dir=out, device="cpu")
+        assert sorted(curves) == sorted((m, a) for m in ("mlr", "mlp")
+                                        for a in module.ALGOS)
+        assert all(list(r) == [2] and math.isfinite(a[0])
+                   for r, a in curves.values())
+        assert (tmp_path / "convergence_torch.csv").exists()
+    elif twin == "table2_scaling":
+        rows = module.run(out, "cpu", clients=(2,), rounds_per_client=1)
+        assert rows[0]["rounds"] == 2 and rows[0]["comm_mb"] > 0
+        assert math.isfinite(rows[0]["acc"])
+    elif twin == "hyperparam":
+        rows = module.run(rounds=2, out_dir=out, device="cpu")
+        assert [(r["param"], r["value"]) for r in rows] == \
+            [("beta", b) for b in module.BETAS] + \
+            [("kappa", k) for k in module.KAPPAS]
+    elif twin == "mixing":
+        report = module.mixing_report()
+        assert [r["holds"] for r in report] == [True, False, True, False,
+                                                True]
+        rows = module.policy_sweep(smoke=True, device="cpu",
+                                   out=str(tmp_path / "rows.json"))
+        assert [r["name"] for r in rows] == [
+            f"walk_policy/{p}" for p in ("degree", "metropolis",
+                                         "staleness", "label_skew")]
+        assert all(r["device"] == "cpu" for r in rows)
+        assert "policy_acceptance" in capsys.readouterr().out
+    elif twin == "ablations":
+        res = module.run(rounds=2, device="cpu")
+        assert res["literal_eq11_first_step"] == 0.0
+        assert res["walkman(consensus)"]["rounds"] == 10
+        assert all(math.isfinite(v["acc"]) for k, v in res.items()
+                   if isinstance(v, dict))
+    else:
+        rows = module.main(rounds=2, device="cpu")
+        assert sorted(r[0] for r in rows) == sorted(
+            list(module.BASELINES) + ["RWSADMM"])
+        assert "comm_MB" in capsys.readouterr().out

@@ -12,8 +12,8 @@ orders). The narrow CNN (c1 = 4, c2 = 8) runs in fp32 like the baselines'
 reduced CNN, whose convolution sums agree bit for bit between the
 packages. Then a 10-round eager MLR run of each package from the same
 initial weights, whose per-round losses agree within ``RUN_LOSS_TOL``,
-the refused keywords, and on the card the captured windows and the
-device parity of a seed.
+the refused keywords, the walk keywords' chains, and on the card the
+captured windows and the device parity of a seed.
 """
 import functools
 
@@ -224,6 +224,49 @@ def test_unported_keywords_name_their_item(feds, name, fleet):
         cls(MLR(SHAPE), feds[1], device="cpu", **{name: object()})
     with pytest.raises(TypeError, match="no_such_argument"):
         cls(MLR(SHAPE), feds[1], device="cpu", no_such_argument=1)
+
+
+#: each walk keyword with a value that moves the walker off the default
+WALK_KEYWORDS = {"transition": dict(transition="metropolis"),
+                 "walk_policy": dict(walk_policy="staleness"),
+                 "walk_bias": dict(walk_policy="label_skew", walk_bias=0.5),
+                 "batched_walk": dict(batched_walk=True)}
+
+
+@pytest.mark.parametrize("fleet", [False, True])
+@pytest.mark.parametrize("name", sorted(WALK_KEYWORDS))
+def test_walk_keywords_build_the_reference_chain(feds, name, fleet):
+    """The walk keywords (no longer refused): each trainer built with one
+    runs the reference trainer's chain, walker by walker: transition,
+    policy, bias, label weights and transition matrix on the current
+    graph, then a 6-round schedule's visits and importance weights."""
+    kw = dict(WALK_KEYWORDS[name], zone_size=ZONE, batch_size=BATCH, seed=0,
+              solver="closed_form")
+    if fleet:
+        kw.update(n_walkers=3, fleet_mode="simultaneous")
+    r_cls, cls = (RFleet, FleetRWSADMMTrainer) if fleet else (RTrainer,
+                                                             RWSADMMTrainer)
+    ref = r_cls(RS.make_mlr(SHAPE), feds[0], RHP(**HP), **kw)
+    port = cls(MLR(SHAPE), feds[1], RWSADMMHparams(**HP), device="cpu", **kw)
+    pairs = (list(zip(ref.walkers, port.walkers)) if fleet
+             else [(ref.walker, port.walker)])
+    graph = (port.dyn_graph.current(), ref.dyn_graph.current())
+    for w_r, w_t in pairs:
+        assert (w_t.transition, w_t.policy, w_t.bias_gamma) == \
+            (w_r.transition, w_r.policy, w_r.bias_gamma)
+        assert (w_t.label_weights is None) == (w_r.label_weights is None)
+        if w_t.label_weights is not None:
+            assert np.array_equal(w_t.label_weights, w_r.label_weights)
+        assert np.array_equal(w_t.matrix(graph[0]), w_r.matrix(graph[1]))
+    assert port.batched_walk == ref.batched_walk
+    r_sched = ref.schedule(6, np.random.default_rng(1))
+    sched = port.schedule(6, np.random.default_rng(1))
+    assert np.array_equal(sched.clients, r_sched.clients)
+    assert (sched.iw is None) == (r_sched.iw is None)
+    if sched.iw is not None:
+        assert np.array_equal(sched.iw, r_sched.iw)
+    for w_r, w_t in pairs:
+        assert w_t.weight_history == w_r.weight_history
 
 
 # ----------------------------------------------------------------- card --
