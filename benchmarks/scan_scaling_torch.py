@@ -32,8 +32,31 @@ are host time and host memory (stamped ``device: cpu``, the host's
 
     PYTHONPATH=src python -m benchmarks.scan_scaling_torch --control-plane
 
-The ``--lazy`` section waits for the port's lazy plane (ROADMAP Queue 1
-item 7).
+``--lazy`` runs instead full training rounds at n up to 10⁶ on the lazy
+client plane (the twin of the reference's ``lazy_plane``, with its
+config): the bounded LRU store (``store_capacity`` 1024) holding client
+rows on the card, dataset rows drawn on demand from the per-client-seeded
+Synthetic(α, β) factory (``min_samples`` 20, ``mean_samples`` 2.0, MLR on
+60 features), a Gauss-Markov scenario with link dropouts on the sparse
+backend (``neighbor_k_max`` 32, ``rollout_chunk`` 8, radio range for an
+expected degree of 12), ``closed_form``, β = 10, κ = 0.001, ε = 1e-5,
+zone 8, batch 20, the ``scan`` engine. Each n runs a warm-up window (the
+capture) and two timed windows of ``--lazy-rounds`` rounds each
+(``--lazy-capacity`` resident slots), pipelined as
+``run_simulation`` drives them (schedule, ensure, replay; with
+``--prefetch`` the next window is scheduled and its rows staged behind
+this one). Rows ``scan_scaling/lazy_plane/n{N}/scan[_prefetch]`` carry µs a
+round, peak RSS (MB) and peak device memory (MB), the store's residency
+and counters, stamped as the others:
+
+    PYTHONPATH=src python -m benchmarks.scan_scaling_torch --lazy \
+        --lazy-clients 100000 1000000 --lazy-rounds 4
+
+``--lazy-check`` (what ``chip_smoke.py`` runs at n = 100,000): two windows
+of 8 rounds of ``scan_fused`` with prefetch off and on, which must agree
+bit for bit, and one of ``scan``; every window's host columns held by
+``==`` against a CPU trainer's ``schedule()``; prints one JSON line with
+the timings, peak device memory and peak RSS.
 """
 from __future__ import annotations
 
@@ -50,6 +73,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import markov
 from repro_torch.core.rwsadmm import RWSADMMHparams
+from repro_torch.data import synthetic_lr_factory
 from repro_torch.fl.rwsadmm_trainer import ENGINES, RWSADMMTrainer
 from repro_torch.models.small import get_model
 from repro_torch.scenarios import LinkConfig, MobilityConfig, Scenario, \
@@ -188,6 +212,15 @@ def peak_rss_mb() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
 
 
+def rss_mb() -> float:
+    """The process's resident set now, in MB (VmRSS)."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024.0
+    return float("nan")
+
+
 def control_plane_rate(n: int, rounds: int = 64, *,
                        target_degree: float = 12.0, k_max: int = 32,
                        zone_size: int = 8, rollout_chunk: int = 32,
@@ -238,6 +271,190 @@ def control_plane(clients=(2000, 10000, 50000), rounds: int = 64,
     return results
 
 
+#: the reference's lazy-plane workload (``benchmarks/scan_scaling.py``)
+LAZY = dict(capacity=1024, min_samples=20, mean_samples=2.0, k_max=32,
+            rollout_chunk=8, target_degree=12.0)
+#: the host columns a lazy window must share with the CPU's schedule()
+HOST_COLUMNS = ("client", "zone", "n_i", "latency_s", "energy_j",
+                "staleness_p50", "staleness_max", "comm_bytes")
+
+
+def lazy_trainer(n: int, device, *, capacity: int = LAZY["capacity"],
+                 prefetch: bool = False, seed: int = 0) -> RWSADMMTrainer:
+    """The lazy-plane cell: ``n`` clients of per-client-seeded
+    Synthetic(α, β) behind a ``capacity``-slot store, Gauss-Markov
+    mobility with link dropouts on the sparse backend."""
+    factory = synthetic_lr_factory(n_clients=n, seed=seed,
+                                   min_samples=LAZY["min_samples"],
+                                   mean_samples=LAZY["mean_samples"])
+    radio = float(np.sqrt(LAZY["target_degree"] / (np.pi * n)))
+    cfg = ScenarioConfig(
+        name="bench_lazy_gm_sparse",
+        mobility=MobilityConfig(model="gauss_markov", radio_range=radio),
+        links=LinkConfig(enabled=True, dropout=True),
+        graph_backend="sparse", neighbor_k_max=LAZY["k_max"],
+        rollout_chunk=LAZY["rollout_chunk"])
+    return RWSADMMTrainer(get_model("mlr", (60,)), factory,
+                          RWSADMMHparams(**HP), zone_size=8, batch_size=20,
+                          solver="closed_form", scenario=cfg, seed=seed,
+                          store_capacity=capacity, prefetch=prefetch,
+                          device=device)
+
+
+def lazy_windows(trainer, windows: int, rounds: int, engine: str,
+                 seed: int = 0) -> dict:
+    """``windows`` windows of ``rounds`` rounds from a fresh state, as
+    ``run_simulation``'s scan driver runs them (with the store's prefetch
+    on, the next window is scheduled and staged behind this one), each
+    ending in a device sync. Returns each window's host seconds (its
+    ``schedule()``, wherever it ran, plus its ``run_chunk`` to the sync),
+    the round metrics (``chunk_round_metrics``) and the final state."""
+    device = trainer.device
+    state = trainer.init_state(seed)
+    rng = np.random.default_rng(seed)
+    prefetch = trainer.store.prefetch_enabled
+    plan_s = [0.0] * windows
+    seconds, entries, sched = [], [], None
+
+    def plan(w):
+        t0 = time.perf_counter()
+        out = trainer.schedule(rounds, rng, start_round=w * rounds)
+        plan_s[w] = time.perf_counter() - t0
+        return out
+    for w in range(windows):
+        if sched is None:
+            sched = plan(w)
+        t0 = time.perf_counter()
+        state, stacked = trainer.run_chunk(state, sched, engine=engine)
+        nxt, ahead = None, 0.0
+        if prefetch and w + 1 < windows:   # behind this window's work
+            t1 = time.perf_counter()
+            nxt = plan(w + 1)
+            trainer.prefetch_chunk(nxt)
+            ahead = time.perf_counter() - t1
+        losses = stacked["train_loss"].cpu()
+        sync(device)
+        seconds.append(plan_s[w] + time.perf_counter() - t0 - ahead)
+        entries += trainer.chunk_round_metrics(
+            sched, {"train_loss": losses, "kappa": stacked["kappa"]},
+            w * rounds)
+        sched = nxt
+    return {"seconds": seconds, "entries": entries, "state": state}
+
+
+def _peak_device_mb(device) -> float | None:
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(device) / 2**20
+
+
+def _reset_peaks(device) -> None:
+    reset_peak_rss()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def lazy_plane(clients=(100_000, 1_000_000), rounds: int = 32,
+               capacity: int = LAZY["capacity"], prefetch: bool = False,
+               device=None, out: str = OUT) -> dict:
+    """The lazy-plane rows of the ``scan`` engine: {n: seconds a round}
+    over two timed windows after the warm-up window."""
+    device = resolve_device(device)
+    info = stamp(device)
+    results, rows, engine = {}, [], "scan"
+    for n in clients:
+        _reset_peaks(device)
+        t0 = time.perf_counter()
+        trainer = lazy_trainer(n, device, capacity=capacity,
+                               prefetch=prefetch)
+        setup_s = time.perf_counter() - t0
+        setup_rss = rss_mb()
+        run = lazy_windows(trainer, 3, rounds, engine)
+        sec = sum(run["seconds"][1:]) / (2 * rounds)
+        c = trainer.store.counters
+        rss, dev_mb = peak_rss_mb(), _peak_device_mb(device)
+        tag = engine + ("_prefetch" if prefetch else "")
+        name = f"scan_scaling/lazy_plane/n{n}/{tag}"
+        emit(name, sec * 1e6,
+             f"rounds_per_s={1.0 / sec:.3f} peak_rss_mb={rss:.0f} "
+             f"peak_device_mb={dev_mb} "
+             f"resident={trainer.store.n_resident}/{capacity} "
+             f"miss={c['misses']} evict={c['evictions']} "
+             f"restore={c['restores']}")
+        rows.append({"name": name, "n": n, "K": 1, "engine": engine,
+                     "rounds": 3 * rounds, "timed_rounds": 2 * rounds,
+                     "us_per_round": sec * 1e6,
+                     "warmup_window_s": run["seconds"][0],
+                     "setup_s": setup_s, "capacity": capacity,
+                     "peak_rss_mb": rss, "setup_rss_mb": setup_rss,
+                     "peak_device_mb": dev_mb,
+                     "resident": trainer.store.n_resident,
+                     **{f"store_{k}": v for k, v in c.items()},
+                     "host_cpu": host_cpu(), **info})
+        results[n] = sec
+        del trainer, run
+    write_rows(rows, out)
+    return results
+
+
+def lazy_check(n: int = 100_000, rounds: int = 8, windows: int = 2,
+               device=None) -> dict:
+    """The smoke's lazy-plane cell: ``scan_fused`` with prefetch off and
+    on (bit for bit equal, state and metrics), ``scan``, and every
+    window's host columns against a CPU trainer's ``schedule()``. Raises on a
+    mismatch; returns the timings and memory peaks."""
+    device = resolve_device(device)
+    out = {"n": n, "rounds": rounds, "windows": windows, **stamp(device)}
+    runs = {}
+    for label, engine, prefetch, count in (
+            ("scan_fused", "scan_fused", False, windows),
+            ("scan_fused_prefetch", "scan_fused", True, windows),
+            ("scan", "scan", False, 1)):
+        _reset_peaks(device)
+        trainer = lazy_trainer(n, device, prefetch=prefetch)
+        runs[label] = run = lazy_windows(trainer, count, rounds, engine)
+        steady = run["seconds"][1:] or run["seconds"]
+        out[label] = {
+            "window_s": run["seconds"],
+            "us_per_round": sum(steady) / (len(steady) * rounds) * 1e6,
+            "peak_device_mb": _peak_device_mb(device),
+            "peak_rss_mb": peak_rss_mb(), "rss_mb": rss_mb(),
+            "counters": dict(trainer.store.counters),
+            "resident": trainer.store.n_resident,
+            "captured": {str(k): w.captured
+                         for k, w in trainer.windows.items()}}
+    off, on = runs["scan_fused"], runs["scan_fused_prefetch"]
+    state_equal = all(torch.equal(a, b) for a, b in zip(
+        (off["state"].clients.x, off["state"].clients.z,
+         off["state"].server.y, off["state"].visited),
+        (on["state"].clients.x, on["state"].clients.z,
+         on["state"].server.y, on["state"].visited)))
+    # Every window's host columns from a CPU trainer's schedule().
+    cpu = lazy_trainer(n, torch.device("cpu"))
+    rng, zeros, planned = np.random.default_rng(0), torch.zeros(rounds), []
+    for w in range(windows):
+        planned += cpu.chunk_round_metrics(
+            cpu.schedule(rounds, rng, start_round=w * rounds),
+            {"train_loss": zeros, "kappa": zeros}, w * rounds)
+
+    def host(entries):
+        return [{k: e[k] for k in HOST_COLUMNS} for e in entries]
+    out["checks"] = {
+        "prefetch on equals off": off["entries"] == on["entries"]
+        and state_equal,
+        "host columns equal the CPU schedule's":
+            host(off["entries"]) == host(planned)
+            and host(runs["scan"]["entries"]) == host(planned)[:rounds],
+        "prefetch staged rows":
+            out["scan_fused_prefetch"]["counters"]["prefetch_hits"] > 0,
+        "losses finite": all(np.isfinite(e["train_loss"])
+                             for r in runs.values() for e in r["entries"]),
+    }
+    if not all(out["checks"].values()):
+        raise AssertionError(f"lazy check at n = {n}: {out['checks']}")
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--rounds", type=int, default=200,
@@ -253,10 +470,31 @@ def main() -> None:
                     help="control-plane client counts")
     ap.add_argument("--cp-rounds", type=int, default=64,
                     help="control-plane rollout window")
+    ap.add_argument("--lazy", action="store_true",
+                    help="run only the lazy client-plane training rows")
+    ap.add_argument("--lazy-clients", type=int, nargs="+",
+                    default=[100_000, 1_000_000],
+                    help="lazy-plane client counts")
+    ap.add_argument("--lazy-rounds", type=int, default=32,
+                    help="rounds per lazy-plane window")
+    ap.add_argument("--lazy-capacity", type=int, default=LAZY["capacity"],
+                    help="lazy plane: the store's resident slots")
+    ap.add_argument("--prefetch", action="store_true",
+                    help="lazy plane: stage each next window's rows")
+    ap.add_argument("--lazy-check", action="store_true",
+                    help="the smoke's lazy cell: checks, one JSON line")
     args = ap.parse_args()
+    if args.lazy_check:
+        print(json.dumps(lazy_check(args.lazy_clients[0], args.lazy_rounds,
+                                    device=args.device)), flush=True)
+        return
     print("name,us_per_call,derived")
     if args.control_plane:
         control_plane(tuple(args.cp_clients), args.cp_rounds, args.out)
+        return
+    if args.lazy:
+        lazy_plane(tuple(args.lazy_clients), args.lazy_rounds,
+                   args.lazy_capacity, args.prefetch, args.device, args.out)
         return
     run(args.rounds, tuple(args.clients), args.device, args.out)
 

@@ -36,13 +36,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    kernel and ``threefry_draws`` ran once per round, and no other
    threefry entry; steady ms per
    engine with each window's replays, the kernels it launches and the
-   device's busy share; then ``eager`` from the same seed and weights
-   must agree with ``scan_fused``.
+   device's busy share; then ``eager`` and the fused rounds in lockstep
+   from the same seed and weights (``compare_lockstep``: each round from
+   the eager state through the kernel at ``KERNEL_TOL``, ``scan_fused``
+   bit for bit against the fused rounds, the end states' gap printed).
 5. fleet path — the same model and data under a K = 3 walker fleet in
    simultaneous mode (``sync_every=10``): 50 wall steps of ``scan_fused``
    with one multi-zone launch each, steady times per engine, a profile,
-   eager vs ``scan_fused``; then a round-robin fleet whose 12 rounds each
-   launch the zone kernel.
+   eager and the fused rounds in lockstep; then a round-robin fleet whose
+   12 rounds each launch the zone kernel.
 5a. scenarios — the paper's infrastructure-less field on the same model
    and data: the single walker under ``field_trial`` (Gauss-Markov
    mobility, lossy links, churn with 20 % stragglers) for 50 rounds of
@@ -52,8 +54,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``threefry_draws`` launch a round and no other threefry entry; its
    host columns (client, zone, ``n_i``, ``latency_s``, ``energy_j``,
    staleness, ``comm_bytes``) equal by ``==`` across ``scan_fused``, an
-   eager run and the same trainer's ``schedule()`` on the CPU; eager's
-   state against ``scan_fused`` at ``EAGER_ATOL``; the captured windows
+   eager run and the same trainer's ``schedule()`` on the CPU; eager and
+   the fused rounds in lockstep; the captured windows
    bit for bit against eager (``scan``) and uncaptured rounds
    (``scan_fused``), cuDNN deterministic; steady ms per round beside the
    ``static_regen`` phases of the same call, ``schedule()``'s host ms a
@@ -80,6 +82,25 @@ Phases (each prints its own lines; any failure exits non-zero):
    fold's; steady ms, busy share and kernels a round beside the
    ``static_regen`` paths of this call, ``schedule()``'s host ms a
    window.
+5c. lazy plane — the bounded LRU client store (``LAZY``), cuDNN
+   deterministic: the cnn-cifar-n100 single walker on
+   ``factory_from_federated`` at capacity 40 (80 rounds of ``scan_fused``
+   in windows of 4) and the K = 3 simultaneous fleet at capacity 50 (30
+   wall steps in windows of 2), each against its dense run: launches
+   exact per round, host columns and losses ``==``, y (tokens) and every
+   visited client's x/z bit for bit, store counters (evictions and
+   restores > 0) equal to a CPU store over the same ids; steady ms a
+   round beside dense, ``ensure()``'s host ms, bytes evicted and
+   restored. FedAvg on the store (round metrics ``==`` dense).
+   ``benchmarks/scan_scaling_torch.py --lazy-check`` at n = 100,000 in
+   its own process (``scan_fused`` prefetch off ≡ on bit for bit,
+   ``scan``, host columns ``==`` the CPU's ``schedule()``; µs a round,
+   peak device memory and RSS). DP uploads: captured ``scan`` ≡ eager
+   bit for bit, one MLR round card vs CPU at 1e-6, ``scan_fused``
+   refuses. Telemetry on the store cell ≡ off bit for bit (captures and
+   replays equal), the report rendered, the overhead twin at n = 2000
+   within 5 % (its direct figure: the trace's own cost). A checkpoint
+   with spilled rows restored into a fresh trainer continues bit for bit.
 6. single-client op — one client's update through ``ops.fused_update``
    at the CNN's width, launched once.
 6a. captured windows — on the same CNN, with cuDNN deterministic: the
@@ -110,9 +131,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    per round, peak memory and a profiled round's busy share.
 7a. paper scripts — ``benchmarks/{convergence,table2_scaling,hyperparam,
    mixing,ablations}_torch.py`` and ``examples/
-   personalization_comparison_torch.py`` at the reference's sizes
-   (``PAPER``), then ``examples/quickstart_torch.py`` for its full 300
-   rounds. Gated: the policy sweep's hitting times and staleness equal
+   personalization_comparison_torch.py`` at the reference's sizes and
+   fewer rounds (``PAPER``), then ``examples/quickstart_torch.py`` for
+   its full 300 rounds. Gated: the policy sweep's hitting times and
+   staleness equal
    a CPU run of the same twin, Table 2's ``comm_mb`` the CPU
    ``schedule()`` of the same trainers, the literal Eq. 11's first step
    0.0, the quickstart's hitting time and MB a round the reference's
@@ -127,15 +149,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    profiled prefill and decode step, and the same generation and check in
    fp32, where the bound is tight enough to fail a fault in the ring.
 
-Ends with a ``{"kernels": [...]}`` line, the paths' summaries, the
-``nvidia-smi`` line and, last, ``{"ok": true, "device": {...}}``. Imports
-nothing of JAX or ``repro``.
+Ends with a ``{"kernels": [...]}`` line, the paths' summaries, each
+phase's seconds, the ``nvidia-smi`` line and, last, ``{"ok": true,
+"device": {...}}``. Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -161,9 +185,11 @@ MAIN = dict(n_samples=12_000, n_clients=100, zone=8, batch=20, rounds=50,
 FLEET = dict(n_walkers=3, sync_every=10, wall_steps=50, eager_steps=5,
              rr_rounds=12)
 # Eager vs scan_fused after a few rounds: the plain and kernel updates
-# agree to the last bit or so per round, and those ulps feed the next
-# rounds' gradients (cuDNN's backward is not bitwise reproducible), so
-# the states are compared at 1e-4 absolute, not bit for bit.
+# agree to the last bit or so per round, and on the CNN those ulps move
+# the next rounds' gradients at ReLU and max-pool near-ties, so the end
+# states part by ~1e-4–1e-3 (7.07e-4 single walker, 7.15e-4 fleet, cuDNN
+# deterministic). They are printed beside this scale, never gated:
+# compare_lockstep holds each round instead.
 EAGER_ATOL = 1e-4
 # Kernel vs plain version: x⁺, z⁺ at 1e-6 (same operations, same order,
 # both rounding after every operation). y⁺ also at 1e-6 away from sign
@@ -879,13 +905,14 @@ def window_launches(trainer) -> dict:
     return out
 
 
-def drive(trainer, rounds: int, seed: int, update: str, label: str):
-    """One ``run_simulation`` of ``scan_fused`` on a fresh trainer, with
-    every launch count set to 0 just before and read just after. The
-    wrappers' counts must be the windows' warm-up rounds and captures,
-    and what the replays ran must be one ``update`` launch and one
-    ``threefry_draws`` launch per round (warm-up rounds included), and no
-    other kernel's."""
+def drive(trainer, rounds: int, seed: int, update: str, label: str,
+          window: int | None = None, telemetry=None):
+    """One ``run_simulation`` of ``scan_fused`` on a fresh trainer, in
+    windows of ``window`` rounds (one window without), with every launch
+    count set to 0 just before and read just after. The wrappers' counts
+    must be the windows' warm-up rounds and captures, and what the
+    replays ran must be one ``update`` launch and one ``threefry_draws``
+    launch per round (warm-up rounds included), and no other kernel's."""
     import torch
 
     from repro_torch.fl.simulation import run_simulation
@@ -893,8 +920,8 @@ def drive(trainer, rounds: int, seed: int, update: str, label: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
-    res = run_simulation(trainer, rounds=rounds, eval_every=rounds,
-                         seed=seed, engine="scan_fused")
+    res = run_simulation(trainer, rounds=rounds, eval_every=window or rounds,
+                         seed=seed, engine="scan_fused", telemetry=telemetry)
     torch.cuda.synchronize()
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -942,15 +969,17 @@ def phase_main_path(device, model, data, hp) -> dict:
         f"{acc:.4f} ± {res.final['acc_personalized_std']:.4f}, acc_global "
         f"{res.final['acc_global']:.4f}")
     steady = time_steady_rounds(trainer, "round")
-    compare_eager(lambda: make_trainer(model, data, hp, device, seed),
-                  MAIN["eager_rounds"],
-                  lambda s: {"x": s.clients.x, "z": s.clients.z,
-                             "y": s.server.y, "kappa": s.server.kappa},
-                  "rounds")
+    lock = compare_lockstep(
+        lambda: make_trainer(model, data, hp, device, seed),
+        MAIN["eager_rounds"],
+        lambda s: {"x": s.clients.x, "z": s.clients.z,
+                   "y": s.server.y, "kappa": s.server.kappa},
+        "rounds", hp, "single walker")
     return {"launches": counts["counts"], "launches_run": counts["ran"],
             "graph_replays": counts["replays"],
             "rounds_per_s": rounds / res.wall_time_s,
-            "peak_gib": peak / 2**30, "acc_personalized": acc, **steady}
+            "peak_gib": peak / 2**30, "acc_personalized": acc,
+            "lockstep": lockstep_summary(lock), **steady}
 
 
 def phase_fleet(device, model, data, hp) -> dict:
@@ -982,12 +1011,12 @@ def phase_fleet(device, model, data, hp) -> dict:
         f"{res.final['acc_global']:.4f}, fleet hitting time "
         f"{fleet.fleet_hitting_time()}")
     steady = time_steady_rounds(fleet, "wall step")
-    compare_eager(lambda: make_fleet(model, data, hp, device, seed),
-                  FLEET["eager_steps"],
-                  lambda s: {"x": s.base.clients.x, "z": s.base.clients.z,
-                             "tokens": s.tokens,
-                             "kappa": s.base.server.kappa},
-                  "wall steps")
+    lock = compare_lockstep(
+        lambda: make_fleet(model, data, hp, device, seed),
+        FLEET["eager_steps"],
+        lambda s: {"x": s.base.clients.x, "z": s.base.clients.z,
+                   "tokens": s.tokens, "kappa": s.base.server.kappa},
+        "wall steps", hp, "fleet simultaneous")
 
     rr = make_fleet(model, data, hp, device, seed, mode="roundrobin")
     rounds = FLEET["rr_rounds"]
@@ -1002,7 +1031,8 @@ def phase_fleet(device, model, data, hp) -> dict:
             "wall_steps_per_s": steps / res.wall_time_s,
             "client_updates_per_s": sum(zones) / res.wall_time_s,
             "peak_gib": peak / 2**30, "acc_personalized": acc,
-            "rr_launches_run": rr_counts["ran"], **steady}
+            "rr_launches_run": rr_counts["ran"],
+            "lockstep": lockstep_summary(lock), **steady}
 
 
 # ---------------------------------------------------------------------------
@@ -1150,8 +1180,9 @@ def phase_scenarios(device, model, data, hp, static: dict) -> dict:
     """The single walker under ``field_trial`` and the K = 3 simultaneous
     fleet under ``lossy_links``, each driven once through
     ``run_simulation`` (launch counts exact per round), its host columns
-    held against eager and the CPU's schedule, eager's state against
-    ``scan_fused`` at ``EAGER_ATOL``, its captured windows bit for bit;
+    held against eager and the CPU's schedule, eager and the fused rounds
+    in lockstep (:func:`compare_lockstep`), its captured windows bit for
+    bit;
     steady times beside the ``static_regen`` runs of this call
     (``static``), ``schedule()``'s host time and the masks' dead-slot
     share; FedAvg under ``duty_cycle``; the scenario sweep's smoke."""
@@ -1189,11 +1220,11 @@ def phase_scenarios(device, model, data, hp, static: dict) -> dict:
         sched = hold_host_columns(res, make, make_cpu, steps, tag)
         static_sched = make_static().schedule(steps,
                                               np.random.default_rng(seed))
-        compare_eager(make, FLEET["eager_steps"] if mode else
-                      MAIN["eager_rounds"],
-                      lambda st: {k: v for k, v in state_leaves(st).items()
-                                  if k not in ("visited",)},
-                      "wall steps" if mode else "rounds")
+        lock = compare_lockstep(
+            make, FLEET["eager_steps"] if mode else MAIN["eager_rounds"],
+            lambda st: {k: v for k, v in state_leaves(st).items()
+                        if k != "visited"},
+            "wall steps" if mode else "rounds", hp, tag)
         steady = time_steady_rounds(trainer, "wall step" if mode else "round")
         sched_ms = {"scenario": schedule_ms(make_cpu, steps),
                     "static_regen": schedule_ms(make_static, steps)}
@@ -1225,7 +1256,7 @@ def phase_scenarios(device, model, data, hp, static: dict) -> dict:
                       "energy_j": res.total_energy_j,
                       "schedule_ms": sched_ms, "dead_share": dead,
                       "static_regen_round_ms": base["scan_fused_round_ms"],
-                      **steady}
+                      "lockstep": lockstep_summary(lock), **steady}
         del trainer
         torch.cuda.empty_cache()
     out["capture"] = check_captures({
@@ -1395,9 +1426,7 @@ def phase_walks(device, model, data, hp, static: dict) -> dict:
                                                 state_leaves(st).items()
                                                 if k != "visited"},
                                     unit + "s", hp, tag)
-            lockstep = {k: lock[k] for k in (
-                "one_round_max", "scan_fused_equals_lockstep",
-                "eager_vs_scan_fused", "cudnn_default_g_nondeterminism")}
+            lockstep = lockstep_summary(lock)
         steady = time_steady_rounds(trainer, unit)
         ops, dispatched = window_ops(trainer)
         ref = make_static(dev=device, dat=data)
@@ -1746,11 +1775,14 @@ def phase_twins(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# The paper's result scripts on the card, at the reference's sizes (a cut
-# is named here and in PERF.md §4), and the full-length quickstart.
-PAPER = dict(convergence_rounds=100, hyperparam_rounds=80,
-             ablation_rounds=80, comparison_rounds=200,
-             table2_clients=(20, 50, 100), table2_rounds_per_client=8,
+# The paper's result scripts on the card, at the reference's sizes, and
+# the full-length quickstart. Rounds cut to keep the smoke near its time
+# (PERF.md §4): convergence 100 → 30, Fig. 3/4 80 → 20, the comparison
+# 200 → 60, Table 2's rounds a client 8 → 2. The quickstart keeps its 300
+# rounds (its hitting time and MB a round are held to the reference's).
+PAPER = dict(convergence_rounds=30, hyperparam_rounds=20,
+             ablation_rounds=80, comparison_rounds=60,
+             table2_clients=(20, 50, 100), table2_rounds_per_client=2,
              quickstart_rounds=300)
 # The reference's quickstart on the CPU (ROADMAP Queue 1 item 9): its
 # hitting time and MB a round (the port's CPU run gives the same), and
@@ -1887,14 +1919,17 @@ GATES = dict(n_samples=1200, n_clients=10, clients_per_round=5, rounds=60,
              walkman_rounds=900, acc={"fedavg": 0.6, "perfedavg": 0.5,
                                       "pfedme": 0.6, "ditto": 0.6,
                                       "apfl": 0.6, "walkman": 0.35})
-# benchmarks/table1.py's grid through its port twin; 120 rounds as there.
+# benchmarks/table1.py's grid through its port twin; 120 rounds as there
+# for the kernel's shapes and the plain hold, the grid itself cut to 60
+# (it took 144 s of the smoke at 120).
 TABLE1_ROUNDS = 120
+TABLE1_GRID_ROUNDS = 60
 #: clients of each Table 1 dataset (``benchmarks/table1_torch.datasets``)
 TABLE1_CLIENTS = {"mnist_like": 10, "synthetic": 20}
 TABLE1_PERSONALIZED = ("perfedavg", "pfedme", "ditto", "apfl", "rwsadmm")
 # The reference's RWSADMM cells at seed 0 on the CPU (benchmarks/table1.py,
 # 120 rounds; ROADMAP Queue 3), beside which the port's card run prints
-# its own: the two packages draw the same batches now.
+# its own at the grid's depth: the two packages draw the same batches.
 TABLE1_REFERENCE = {"mnist_like/mlr": 98.45, "mnist_like/mlp": 96.57,
                     "synthetic/mlr": 79.12, "synthetic/mlp": 75.52}
 # Every baseline on the single walker's CNN configuration (n = 100,
@@ -2054,7 +2089,7 @@ def table1_grid(device) -> dict:
     for algo in table1_torch.ALGOS + ["rwsadmm_cf"]:
         torch.cuda.synchronize()
         zero_launch_counts()
-        got = table1_torch.run(TABLE1_ROUNDS, out_dir, device, [algo])
+        got = table1_torch.run(TABLE1_GRID_ROUNDS, out_dir, device, [algo])
         torch.cuda.synchronize()
         counts = launch_counts()
         launches[algo] = counts
@@ -2098,8 +2133,9 @@ def table1_grid(device) -> dict:
                 "rwsadmm_rank": pers.index(acc["rwsadmm"]) + 1,
                 "of": len(pers),
                 "rwsadmm_minus_fedavg": acc["rwsadmm"] - acc["fedavg"]}
-    log(f"table1 reading at {TABLE1_ROUNDS} rounds (not gated): RWSADMM's "
-        f"accuracy beside the reference's seed-0 CPU cell, its rank among "
+    log(f"table1 reading at {TABLE1_GRID_ROUNDS} rounds (not gated): "
+        f"RWSADMM's accuracy beside the reference's seed-0 CPU cell at "
+        f"{TABLE1_ROUNDS} rounds, its rank among "
         f"the personalized rows and its gap over FedAvg in points: "
         f"{reading}")
     return {"rows": rows, "reading": reading, "launches": launches,
@@ -2358,29 +2394,11 @@ def union_ms(spans) -> float:
     return total
 
 
-def compare_eager(make, steps: int, leaves, unit: str) -> None:
-    """A few eager rounds (plain update) against scan_fused (kernel) from
-    the same seed and weights; ``leaves`` names the state's tensors."""
-    import numpy as np
-    import torch
-
-    seed = MAIN["seed"]
-    eager = make()
-    rng = np.random.default_rng(seed)
-    s_e = eager.init_state(seed)
-    for r in range(steps):
-        s_e, _ = eager.round(s_e, r, rng)
-    fused = make()
-    rng = np.random.default_rng(seed)
-    s_f, _ = fused.run_chunk(fused.init_state(seed),
-                             fused.schedule(steps, rng), "scan_fused")
-    torch.cuda.synchronize()
-    a, b = leaves(s_e), leaves(s_f)
-    diff = {k: float((a[k] - b[k]).abs().max()) for k in a}
-    log(f"eager vs scan_fused after {steps} {unit}: max_abs_diff {diff} "
-        f"(atol {EAGER_ATOL})")
-    if not all(v <= EAGER_ATOL for v in diff.values()):
-        raise AssertionError(f"eager and scan_fused disagree: {diff}")
+def lockstep_summary(lock: dict) -> dict:
+    """The gated and printed numbers of a :func:`compare_lockstep` run."""
+    return {k: lock[k] for k in (
+        "one_round_max", "scan_fused_equals_lockstep",
+        "eager_vs_scan_fused", "cudnn_default_g_nondeterminism")}
 
 
 def clone_state(state):
@@ -2539,6 +2557,546 @@ def compare_lockstep(make, steps: int, leaves, unit: str, hp,
     if not (out["scan_fused_equals_lockstep"]
             and out["one_round_max"] <= KERNEL_TOL):
         raise AssertionError(f"eager and scan_fused disagree: {out}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The lazy client plane: the bounded LRU store on the card (client rows and
+# data by slot), DP uploads, telemetry and checkpoints.
+# The CNN cells on the store: n = 100 at capacity 40 in windows of 4
+# rounds (a window's working set is at most 4·8 + 1 with the padding id);
+# the walk touches 21 clients in 20 rounds and 81 in 80, so 80 rounds
+# evict (61) and restore (20). The fleet: capacity 50, windows of 2 wall
+# steps (at most 2·24 + 1), 30 wall steps (57 evictions, 23 restores).
+# The checkpoint saves after 40 rounds, with rows spilled.
+LAZY = dict(capacity=40, window=4, rounds=80, fleet_capacity=50,
+            fleet_window=2, fleet_steps=30, timed_windows=5,
+            fedavg_rounds=3, fedavg_capacity=12, dp_rounds=8, dp_window=4,
+            ckpt_rounds=40, check_clients=100_000, check_window=8,
+            overhead_clients=2000, overhead_repeats=10, overhead_rounds=32,
+            overhead_pct=5.0)
+
+
+@functools.lru_cache(maxsize=1)
+def main_fed(seed: int):
+    """The main path's federated data on the host (``FederatedData``)."""
+    from repro_torch.data import build_federated, pathological_split
+    from repro_torch.data.synthetic_images import make_cifar_like
+
+    imgs, labels = make_cifar_like(MAIN["n_samples"], seed=seed)
+    parts = pathological_split(labels, MAIN["n_clients"], seed=seed)
+    return build_federated(imgs, labels, parts)
+
+
+def lazy_rows(trainer, state) -> dict:
+    """A lazy run's state in the dense layout, for the clients the walk
+    visited: their x/z rows (from their slots or the spill buffer), with
+    y, κ and ``visited``."""
+    import torch
+
+    store, base = trainer.store, getattr(state, "base", state)
+    ids = base.visited.nonzero().squeeze(1).cpu().numpy()
+    rows = {"x": [], "z": []}
+    for i in ids:
+        s = store.slot_arr[i]
+        for j, k in enumerate(("x", "z")):
+            rows[k].append(getattr(base.clients, k)[s].cpu() if s >= 0
+                           else torch.from_numpy(store._spill[int(i)][j]))
+    out = {k: torch.stack(v) for k, v in rows.items()}
+    out.update(ids=torch.as_tensor(ids), y=base.server.y.cpu(),
+               kappa=base.server.kappa.cpu(), visited=base.visited.cpu())
+    if hasattr(state, "tokens"):
+        out["tokens"] = state.tokens.cpu()
+    return out
+
+
+def dense_rows(state, ids) -> dict:
+    base = getattr(state, "base", state)
+    out = {"x": base.clients.x[ids].cpu(), "z": base.clients.z[ids].cpu(),
+           "ids": ids, "y": base.server.y.cpu(),
+           "kappa": base.server.kappa.cpu(), "visited": base.visited.cpu()}
+    if hasattr(state, "tokens"):
+        out["tokens"] = state.tokens.cpu()
+    return out
+
+
+def replay_store(trainer_cpu, factory, capacity: int, rounds: int,
+                 window: int) -> dict:
+    """The counters of a CPU store of the port driven over the same
+    windows' raw padded ids (the CPU trainer's ``schedule()``)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fl.client_store import ClientStore
+
+    store = ClientStore(factory, capacity, device=torch.device("cpu"))
+    rows = store.reset((torch.zeros(1),))
+    rng = np.random.default_rng(MAIN["seed"])
+    for r in range(0, rounds, window):
+        sched = trainer_cpu.schedule(window, rng, start_round=r)
+        store.ensure(rows, sched.idx.reshape(-1))
+    return dict(store.counters)
+
+
+def timed_windows(trainer, windows: int, window: int, seed: int) -> dict:
+    """Steady ms a round of ``scan_fused`` windows (``ensure`` and the
+    replay, each window ending in a sync; the schedule outside), and on
+    the lazy plane the host ms ``ensure()`` takes a window (its telemetry
+    span)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.telemetry import TelemetryRun, read_events
+
+    rng = np.random.default_rng(seed + 7)
+    state = trainer.init_state(seed)
+    state, _ = trainer.run_chunk(state, trainer.schedule(window, rng),
+                                 "scan_fused")
+    spent = 0.0
+    with tempfile.TemporaryDirectory() as td:
+        with TelemetryRun(os.path.join(td, "run"), seed=seed,
+                          config={"timed_windows": window}) as tel:
+            trainer.set_telemetry(tel)
+            try:
+                for w in range(windows):
+                    sched = trainer.schedule(window, rng,
+                                             start_round=(w + 1) * window)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state, _ = trainer.run_chunk(state, sched, "scan_fused")
+                    torch.cuda.synchronize()
+                    spent += time.perf_counter() - t0
+            finally:
+                trainer.set_telemetry(None)
+        ensure_s = [e["seconds"] for e in read_events(tel.events_path)
+                    if e["t"] == "phase" and e["name"] == "ensure"]
+    out = {"round_ms": spent / (windows * window) * 1e3}
+    if ensure_s:
+        out["ensure_ms_per_window"] = sum(ensure_s) / len(ensure_s) * 1e3
+    return out
+
+
+def lazy_vs_dense(label: str, make, make_cpu, factory, capacity: int,
+                  rounds: int, window: int, update: str, unit: str) -> dict:
+    """One cell on both planes from one seed, cuDNN deterministic:
+    ``scan_fused`` in windows of ``window`` through ``run_simulation``
+    (launch counts exact per round on the lazy run), host columns by
+    ``==``, y (the tokens) and every visited client's x/z rows bit for
+    bit, the store's counters against a CPU store over the same ids;
+    steady ms a round beside dense, ``ensure()``'s host ms and the bytes
+    evicted and restored."""
+    import torch
+
+    seed = MAIN["seed"]
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        lazy, dense = make(factory, capacity), make(None, None)
+        res, counts, peak, losses, _ = drive(lazy, rounds, seed, update,
+                                             f"{label} (lazy)", window)
+        traffic = {"evicted_bytes": lazy.store.evicted_bytes,
+                   "restored_bytes": lazy.store.restored_bytes}
+        got = lazy_rows(lazy, lazy._carry)
+        counters = dict(lazy.store.counters)
+        d_res, _, d_peak, d_losses, _ = drive(dense, rounds, seed, update,
+                                              f"{label} (dense)", window)
+        want = dense_rows(dense._carry, got["ids"].to(dense.device))
+        want["ids"] = want["ids"].cpu()
+        times = {"lazy": timed_windows(lazy, LAZY["timed_windows"], window,
+                                       seed),
+                 "dense": timed_windows(dense, LAZY["timed_windows"],
+                                        window, seed)}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    replay = replay_store(make_cpu(), factory, capacity, rounds, window)
+    equal = {k: bool(torch.equal(got[k], want[k])) for k in got}
+    checks = {
+        "host columns equal": host_columns(res.round_metrics)
+        == host_columns(d_res.round_metrics),
+        "losses equal": losses == d_losses,
+        "state equal": all(equal.values()),
+        "counters equal the CPU store's": counters == replay,
+        "misses, evictions, restores > 0": all(
+            counters[k] > 0 for k in ("misses", "evictions", "restores")),
+    }
+    log(f"lazy {label}: n = {lazy.n_clients}, capacity {capacity}, "
+        f"{rounds} {unit}s of scan_fused in windows of {window}, cuDNN "
+        f"deterministic; wrapper counts {counts['counts']}, launches run "
+        f"{counts['ran']} in {counts['replays']} replay(s); store counters "
+        f"{counters} (a CPU store over the same ids: {replay}); "
+        f"{len(got['ids'])} visited clients' x/z, y, κ, visited equal the "
+        f"dense run bit for bit: {equal}; losses equal {checks['losses equal']}"
+        f"; evicted {traffic['evicted_bytes'] / 1e6:.2f} MB, restored "
+        f"{traffic['restored_bytes'] / 1e6:.2f} MB; steady "
+        f"{times['lazy']['round_ms']:.3f} ms/{unit} lazy (ensure "
+        f"{times['lazy']['ensure_ms_per_window']:.3f} host ms a window of "
+        f"{window}) against {times['dense']['round_ms']:.3f} dense; peak "
+        f"allocated {peak / 2**30:.3f} GiB lazy, {d_peak / 2**30:.3f} dense")
+    if not all(checks.values()):
+        raise AssertionError(f"lazy {label}: {checks}")
+    return {"launches": counts["counts"], "launches_run": counts["ran"],
+            "graph_replays": counts["replays"], "counters": counters,
+            **traffic, "steady": times, "peak_gib": peak / 2**30,
+            "dense_peak_gib": d_peak / 2**30, "checks": checks}
+
+
+def fedavg_lazy(device, model, data, factory) -> dict:
+    """FedAvg on the store (capacity below the cohorts' union): a few CNN
+    rounds equal to the dense run on the host columns by ``==``; the
+    global model's gap printed."""
+    import numpy as np
+    import torch
+
+    cfg = CNN_BASELINES
+    kw = dict(clients_per_round=cfg["clients_per_round"], lr=cfg["lr"])
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        runs = {}
+        for plane, dat, extra in (
+                ("dense", data, {}),
+                ("lazy", factory,
+                 {"store_capacity": LAZY["fedavg_capacity"]})):
+            tr = make_baseline("fedavg", model, dat, device, **kw, **extra)
+            rng = np.random.default_rng(MAIN["seed"])
+            state, metrics = tr.init_state(MAIN["seed"]), []
+            for r in range(LAZY["fedavg_rounds"]):
+                state, m = tr.round(state, r, rng)
+                metrics.append(m)
+            runs[plane] = (tr, state.w.clone(), metrics)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    lazy = runs["lazy"][0]
+    gap = float((runs["lazy"][1] - runs["dense"][1]).abs().max())
+    equal = runs["lazy"][2] == runs["dense"][2]
+    log(f"lazy fedavg: {LAZY['fedavg_rounds']} CNN rounds, cohorts of "
+        f"{kw['clients_per_round']}, capacity {LAZY['fedavg_capacity']}: "
+        f"round metrics equal the dense run's {equal}; store counters "
+        f"{lazy.store.counters}; global model gap to dense {gap:.3g} "
+        f"(bitwise {gap == 0.0})")
+    if not equal or not lazy.store.counters["evictions"]:
+        raise AssertionError(f"lazy fedavg: {runs['lazy'][2]} vs "
+                             f"{runs['dense'][2]}, {lazy.store.counters}")
+    return {"round_metrics_equal": equal, "w_gap": gap,
+            "counters": dict(lazy.store.counters)}
+
+
+def lazy_check_subprocess(device) -> dict:
+    """``benchmarks/scan_scaling_torch.py --lazy-check`` at n = 100,000 in
+    its own process (its peak RSS is its own): windows of 8 rounds of
+    ``scan_fused`` with prefetch off and on (bit for bit equal) and of
+    ``scan``, every window's host columns against the CPU's
+    ``schedule()``."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "benchmarks.scan_scaling_torch",
+         "--lazy-check", "--lazy-clients", str(LAZY["check_clients"]),
+         "--lazy-rounds", str(LAZY["check_window"]),
+         "--device", str(device)],
+        cwd=HERE, capture_output=True, text=True, timeout=900,
+        env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")})
+    if out.returncode != 0:
+        raise AssertionError(f"lazy check failed ({out.returncode}): "
+                             f"{out.stdout[-2000:]} {out.stderr[-4000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    log(f"lazy mlr-synthetic-lr-n{row['n']}: windows of {row['rounds']} "
+        f"rounds in {time.perf_counter() - t0:.1f} s (one process): "
+        + "; ".join(f"{k} {row[k]['us_per_round']:.0f} µs a round (windows "
+                    f"{[round(s, 3) for s in row[k]['window_s']]} s), peak "
+                    f"device {row[k]['peak_device_mb']} MB, peak RSS "
+                    f"{row[k]['peak_rss_mb']:.0f} MB, counters "
+                    f"{row[k]['counters']}"
+                    for k in ("scan_fused", "scan_fused_prefetch", "scan"))
+        + f"; checks {row['checks']}")
+    return row
+
+
+def dp_phase(device, model, data, hp) -> dict:
+    """DP uploads (``dp_clip=1.0``, ``dp_noise=1.0``): on the CNN cell the
+    captured ``scan`` windows equal eager rounds bit for bit (cuDNN
+    deterministic); one MLR round on the card against the CPU at 1e-6;
+    ``scan_fused`` refuses. Returns the DP path's ``threefry_bits``
+    launches a round."""
+    import numpy as np
+    import torch
+
+    from repro_torch.fl.base import DeviceData
+    from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
+    from repro_torch.models.small import get_model
+
+    seed, dp = MAIN["seed"], dict(dp_clip=1.0, dp_noise=1.0)
+    rounds, window = LAZY["dp_rounds"], LAZY["dp_window"]
+
+    def make(mdl=model, dat=data, dev=device):
+        return RWSADMMTrainer(mdl, dat, hp, batch_size=MAIN["batch"],
+                              zone_size=MAIN["zone"], solver="closed_form",
+                              seed=seed, device=dev, **dp)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        eager, scan = make(), make()
+        rng = np.random.default_rng(seed)
+        s_e = eager.init_state(seed)
+        for r in range(rounds):
+            s_e, _ = eager.round(s_e, r, rng)
+        rng = np.random.default_rng(seed)
+        s_s = scan.init_state(seed)
+        zero_launch_counts()
+        for r in range(0, rounds, window):
+            s_s, _ = scan.run_chunk(s_s, scan.schedule(window, rng,
+                                                       start_round=r), "scan")
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ran = window_launches(scan)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    a, b = state_leaves(s_e), state_leaves(s_s)
+    captured_equal = {k: bool(torch.equal(a[k], b[k])) for k in a}
+    captured = [w.captured for w in scan.windows.values()]
+    bits_per_round = sum(c["threefry_bits"] for c in captured) // window
+    # One MLR round on the card against the CPU.
+    parity_data, shape = parity_mlr_data(device)
+    cpu_data = DeviceData(*(t.cpu() for t in parity_data))
+    states = []
+    for dev, dat in ((device, parity_data), ("cpu", cpu_data)):
+        tr = make(get_model("mlr", shape), dat, dev)
+        st, _ = tr.round(tr.init_state(seed), 0, np.random.default_rng(seed))
+        states.append({k: v.cpu() for k, v in state_leaves(st).items()})
+    gaps = {k: float((states[0][k].double() - states[1][k].double())
+                     .abs().max()) for k in ("x", "z", "y")}
+    tr = make()
+    try:
+        tr.run_chunk(tr.init_state(seed),
+                     tr.schedule(2, np.random.default_rng(seed)), "scan_fused")
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    checks = {"captured scan equals eager": all(captured_equal.values()),
+              "card round equals the CPU's at 1e-6":
+                  all(v <= 1e-6 for v in gaps.values()),
+              "scan_fused refuses": "does not support DP" in refused}
+    log(f"dp: CNN, {rounds} rounds, captured scan (windows of {window}) vs "
+        f"eager bit for bit {captured_equal}; the window captured "
+        f"{captured} ({bits_per_round} threefry_bits launches a round: "
+        f"fold_in, the zone's split, the leaves' split, one normal a "
+        f"leaf), wrapper counts {counts}; one MLR round card vs CPU, max "
+        f"abs gap {gaps} (held at 1e-6); scan_fused: {refused!r}")
+    if not all(checks.values()):
+        raise AssertionError(f"dp: {checks}")
+    return {"captured_equal": captured_equal, "card_vs_cpu": gaps,
+            "threefry_bits_per_round": bits_per_round, "launches": counts,
+            "launches_run": ran, "checks": checks}
+
+
+def parity_mlr_data(device):
+    from benchmarks import table1_torch
+
+    return table1_torch.mnist_like_fed(n_clients=PARITY["n_clients"],
+                                       n_samples=PARITY["n_samples"],
+                                       device=device)
+
+
+def telemetry_phase(make, factory, update: str, off: dict) -> dict:
+    """Step a's lazy cell again with a telemetry run attached: equal to
+    the unrecorded run (``off``) bit for bit, with the same captured and
+    replay counts; the report renders; then the overhead twin at
+    n = 2,000 (the median pair's on/off at most ``LAZY["overhead_pct"]``
+    %)."""
+    import tempfile
+
+    import torch
+
+    from benchmarks import telemetry_overhead_torch
+    from repro_torch.telemetry import TelemetryRun, read_events
+    from repro_torch.telemetry.report import render_report
+
+    seed = MAIN["seed"]
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    run_dir = os.path.join(HERE, "runs", "telemetry_lazy")
+    shutil.rmtree(run_dir, ignore_errors=True)   # events append
+    try:
+        tr = make(factory, LAZY["capacity"])
+        with TelemetryRun(run_dir, seed=seed,
+                          config={"cell": "cnn-cifar-n100-lazy"}) as tel:
+            res, counts, _, losses, _ = drive(
+                tr, LAZY["rounds"], seed, update, "telemetry on",
+                LAZY["window"], telemetry=tel)
+        rows = lazy_rows(tr, tr._carry)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    same = {k: bool(torch.equal(rows[k], off["rows"][k])) for k in rows}
+    wins = {str(k): (w.captured, w.replays) for k, w in tr.windows.items()}
+    phases = [e for e in read_events(tel.events_path) if e["t"] == "phase"]
+    report = render_report(run_dir)
+    with tempfile.TemporaryDirectory() as td:
+        over = telemetry_overhead_torch.measure(
+            LAZY["overhead_clients"], rounds=LAZY["overhead_rounds"],
+            repeats=LAZY["overhead_repeats"],
+            out=os.path.join(td, "rows.json"))
+    checks = {"state equal": all(same.values()),
+              "metrics equal": res.round_metrics == off["metrics"],
+              "captured and replays equal": wins == off["windows"],
+              "window spans carry device time": all(
+                  "device_seconds" in p for p in phases
+                  if p["name"] == "scan_chunk"),
+              "overhead within bound":
+                  over["overhead_pct"] <= LAZY["overhead_pct"]}
+    log(f"telemetry on the lazy cell: state equal {same}, metrics equal "
+        f"{checks['metrics equal']}, windows (captured, replays) {wins}; "
+        f"{len(phases)} phase spans; report:\n"
+        + "\n".join(report.splitlines()[:4] + ["..."]
+                    + [ln for ln in report.splitlines()
+                       if ln.startswith(("scan_chunk", "ensure", "eval"))])
+        + f"\ntelemetry overhead at n = {over['n']}: off "
+        f"{over['off_us']:.0f} µs a round, on {over['on_us']:.0f} "
+        f"(medians of {over['pairs']} pairs of {LAZY['overhead_rounds']} "
+        f"rounds); the median pair's on/off "
+        f"{over['overhead_pct']:+.2f} % (bound {LAZY['overhead_pct']} %; "
+        f"pairs {[round(x, 2) for x in over['pair_pct']]}); the trace "
+        f"alone {over['trace_pct']:.3f} % of a round")
+    if not all(checks.values()):
+        raise AssertionError(f"telemetry: {checks}")
+    return {"checks": checks, "overhead": over, "phase_spans": len(phases)}
+
+
+def checkpoint_phase(make, factory) -> dict:
+    """Step a's lazy cell saved mid-run with spilled rows (state and store
+    to npz), restored into a fresh trainer whose host control plane
+    replays the first half, and continued: equal to the uninterrupted run
+    bit for bit (cuDNN deterministic)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import load_client_store, load_pytree, \
+        save_client_store, save_pytree
+
+    seed, half, window = MAIN["seed"], LAZY["ckpt_rounds"], LAZY["window"]
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+
+    def windows(tr, state, rng, start, stop):
+        losses = []
+        for r in range(start, stop, window):
+            state, st = tr.run_chunk(state, tr.schedule(window, rng,
+                                                        start_round=r),
+                                     "scan_fused")
+            losses += st["train_loss"].tolist()
+        return state, losses
+    try:
+        whole = make(factory, LAZY["capacity"])
+        s_w, l_w = windows(whole, whole.init_state(seed),
+                           np.random.default_rng(seed), 0, 2 * half)
+        first = make(factory, LAZY["capacity"])
+        rng = np.random.default_rng(seed)
+        s_1, l_1 = windows(first, first.init_state(seed), rng, 0, half)
+        spilled = len(first.store.spilled_ids)
+        with tempfile.TemporaryDirectory() as td:
+            save_pytree(os.path.join(td, "state.npz"), s_1, step=half)
+            save_client_store(os.path.join(td, "store.npz"), first.store)
+            fresh = make(factory, LAZY["capacity"])
+            rng2 = np.random.default_rng(seed)
+            for r in range(0, half, window):     # the host side replayed
+                fresh.schedule(window, rng2, start_round=r)
+            state = load_pytree(os.path.join(td, "state.npz"),
+                                fresh.init_state(seed))
+            load_client_store(os.path.join(td, "store.npz"), fresh.store)
+        s_2, l_2 = windows(fresh, state, rng2, half, 2 * half)
+        got, want = lazy_rows(fresh, s_2), lazy_rows(whole, s_w)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    same = {k: bool(torch.equal(got[k], want[k])) for k in got}
+    checks = {"spilled at the save": spilled > 0,
+              "losses equal": l_1 + l_2 == l_w,
+              "state equal": all(same.values())}
+    log(f"checkpoint: saved after {half} rounds with {spilled} spilled "
+        f"clients, restored into a fresh trainer, {half} more rounds: "
+        f"losses equal {checks['losses equal']}, state equal {same}")
+    if not all(checks.values()):
+        raise AssertionError(f"checkpoint: {checks}")
+    return {"spilled": spilled, "checks": checks}
+
+
+def phase_lazy(device, model, data, hp) -> dict:
+    """The lazy client plane on the card (steps a–g): the full-width CNN
+    single walker and K = 3 fleet on the store against their dense runs,
+    FedAvg on the store, the n = 100,000 MLR cell in its own process, DP
+    uploads, telemetry on ≡ off, a checkpoint restored and continued."""
+    import torch
+
+    from repro_torch.data import factory_from_federated
+    from repro_torch.fl.base import DeviceData
+
+    seed = MAIN["seed"]
+    factory = factory_from_federated(main_fed(seed))
+    cpu_data = DeviceData(*(t.cpu() for t in data))
+
+    def single(fac, capacity, dev=device, dat=data):
+        if fac is None:
+            return make_trainer(model, dat, hp, dev, seed)
+        from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
+
+        return RWSADMMTrainer(model, fac, hp, batch_size=MAIN["batch"],
+                              zone_size=MAIN["zone"], solver="closed_form",
+                              seed=seed, device=dev, store_capacity=capacity)
+
+    def fleet(fac, capacity, dev=device, dat=data):
+        if fac is None:
+            return make_fleet(model, dat, hp, dev, seed)
+        from repro_torch.fl.fleet_trainer import FleetRWSADMMTrainer
+
+        return FleetRWSADMMTrainer(
+            model, fac, hp, n_walkers=FLEET["n_walkers"],
+            sync_every=FLEET["sync_every"], fleet_mode="simultaneous",
+            batch_size=MAIN["batch"], zone_size=MAIN["zone"],
+            solver="closed_form", seed=seed, device=dev,
+            store_capacity=capacity)
+
+    out = {}
+    out["single walker"] = lazy_vs_dense(
+        "cnn-cifar-n100-lazy", single,
+        lambda: single(None, None, "cpu", cpu_data), factory,
+        LAZY["capacity"], LAZY["rounds"], LAZY["window"], "zone_update",
+        "round")
+    out["fleet simultaneous"] = lazy_vs_dense(
+        "cnn-cifar-n100-lazy K = 3 fleet", fleet,
+        lambda: fleet(None, None, "cpu", cpu_data), factory,
+        LAZY["fleet_capacity"], LAZY["fleet_steps"], LAZY["fleet_window"],
+        "multizone_update", "wall step")
+    out["fedavg"] = fedavg_lazy(device, model, data, factory)
+    out["n100000"] = lazy_check_subprocess(device)
+    out["dp"] = dp_phase(device, model, data, hp)
+    # The unrecorded run of step a, for telemetry on ≡ off.
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        tr = single(factory, LAZY["capacity"])
+        res, *_ = drive(tr, LAZY["rounds"], seed, "zone_update",
+                        "telemetry off", LAZY["window"])
+        off = {"rows": lazy_rows(tr, tr._carry),
+               "metrics": res.round_metrics,
+               "windows": {str(k): (w.captured, w.replays)
+                           for k, w in tr.windows.items()}}
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
+    out["telemetry"] = telemetry_phase(single, factory, "zone_update", off)
+    out["checkpoint"] = checkpoint_phase(single, factory)
     return out
 
 
@@ -3028,6 +3586,19 @@ REPLACES = {"zone_update": "src/repro/kernels/rwsadmm_update/kernel.py:176",
             "threefry_bits": "src/repro/baselines/fedavg.py:43"}
 
 
+#: seconds each phase took in this run, printed at the end
+PHASE_SECONDS: dict = {}
+
+
+def run_phase(label: str, fn, *args):
+    """Run one phase, noting its seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_SECONDS[label] = round(time.perf_counter() - t0, 1)
+    log(f"phase {label}: {PHASE_SECONDS[label]} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3046,15 +3617,20 @@ def main() -> int:
     log(f"device: {name} | {smi} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | TF32 off")
 
-    ptxas = phase_build()
+    ptxas = run_phase("build", phase_build)
     model, data, hp = build_main_path(device, MAIN["seed"])
-    rows = phase_kernels(hp, device, name)
-    rows.update(phase_lm_kernels(device, name))
-    rows.update(phase_threefry(device, model, data, name))
-    paths = {"main_path": phase_main_path(device, model, data, hp),
-             "fleet_path": phase_fleet(device, model, data, hp)}
-    paths["scenarios"] = phase_scenarios(device, model, data, hp, paths)
-    paths["walks"] = phase_walks(device, model, data, hp, paths)
+    rows = run_phase("kernels", phase_kernels, hp, device, name)
+    rows.update(run_phase("lm kernels", phase_lm_kernels, device, name))
+    rows.update(run_phase("threefry", phase_threefry, device, model, data, name))
+    paths = {"main_path": run_phase("main path", phase_main_path, device, model,
+                                data, hp),
+             "fleet_path": run_phase("fleet path", phase_fleet, device, model,
+                                 data, hp)}
+    paths["scenarios"] = run_phase("scenarios", phase_scenarios, device, model,
+                               data, hp, paths)
+    paths["walks"] = run_phase("walks", phase_walks, device, model, data, hp,
+                           paths)
+    paths["lazy"] = run_phase("lazy", phase_lazy, device, model, data, hp)
     main_counts = paths["main_path"]["launches"]
     launches = {"zone_update": main_counts["zone_update"],
                 "multizone_update":
@@ -3076,16 +3652,31 @@ def main() -> int:
                      for k in scenario_launches}
     walk_ran = {k: sum(p["launches_run"].get(k, 0) for p in walks)
                 for k in scenario_launches}
+    # The lazy phase's own runs (the CNN single walker and fleet on the
+    # store, each driven with the counts at 0), and the DP path's.
+    lazy = [paths["lazy"][k] for k in ("single walker",
+                                       "fleet simultaneous")]
+    lazy_launches = {k: sum(p["launches"].get(k, 0) for p in lazy)
+                     for k in scenario_launches}
+    lazy_launches["threefry_bits"] = paths["lazy"]["dp"]["launches"][
+        "threefry_bits"]
+    lazy_ran = {k: sum(p["launches_run"].get(k, 0) for p in lazy)
+                for k in scenario_launches}
+    lazy_ran["threefry_bits"] = paths["lazy"]["dp"]["launches_run"][
+        "threefry_bits"]
     ran = {"zone_update": paths["main_path"]["launches_run"]["zone_update"],
            "multizone_update":
                paths["fleet_path"]["launches_run"]["multizone_update"],
            "threefry_draws":
                paths["main_path"]["launches_run"]["threefry_draws"]}
-    paths["capture"] = phase_capture(device, model, data, hp)
-    paths["device_parity"] = phase_device_parity(device, model, data, hp)
-    paths["twins"] = phase_twins(device)
-    paths["baselines"] = phase_baselines(device, model, data)
-    paths["paper_scripts"] = phase_paper(device)
+    paths["capture"] = run_phase("capture", phase_capture, device, model, data,
+                             hp)
+    paths["device_parity"] = run_phase("device parity", phase_device_parity,
+                                   device, model, data, hp)
+    paths["twins"] = run_phase("twins", phase_twins, device)
+    paths["baselines"] = run_phase("baselines", phase_baselines, device, model,
+                               data)
+    paths["paper_scripts"] = run_phase("paper scripts", phase_paper, device)
     # threefry_bits runs on the baselines' path (their key trees): its
     # launches over the accuracy gates' runs.
     launches["threefry_bits"] = sum(
@@ -3093,7 +3684,7 @@ def main() -> int:
         for r in paths["baselines"]["gates"].values())
     model = data = None
     torch.cuda.empty_cache()
-    paths["serve_path"] = phase_serve(device)
+    paths["serve_path"] = run_phase("serve", phase_serve, device)
     launches.update(paths["serve_path"]["launches"])
 
     # Every kernel's "ms" is its device time per call with a cold L2.
@@ -3111,6 +3702,8 @@ def main() -> int:
                "launches_run_scenarios": scenario_ran.get(kernel, 0),
                "launches_walks": walk_launches.get(kernel, 0),
                "launches_run_walks": walk_ran.get(kernel, 0),
+               "launches_lazy": lazy_launches.get(kernel, 0),
+               "launches_run_lazy": lazy_ran.get(kernel, 0),
                "max_abs_err": max(r["max_abs_err"] for r in checks),
                "ms": timed["ms"], "plain_ms": timed["plain_ms"],
                "bound_ms": timed["bound_ms"], "bound_by": timed["bound_by"],
@@ -3126,7 +3719,8 @@ def main() -> int:
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     for label, summary in paths.items():
-        log(json.dumps({label: summary}))
+        log(json.dumps({label: summary}, default=str))
+    log(f"phase seconds: {PHASE_SECONDS}")
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,14 +26,17 @@ class APFLState(NamedTuple):
 
 class APFLTrainer(CohortTrainer):
     name = "apfl"
+    #: keeps dense per-client (n, P) state, so refuses a data factory
+    lazy_capable = False
 
     def __init__(self, model, data, *, alpha: float = 0.5, lr: float = 0.05,
                  local_steps: int = 10, clients_per_round: int = 10,
                  batch_size: int = 20, device=None, scenario=None,
-                 seed: int = 0, **unported):
+                 seed: int = 0, telemetry=None, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
-                         scenario=scenario, seed=seed)
+                         scenario=scenario, seed=seed,
+                         telemetry=telemetry)
         self.m = int(min(clients_per_round, self.n_clients))
         self.alpha, self.lr = alpha, lr
         self.local_steps = local_steps

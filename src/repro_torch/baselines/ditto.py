@@ -25,15 +25,18 @@ class DittoState(NamedTuple):
 
 class DittoTrainer(CohortTrainer):
     name = "ditto"
+    #: keeps dense per-client (n, P) state, so refuses a data factory
+    lazy_capable = False
 
     def __init__(self, model, data, *, lam: float = 1.0, lr: float = 0.05,
                  local_steps: int = 10, personal_steps: int = 5,
                  clients_per_round: int = 10, batch_size: int = 20,
-                 device=None, scenario=None, seed: int = 0,
+                 device=None, scenario=None, seed: int = 0, telemetry=None,
                  **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
-                         scenario=scenario, seed=seed)
+                         scenario=scenario, seed=seed,
+                         telemetry=telemetry)
         self.m = int(min(clients_per_round, self.n_clients))
         self.lam, self.lr = lam, lr
         self.local_steps, self.personal_steps = local_steps, personal_steps

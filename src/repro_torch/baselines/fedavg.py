@@ -1,5 +1,8 @@
 """FedAvg (McMahan et al. 2017), the paper's non-personalized benchmark
-(port of ``repro/baselines/fedavg.py``)."""
+(port of ``repro/baselines/fedavg.py``). On the lazy plane (``data`` a
+``ClientDataFactory``) the cohort's rows come from the bounded store,
+indexed by slot; FedAvg keeps no per-client state, so the store holds
+only data."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -20,16 +23,20 @@ class FedAvgTrainer(CohortTrainer):
     def __init__(self, model, data, *, lr: float = 0.05,
                  local_steps: int = 10, clients_per_round: int = 10,
                  batch_size: int = 20, device=None, scenario=None,
-                 seed: int = 0, **unported):
+                 seed: int = 0, telemetry=None, store_capacity: int = 4096,
+                 prefetch: bool = False, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
-                         scenario=scenario, seed=seed)
+                         scenario=scenario, seed=seed, telemetry=telemetry,
+                         store_capacity=store_capacity, prefetch=prefetch)
         self.lr = lr
         self.local_steps = local_steps
         self.m = int(min(clients_per_round, self.n_clients))
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> FedAvgState:
+        if self.store is not None:
+            self._reset_store()
         return FedAvgState(w=self.initial_params(seed, params))
 
     def round_keys(self, key):

@@ -4,6 +4,9 @@
 Per selected client, R local rounds; each solves the prox subproblem
 θ̃ ≈ argmin_θ f_i(θ; ξ) + (λ/2)||θ − w_i||² with K inner SGD steps on one
 minibatch, then w_i ← w_i − ηλ(w_i − θ̃). Server: w ← (1−β)w + β·mean(w_i).
+On the lazy plane (``data`` a ``ClientDataFactory``) the cohort's rows
+come from the bounded store, and the evaluation personalizes every
+resident slot, its keys slot-indexed.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import torch
 from ..core import prng
 from ..fl.base import CohortTrainer, cohort_mean, keep_at, reject_unported, \
     step_keys
+from .perfedavg import _chunks
 
 #: the seed of the evaluation's key, ``PRNGKey(99)`` as in the reference
 EVAL_SEED = 99
@@ -31,10 +35,12 @@ class PFedMeTrainer(CohortTrainer):
                  local_rounds: int = 5, eta: float = 0.05,
                  server_beta: float = 1.0, clients_per_round: int = 10,
                  batch_size: int = 20, device=None, scenario=None,
-                 seed: int = 0, **unported):
+                 seed: int = 0, telemetry=None, store_capacity: int = 4096,
+                 prefetch: bool = False, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
-                         scenario=scenario, seed=seed)
+                         scenario=scenario, seed=seed, telemetry=telemetry,
+                         store_capacity=store_capacity, prefetch=prefetch)
         self.m = int(min(clients_per_round, self.n_clients))
         self.lam, self.inner_lr = lam, inner_lr
         self.inner_steps, self.local_rounds = inner_steps, local_rounds
@@ -42,6 +48,8 @@ class PFedMeTrainer(CohortTrainer):
 
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> PFedMeState:
+        if self.store is not None:
+            self._reset_store()
         return PFedMeState(w=self.initial_params(seed, params))
 
     def prox_solve(self, w_i: torch.Tensor, clients, idx, keep=None):
@@ -78,6 +86,18 @@ class PFedMeTrainer(CohortTrainer):
         w = state.w.expand(self.n_clients, -1)[rows]
         return self.prox_solve(w, clients[rows], idx[rows],
                                keep_at(keep, rows))
+
+    def _lazy_personalized_rows(self, state: PFedMeState):
+        """The Moreau-envelope personalization of every store slot, slot
+        s under ``split(PRNGKey(99), capacity)[s]``."""
+        cap = self.store.capacity
+        slots = torch.arange(cap, device=self.device)
+        idx, keep = self.batch_draws(slots, self.round_key(EVAL_SEED),
+                                     split=cap)
+        w = state.w.expand(cap, -1)
+        return torch.cat([self.prox_solve(w[r], slots[r], idx[r],
+                                          keep_at(keep, r))
+                          for r in _chunks(cap)])
 
     def global_params(self, state: PFedMeState):
         return state.w

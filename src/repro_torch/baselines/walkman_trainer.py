@@ -26,13 +26,16 @@ class WalkmanState(NamedTuple):
 
 class WalkmanTrainer(TrainerBase):
     name = "walkman"
+    #: keeps dense per-client (n, P) state, so refuses a data factory
+    lazy_capable = False
 
     def __init__(self, model, data, *, beta: float = 3.0,
                  min_degree: int = 5, regen_every: int = 10,
                  batch_size: int = 20, scenario=None, seed: int = 0,
-                 device=None, **unported):
+                 device=None, telemetry=None, **unported):
         reject_unported(unported)
-        super().__init__(model, data, batch_size, device=device)
+        super().__init__(model, data, batch_size, device=device,
+                         telemetry=telemetry)
         self.beta = beta
         self._seed = int(seed)
         self._min_degree = int(min_degree)

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from ..kernels.threefry import ops
@@ -61,6 +62,44 @@ def random_bits(key: torch.Tensor, shape) -> torch.Tensor:
 def uniform(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.uniform`` in float32 on [0, 1)."""
     return uniform_from_bits(random_bits(key, shape))
+
+
+#: Giles' single-precision erfinv coefficients, XLA's ``ErfInv`` for
+#: float32 (w = −log1p(−u²); w < 5 and w ≥ 5), highest order first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(u: torch.Tensor) -> torch.Tensor:
+    """float32 erf⁻¹ by the polynomial XLA evaluates (not
+    ``torch.erfinv``'s rational form): within a few ulp of
+    ``jax.lax.erf_inv``, whose ``log1p`` rounds its own way."""
+    w = -torch.log1p(-u * u)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    p = torch.where(lt, _ERFINV_LT5[0], _ERFINV_GE5[0])
+    for a, b in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        p = torch.where(lt, a, b) + p * w
+    return torch.where(u.abs() == 1.0, u * math.inf, p * u)
+
+
+#: ``jax.random.normal``'s uniform interval, (nextafter(−1, 0), 1) in fp32
+_NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+_NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))
+
+
+def normal(key: torch.Tensor, shape) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in float32: √2·erf⁻¹(u), u uniform
+    on [nextafter(−1, 0), 1) from the key's bits with the reference's
+    scale, shift and clamp. The bits are exact; :func:`erf_inv` leaves a
+    few ulp against XLA's."""
+    f = uniform(key, shape)
+    u = torch.clamp(f * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+    return float(np.float32(math.sqrt(2.0))) * erf_inv(u)
 
 
 def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:

@@ -1,6 +1,10 @@
-"""Shared FL trainer substrate (port of ``repro/fl/base.py``, dense plane).
+"""Shared FL trainer substrate (port of ``repro/fl/base.py``).
 
-Client data sits on the device as padded stacks. Each round draws
+Client data sits on the device as padded stacks: all n clients' (the
+dense plane), or the ``capacity`` rows of the bounded LRU
+:class:`~.client_store.ClientStore` (the lazy plane, when ``data`` is a
+:class:`~..data.loader.ClientDataFactory`), which every round indexes by
+store slot instead of client id. Each round draws
 minibatch indices and dropout masks from threefry keys
 (``core/prng.py``) that follow the reference's key tree (one key per
 zone slot or cohort client, one per local step), gathers the batches,
@@ -20,7 +24,7 @@ from .. import resolve_device
 from ..core import prng
 from ..core.markov import RandomWalkServer, round_key_seed
 from ..core.tree import ParamLayout
-from ..data.loader import FederatedData
+from ..data.loader import ClientDataFactory, FederatedData
 from ..models.small import SmallModel, accuracy, cross_entropy
 from ..scenarios import build_scenario
 
@@ -131,11 +135,6 @@ EVAL_CHUNK = 32
 #: the reference trainers' arguments the port does not take yet, and the
 #: ROADMAP Queue 1 item that brings each
 UNPORTED = {
-    "telemetry": "item 7 (telemetry)",
-    "store_capacity": "item 7 (the lazy plane)",
-    "prefetch": "item 7 (the lazy plane)",
-    "dp_clip": "item 7 (privacy)",
-    "dp_noise": "item 7 (privacy)",
     "mesh": "item 8.7 (mesh and sharding)",
 }
 
@@ -172,26 +171,52 @@ def cohort_mean(rows: torch.Tensor) -> torch.Tensor:
 
 
 class TrainerBase:
-    """Common plumbing: device, flat layout, per-client gradients, eval."""
+    """Common plumbing: device, flat layout, per-client gradients, eval,
+    the client plane (dense stacks or the lazy store) and telemetry."""
 
     name: str = "base"
+    #: whether this trainer runs on the lazy client plane (``data`` a
+    #: ``ClientDataFactory``, clients in the bounded LRU store). Trainers
+    #: that keep dense per-client ``(n, P)`` stacks in their state
+    #: (Ditto, APFL, Walkman) set it False and refuse a factory.
+    lazy_capable: bool = True
 
-    def __init__(self, model: SmallModel, data: DeviceData,
-                 batch_size: int = 20, *, device=None):
-        if not isinstance(data, DeviceData):
-            raise NotImplementedError(
-                "the port takes stacked DeviceData only; a client data "
-                f"factory needs ROADMAP Queue 1 {UNPORTED['store_capacity']}")
+    def __init__(self, model: SmallModel, data, batch_size: int = 20, *,
+                 device=None, telemetry=None, store_capacity: int = 4096,
+                 prefetch: bool = False):
         self.device = resolve_device(device)
-        if data.device.type != self.device.type:
+        lazy = not isinstance(data, DeviceData)
+        if lazy and not self.lazy_capable:
+            raise NotImplementedError(
+                f"{type(self).__name__} keeps dense per-client (n, …) "
+                "state stacks and does not support client_plane='lazy'; "
+                "pass stacked DeviceData")
+        if lazy and not isinstance(data, ClientDataFactory):
+            raise TypeError(f"data must be DeviceData or a "
+                            f"ClientDataFactory, got {type(data).__name__}")
+        if not lazy and data.device.type != self.device.type:
             raise ValueError(f"data lives on {data.device}, trainer runs "
                              f"on {self.device}")
         self.model = model
-        self.data = data
+        self.client_plane = "lazy" if lazy else "dense"
+        self.store = None
+        if lazy:
+            from .client_store import ClientStore
+
+            self.store = ClientStore(data, int(store_capacity),
+                                     device=self.device, prefetch=prefetch)
+            # Rounds index the store's packed block by slot; the block is
+            # allocated once and written in place, so this binding (and
+            # every captured window that reads it) stays valid.
+            self.data = self.store.data
+        else:
+            self.data = data
         self.batch_size = int(batch_size)
         self.n_clients = data.n_clients
         self.layout = ParamLayout.from_module(model)
         self.scenario = None   # attach_scenario() / the trainers' kwarg
+        self.telemetry = None
+        self.set_telemetry(telemetry)
 
         def loss(params, xb, yb, keep):
             logits = functional_call(model, params, (xb,),
@@ -235,6 +260,7 @@ class TrainerBase:
         :meth:`_attach_walking_scenario`."""
         self.scenario = build_scenario(spec, self.n_clients, seed=seed,
                                        positions_only=True)
+        self.scenario.telemetry = self.telemetry
 
     def _attach_walking_scenario(self, spec, seed: int, *,
                                  min_degree: int = 5,
@@ -255,6 +281,7 @@ class TrainerBase:
         self.scenario = build_scenario(spec, self.n_clients, seed=seed,
                                        min_degree=min_degree,
                                        regen_every=regen_every)
+        self.scenario.telemetry = self.telemetry
         self.dyn_graph = self.scenario
         self.walker = RandomWalkServer(transition=transition, seed=seed + 1,
                                        policy=walk_policy,
@@ -360,40 +387,149 @@ class TrainerBase:
     def global_params(self, state) -> torch.Tensor | None:
         return None
 
+    def _eval_rows(self, state, pers_rows):
+        """Per-row test accuracy and loss of the personalized models
+        (``pers_rows(rows)`` → ``(rows, P)`` or None) and the global model
+        over ``self.data``'s rows, in chunks of ``EVAL_CHUNK`` to bound
+        activation memory: ``(pers (acc, loss) or None, glob or None)``."""
+        d = self.data
+        rows_n = d.n_clients
+        pers_acc, pers_loss, glob_acc, glob_loss = [], [], [], []
+        glob = self.global_params(state)
+        for c0 in range(0, rows_n, EVAL_CHUNK):
+            rows = slice(c0, min(c0 + EVAL_CHUNK, rows_n))
+            cols = (d.x_test[rows], d.y_test[rows], d.mask_test[rows])
+            pers = pers_rows(rows)
+            if pers is not None:
+                a, l_ = self._eval_stacked(self.layout.views(pers), *cols)
+                pers_acc.append(a)
+                pers_loss.append(l_)
+            if glob is not None:
+                a, l_ = self._eval_shared(self.layout.views(glob), *cols)
+                glob_acc.append(a)
+                glob_loss.append(l_)
+        def cat(acc, loss):
+            return (torch.cat(acc), torch.cat(loss)) if acc else None
+        return cat(pers_acc, pers_loss), cat(glob_acc, glob_loss)
+
     @torch.no_grad()
     def evaluate(self, state) -> dict:
         """Mean test accuracy/loss over every client: personalized models
         (``acc_personalized`` ± ``acc_personalized_std``, population std)
-        and the global token (``acc_global``). Clients are evaluated in
-        chunks of ``EVAL_CHUNK`` to bound activation memory."""
-        d = self.data
+        and the global token (``acc_global``). On the lazy plane over the
+        resident clients only (:meth:`_evaluate_lazy`)."""
+        if self.store is not None:
+            return self._evaluate_lazy(state)
+        pers, glob = self._eval_rows(
+            state, lambda rows: self.personalized_params(state, rows))
         out: dict[str, float] = {}
-        pers_acc, pers_loss, glob_acc, glob_loss = [], [], [], []
-        glob = self.global_params(state)
-        for c0 in range(0, self.n_clients, EVAL_CHUNK):
-            rows = slice(c0, min(c0 + EVAL_CHUNK, self.n_clients))
-            cols = (d.x_test[rows], d.y_test[rows], d.mask_test[rows])
-            pers = self.personalized_params(state, rows)
-            if pers is not None:
-                a, l_ = self._eval_stacked(
-                    self.layout.views(pers), *cols)
-                pers_acc.append(a)
-                pers_loss.append(l_)
-            if glob is not None:
-                a, l_ = self._eval_shared(
-                    self.layout.views(glob), *cols)
-                glob_acc.append(a)
-                glob_loss.append(l_)
-        if pers_acc:
-            acc = torch.cat(pers_acc)
+        if pers is not None:
+            acc, loss = pers
             out["acc_personalized"] = float(acc.mean())
             out["acc_personalized_std"] = float(acc.std(correction=0))
-            out["loss_personalized"] = float(torch.cat(pers_loss).mean())
-        if glob_acc:
-            out["acc_global"] = float(torch.cat(glob_acc).mean())
-            out["loss_global"] = float(torch.cat(glob_loss).mean())
+            out["loss_personalized"] = float(loss.mean())
+        if glob is not None:
+            out["acc_global"] = float(glob[0].mean())
+            out["loss_global"] = float(glob[1].mean())
         out["acc"] = out.get("acc_personalized", out.get("acc_global", 0.0))
         return out
+
+    @torch.no_grad()
+    def _evaluate_lazy(self, state) -> dict:
+        """Evaluation over the materialized clients, the lazy plane's
+        answer to the dense path's all-n loop: every store slot is
+        evaluated (fixed shapes) and the occupied ones averaged, on the
+        host in numpy as the reference averages. Personalized rows come
+        from :meth:`_lazy_personalized_rows` (None: the global model
+        only). ``eval_clients`` says how many clients the estimate
+        covers: at large n a resident-set sample of the population
+        metric, by design."""
+        occ = self.store.gid_of >= 0
+        pers_all = self._lazy_personalized_rows(state)
+        pers, glob = self._eval_rows(
+            state, lambda rows: None if pers_all is None
+            else pers_all[rows])
+
+        def stats(pair):
+            return tuple(t.cpu().numpy()[occ] for t in pair)
+
+        out: dict[str, float] = {}
+        if pers is not None:
+            acc, loss = stats(pers)
+            out["acc_personalized"] = float(acc.mean()) if len(acc) else 0.0
+            out["acc_personalized_std"] = (float(acc.std())
+                                           if len(acc) else 0.0)
+            out["loss_personalized"] = (float(loss.mean())
+                                        if len(loss) else 0.0)
+        if glob is not None:
+            acc, loss = stats(glob)
+            out["acc_global"] = float(acc.mean()) if len(acc) else 0.0
+            out["loss_global"] = float(loss.mean()) if len(loss) else 0.0
+        out["acc"] = out.get("acc_personalized",
+                             out.get("acc_global", 0.0))
+        out["eval_clients"] = int(occ.sum())
+        return out
+
+    def _lazy_personalized_rows(self, state) -> torch.Tensor | None:
+        """Per-slot ``(capacity, P)`` personalized parameters for the lazy
+        evaluation, or None when the trainer evaluates the global model
+        only. RWSADMM substitutes visited clients' x rows; the
+        adaptation baselines adapt the global model on each slot's rows."""
+        return None
+
+    # -- the lazy client plane ---------------------------------------------
+    def _state_clients(self, state) -> tuple:
+        """The packed per-client state tensors of ``state`` (what the store
+        restores into and evicts from); the FedAvg family keeps none, and
+        the store then manages only the data block."""
+        return ()
+
+    def _reset_store(self) -> None:
+        """(Re)initialize the client store for a fresh run of a trainer
+        with no per-client state (the store then holds data only). Call
+        from ``init_state``."""
+        self.store.reset(())
+
+    def _ensure_round(self, state, idx) -> np.ndarray:
+        """Make one working set resident (its rows written into
+        ``state``'s packed tensors in place) and translate global ids to
+        store slots, same shape. ``idx`` is the raw padded id array:
+        padding id 0 rides along, so the masked ±0.0 scatter-adds land on
+        the same client's row on both planes."""
+        idx = np.asarray(idx)
+        stats = self.store.ensure(self._state_clients(state),
+                                  idx.reshape(-1))
+        self._emit_store_counters(stats)
+        return self.store.slots(idx)
+
+    def _emit_store_counters(self, stats: dict) -> None:
+        """Stream one ensure's hit/miss/evict/restore (and, with prefetch,
+        its pipeline) deltas into telemetry: host values only, no RNG."""
+        if self.telemetry is None:
+            return
+        for k, v in stats.items():
+            self.telemetry.counter(f"client_store_{k}", int(v))
+
+    # -- telemetry ------------------------------------------------------------
+    def set_telemetry(self, run) -> None:
+        """Attach (or detach, ``None``) a ``TelemetryRun``: the trainer,
+        its scenario and its store emit spans and events into it. No RNG
+        stream and no device operation changes, so runs are unchanged."""
+        self.telemetry = run
+        if self.scenario is not None:
+            self.scenario.telemetry = run
+        if self.store is not None:
+            self.store.telemetry = run
+
+    def _phase(self, name: str, **meta):
+        """A phase-timer span of the attached run (CUDA events on this
+        trainer's device), or one that records nowhere when telemetry is
+        off."""
+        if self.telemetry is None:
+            from ..telemetry import null_phase
+
+            return null_phase()
+        return self.telemetry.phase(name, device=self.device, **meta)
 
     # -- communication accounting --------------------------------------------
     def params_bytes(self) -> int:
@@ -417,10 +553,12 @@ class CohortTrainer(TrainerBase):
 
     m: int
 
-    def __init__(self, model: SmallModel, data: DeviceData,
-                 batch_size: int = 20, *, device=None, scenario=None,
-                 seed: int = 0):
-        super().__init__(model, data, batch_size, device=device)
+    def __init__(self, model: SmallModel, data, batch_size: int = 20, *,
+                 device=None, scenario=None, seed: int = 0, telemetry=None,
+                 store_capacity: int = 4096, prefetch: bool = False):
+        super().__init__(model, data, batch_size, device=device,
+                         telemetry=telemetry, store_capacity=store_capacity,
+                         prefetch=prefetch)
         if scenario is not None:
             self.attach_scenario(scenario, seed=seed)
 
@@ -440,7 +578,10 @@ class CohortTrainer(TrainerBase):
     def round(self, state, rnd: int, rng: np.random.Generator):
         sel = self.select_clients(rnd, rng, self.m)
         key = self.round_key(round_key_seed(rng))
-        clients = torch.as_tensor(sel, dtype=torch.int64, device=self.device)
+        # Lazy plane: the cohort's rows made resident, indexed by slot.
+        rows = sel if self.store is None else self._ensure_round(state, sel)
+        clients = torch.as_tensor(rows, dtype=torch.int64,
+                                  device=self.device)
         state = self._round_impl(state, clients,
                                  self.round_draws(clients, key))
         return state, {"round": rnd,

@@ -1,7 +1,9 @@
 """Fleet-RWSADMM: K mobile servers over one client graph.
 
-Port of ``repro/fl/fleet_trainer.py`` for the dense client plane, under
-every walk policy (each walker runs the lead walker's chain; a biased
+Port of ``repro/fl/fleet_trainer.py`` on both client planes (the lazy
+plane's store slots as the single walker's), with DP uploads in
+round-robin mode, under every walk policy (each walker runs the lead
+walker's chain; a biased
 policy scales each walker's y fold by its visit's importance weight), in
 any scenario (``scenarios/``). K walkers each carry
 their own token y_k and walk the same dynamic graph independently; every
@@ -86,6 +88,9 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         if fleet_mode == "simultaneous" and self.solver != "closed_form":
             raise ValueError("simultaneous fleet mode runs the closed-form "
                              "Eq. 31 zone update; use solver='closed_form'")
+        if fleet_mode == "simultaneous" and self.dp_clip is not None:
+            raise ValueError("simultaneous fleet mode does not support DP "
+                             "uploads")
         self._reset_fleet()
 
     def _reset_fleet(self) -> None:
@@ -119,28 +124,41 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
     # ------------------------------------------------------------------
     # One round of each mode; the eager and scan engines share them.
     # ------------------------------------------------------------------
+    def _state_clients(self, state: FleetState):
+        return state.base.clients
+
+    def _eval_token(self, state: FleetState):
+        return self.global_params(state)
+
+    def _window_key(self, engine: str, rounds: int) -> tuple:
+        return (engine, rounds, self.fleet_mode, self._use_iw)
+
     def _rr_step(self, state: FleetState, idx, mask, a: torch.Tensor, sync,
-                 key, iw=None, *, use_fused: bool = False, batch_idx=None,
-                 keep=None):
+                 key, iw=None, gid=None, *, use_fused: bool = False,
+                 batch_idx=None, keep=None):
         """Round-robin round: walker ``a`` (a 0-d int64 device tensor)
         serves one zone against its own token (its fold scaled by ``iw``
-        under a biased policy), then the optional rendezvous."""
+        under a biased policy), then the optional rendezvous. ``gid``:
+        the zone's global ids on the lazy plane (``idx`` then slots)."""
         a = a.reshape(1)
         base = state.base._replace(server=state.base.server._replace(
             y=state.tokens.index_select(0, a)[0]))
-        base, loss = self._round_impl(base, idx, mask, key, iw,
+        base, loss = self._round_impl(base, idx, mask, key, iw, gid,
                                       use_fused=use_fused,
                                       batch_idx=batch_idx, keep=keep)
         tokens = state.tokens.index_copy(0, a, base.server.y.unsqueeze(0))
         return FleetState(base, _rendezvous(tokens, sync)), loss
 
     def _sim_step(self, state: FleetState, idx, mask, sync, key, iw=None,
-                  *, use_fused: bool = False, batch_idx=None, keep=None):
+                  gid=None, *, use_fused: bool = False, batch_idx=None,
+                  keep=None):
         """Simultaneous wall step: K disjoint zones (idx/mask ``(K, Z)``)
         update against their own walkers' tokens in one pass. Batch
         indices (``(K·Z, B)``) are drawn for the flattened slots from
         ``split(key, K·Z)`` unless given. ``iw`` ``(K,)`` (a biased
-        policy) rescales each walker's token fold after the update."""
+        policy) rescales each walker's token fold after the update.
+        ``gid``: the zones' global ids on the lazy plane (``idx`` then
+        slots)."""
         clients, server = state.base.clients, state.base.server
         hp = self.hp
         k_walkers, zone = idx.shape
@@ -177,8 +195,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
                              m * (z_new.reshape(act_z.shape) - act_z))
         tokens = _rendezvous(y_new, sync)
         served = torch.zeros(self.n_clients, device=self.device)
-        visited = state.base.visited | (
-            served.index_add_(0, flat_idx, flat_mask) > 0)
+        visited = state.base.visited | (served.index_add_(
+            0, flat_idx if gid is None else gid.reshape(-1), flat_mask) > 0)
         base = RWSADMMState(clients,
                             rwsadmm.server_round_done(server, tokens[0], hp),
                             visited)
@@ -211,12 +229,11 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         n_active = int(mask.sum())
         latency_s, energy_j = self._price(graph, i_k, idx, mask)
         key = self.round_key(markov.round_key_seed(rng))
+        zone_idx, gid = self._zone_rows(state, idx)
         state, loss = self._rr_step(
-            state, torch.as_tensor(idx, dtype=torch.int64,
-                                   device=self.device),
-            torch.as_tensor(mask, device=self.device),
+            state, zone_idx, torch.as_tensor(mask, device=self.device),
             torch.tensor(k, device=self.device), self._sync_flag(rnd), key,
-            self._visit_weight([walker]))
+            self._visit_weight([walker]), gid)
         metrics = {
             "round": rnd, "walker": k, "client": int(i_k),
             "zone": n_active, "n_i": int(n_i),
@@ -238,11 +255,11 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             graph, positions, self.zone_size, rng,
             avail=self.scenario.availability())
         key = self.round_key(markov.round_key_seed(rng))
+        zone_idx, gid = self._zone_rows(state, idx)
         state, loss = self._sim_step(
-            state, torch.as_tensor(idx, dtype=torch.int64,
-                                   device=self.device),
-            torch.as_tensor(mask, device=self.device),
-            self._sync_flag(rnd), key, self._visit_weight(self.walkers))
+            state, zone_idx, torch.as_tensor(mask, device=self.device),
+            self._sync_flag(rnd), key, self._visit_weight(self.walkers),
+            gid)
         lat_kw, en_kw = self._price_fleet_schedule(
             [graph], positions[None], idx[None], mask[None])
         active = mask.sum(axis=1).astype(int)
@@ -296,13 +313,14 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             idx, mask, sync, key = (ins[k][r] for k in ("idx", "mask",
                                                         "sync", "keys"))
             iw = ins["iw"][r] if "iw" in ins else None
+            gid = ins["gid"][r] if "gid" in ins else None
             if "walker" in ins:
                 state, loss = self._rr_step(state, idx, mask,
                                             ins["walker"][r], sync, key, iw,
-                                            use_fused=use_fused)
+                                            gid, use_fused=use_fused)
             else:
                 state, loss = self._sim_step(state, idx, mask, sync, key,
-                                             iw, use_fused=use_fused)
+                                             iw, gid, use_fused=use_fused)
             losses.append(loss)
             kappas.append(state.base.server.kappa)
         return state, torch.stack(losses), torch.stack(kappas)
@@ -339,14 +357,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         return out
 
     # ------------------------------------------------------------------
-    def personalized_params(self, state: FleetState,
-                            rows: slice = slice(None)):
-        """x_i for visited clients; unvisited clients fall back to the
-        fleet-mean token (what a rendezvous would hand them)."""
-        v = state.base.visited[rows].unsqueeze(-1)
-        return torch.where(v, state.base.clients.x[rows],
-                           self.global_params(state))
-
+    # personalized_params (inherited): unvisited clients fall back to the
+    # fleet-mean token (what a rendezvous would hand them).
     def global_params(self, state: FleetState):
         return cohort_mean(state.tokens)
 

@@ -1,7 +1,8 @@
 """RWSADMM federated trainer (paper Algorithm 1 + Eq. 31 multi-client zone).
 
-Port of ``repro/fl/rwsadmm_trainer.py`` for the dense client plane, under
-every walk policy (``core/markov.py``: the degree and Metropolis chains,
+Port of ``repro/fl/rwsadmm_trainer.py`` on both client planes (dense
+``(n, P)`` stacks, or the lazy plane's bounded LRU store, indexed by slot),
+under every walk policy (``core/markov.py``: the degree and Metropolis chains,
 and the importance-biased ``staleness`` and ``label_skew`` walks), in any
 scenario (``scenarios/``; ``scenario=None`` is ``static_regen``, the
 ``core.graph.DynamicGraph`` trajectory). Host side per round k:
@@ -21,8 +22,9 @@ Zones are padded to ``zone_size`` with a mask; padded slots fold zero.
 A scenario changes only which slots are live, never a shape, so every
 scenario runs the same captured windows.
 
-Client x and z are flat ``(n, P)`` buffers (``core/tree.py``) that each
-round updates **in place**: the zone's new rows are scattered back with
+Client x and z are flat ``(n, P)`` buffers (``core/tree.py``; on the lazy
+plane ``(capacity, P)``, the store's slots) that each round updates **in
+place**: the zone's new rows are scattered back with
 ``index_add_`` of ``m·(new − old)``. A state passed to :meth:`round` or
 :meth:`run_chunk` is therefore consumed; clone it to keep it.
 
@@ -49,6 +51,16 @@ it first, and the state returned *is* the carry. The window's inputs
 (zones, masks, keys and, under a biased policy, the importance weights)
 are static device buffers, each filled from pinned host memory with one
 copy per window. On the CPU the window is a loop.
+
+The lazy plane (``data`` a ``ClientDataFactory``, ``store_capacity``
+slots): before a window runs, the store makes the window's whole visited
+set resident, writing restored and fresh rows into the carry's x/z and its
+own data block in place; the window's ``idx`` column then holds store
+slots, and a ``gid`` column the global ids for ``visited``. With
+``prefetch`` the next window's dataset rows are drawn on a host thread
+while this one runs. ``dp_clip``/``dp_noise`` clip and noise each upload
+before it reaches the token (``core/privacy.py``), on ``eager`` and
+``scan``; ``scan_fused`` refuses them, as the reference does.
 """
 from __future__ import annotations
 
@@ -57,7 +69,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import markov, prng, rwsadmm
+from ..core import markov, privacy, prng, rwsadmm
 from ..core.markov import ZoneSchedule
 from ..core.rwsadmm import ClientState, RWSADMMHparams, ServerState
 from ..data import partition
@@ -167,16 +179,26 @@ class RWSADMMTrainer(TrainerBase):
                                           # skew sharpening γ
         batched_walk: bool = False,       # inverse-CDF walk in schedule()
                                           # (another stream than eager's)
+        dp_clip: float | None = None,     # l2 clip on uploaded Δc (DP)
+        dp_noise: float = 1.0,            # Gaussian noise multiplier σ
+        store_capacity: int = 4096,       # lazy plane: resident slots
+        prefetch: bool = False,           # lazy plane: stage the next
+                                          # window's data on a host thread
+        telemetry=None,                   # TelemetryRun or None (off)
         seed: int = 0,
         device=None,
         **unported,
     ):
         reject_unported(unported)
-        super().__init__(model, data, batch_size, device=device)
+        super().__init__(model, data, batch_size, device=device,
+                         telemetry=telemetry, store_capacity=store_capacity,
+                         prefetch=prefetch)
         if solver not in SOLVERS:
             raise ValueError(f"solver must be one of {SOLVERS}, got {solver}")
         self.hp = hp
         self.solver = solver
+        self.dp_clip = dp_clip
+        self.dp_noise = dp_noise
         self.inner_steps = int(inner_steps)
         self.inner_lr = float(inner_lr)
         self.zone_size = int(min(zone_size, self.n_clients))
@@ -203,6 +225,7 @@ class RWSADMMTrainer(TrainerBase):
         self.windows: dict[tuple, CapturedWindow] = {}
         self._carry = None
         self._stream = None
+        self._chunk_shapes: set = set()   # window keys run so far
 
     def attach_scenario(self, spec, seed: int | None = None) -> None:
         """(Re)build the environment and reset the walker onto it;
@@ -223,6 +246,11 @@ class RWSADMMTrainer(TrainerBase):
         policies)."""
         if self.walk_policy != "label_skew":
             return None
+        if self.store is not None:
+            raise ValueError(
+                "walk_policy='label_skew' needs the per-client label "
+                "histograms of the dense client plane; the lazy plane "
+                "never materializes them")
         hist = partition.padded_label_histograms(
             self.data.y_train.cpu().numpy(), self.data.n_train.cpu().numpy())
         return partition.label_skew_weights(hist, gamma=self.walk_bias)
@@ -250,7 +278,9 @@ class RWSADMMTrainer(TrainerBase):
         """Fresh state. ``params`` (flat ``(P,)``) overrides the model init
         drawn from a CPU generator seeded with ``seed``."""
         params = self.initial_params(seed, params)
-        if self.warm_init:
+        if self.store is not None:
+            clients, server = self._init_lazy(params)
+        elif self.warm_init:
             clients, server = rwsadmm.init_states_warm(params, self.hp,
                                                        self.n_clients)
         else:
@@ -260,19 +290,35 @@ class RWSADMMTrainer(TrainerBase):
                               device=self.device)
         return RWSADMMState(clients=clients, server=server, visited=visited)
 
+    def _init_lazy(self, params: torch.Tensor):
+        """The packed-store twin of the dense init: every client's dense
+        init row is the same (warm: x = params, z = 0; cold: x = z = 0),
+        so the store fills every slot from that one template, and lazy
+        materialization is dense init bit for bit. ``visited`` stays a
+        dense ``(n,)`` bool (n bytes, not the O(n·P) the store removes)."""
+        zeros = torch.zeros_like(params)
+        x = params if self.warm_init else zeros
+        return (self.store.reset(ClientState(x=x, z=zeros)),
+                rwsadmm._server(x.clone(), self.hp))
+
+    def _state_clients(self, state: RWSADMMState) -> ClientState:
+        return state.clients
+
     # ------------------------------------------------------------------
     def _round_impl(self, state: RWSADMMState, zone_idx: torch.Tensor,
-                    zone_mask: torch.Tensor, key: torch.Tensor, iw=None, *,
-                    use_fused: bool = False, batch_idx=None, keep=None):
+                    zone_mask: torch.Tensor, key: torch.Tensor, iw=None,
+                    gid=None, *, use_fused: bool = False, batch_idx=None,
+                    keep=None):
         """One zone round on the device. ``zone_idx`` ``(Z,)`` int64,
         ``zone_mask`` ``(Z,)`` fp32 and the round's key ``(2,)`` int64
         device tensors; the batches and masks come from ``key`` unless
         ``batch_idx`` (``(Z, B)``, or ``(inner_steps, Z, B)`` for
         prox-SGD) is given, with ``keep`` (the CNN's dropout masks, or
         None). ``iw`` (a 0-d fp32 device tensor, biased policies only)
-        scales the zone's y fold. Updates ``state``'s client buffers in
-        place; returns the new state and the zone's mean training loss
-        as a 0-d device tensor."""
+        scales the zone's y fold. On the lazy plane ``zone_idx`` holds
+        store slots and ``gid`` the zone's global ids (for ``visited``).
+        Updates ``state``'s client buffers in place; returns the new state
+        and the zone's mean training loss as a 0-d device tensor."""
         clients, server = state.clients, state.server
         hp, kappa, y = self.hp, server.kappa, server.y
         act = ClientState(x=clients.x[zone_idx], z=clients.z[zone_idx])
@@ -312,7 +358,18 @@ class RWSADMMTrainer(TrainerBase):
             # Masked incremental y-update: y += (1/n) Σ_active (c⁺ − c),
             # under a biased policy scaled by the visit's importance
             # weight so the estimator stays unbiased (docs/walks.md).
-            delta = torch.sum(m * (c_new - c_old), dim=0) / n_total
+            if self.dp_clip is None:
+                d = c_new - c_old
+            else:
+                # DP uploads: each active client's Δc clipped and noised
+                # before it reaches the token, slot j under
+                # split(fold_in(key, 97), Z)[j].
+                dkeys = prng.split(prng.fold_in(key, 97),
+                                   zone_idx.shape[0])
+                d = privacy.privatize_delta(
+                    dkeys, c_new, c_old, self.layout, clip=self.dp_clip,
+                    noise_multiplier=self.dp_noise)
+            delta = torch.sum(m * d, dim=0) / n_total
             y_new = y + (delta if iw is None else iw * delta)
         elif iw is not None:
             # The kernel folded the unweighted delta; rescale it after,
@@ -328,8 +385,8 @@ class RWSADMMTrainer(TrainerBase):
         # Padding repeats id 0, so mark by summing the mask per client
         # (order-free) rather than by a racy scatter of booleans.
         served = torch.zeros(self.n_clients, device=self.device)
-        visited = state.visited | (served.index_add_(0, zone_idx,
-                                                     zone_mask) > 0)
+        visited = state.visited | (served.index_add_(
+            0, zone_idx if gid is None else gid, zone_mask) > 0)
         zone_loss = torch.sum(losses * zone_mask) / torch.clamp(
             zone_mask.sum(), min=1.0)
         return RWSADMMState(clients, server, visited), zone_loss
@@ -345,11 +402,10 @@ class RWSADMMTrainer(TrainerBase):
         n_active = int(mask.sum())
         latency_s, energy_j = self._price(graph, i_k, idx, mask)
         key = self.round_key(markov.round_key_seed(rng))
+        zone_idx, gid = self._zone_rows(state, idx)
         state, zone_loss = self._round_impl(
-            state, torch.as_tensor(idx, dtype=torch.int64,
-                                   device=self.device),
-            torch.as_tensor(mask, device=self.device), key,
-            self._visit_weight([self.walker]))
+            state, zone_idx, torch.as_tensor(mask, device=self.device), key,
+            self._visit_weight([self.walker]), gid)
         metrics = {
             "round": rnd,
             "client": int(i_k),
@@ -363,6 +419,17 @@ class RWSADMMTrainer(TrainerBase):
             **self._staleness_metrics(idx, mask, rnd),
         }
         return state, metrics
+
+    def _zone_rows(self, state, idx):
+        """An eager round's zone as device tensors: ``(rows, gid)``, the
+        rows the round indexes (client ids, or on the lazy plane the store
+        slots after making the zone resident) and the global ids for
+        ``visited`` (None on the dense plane, where they are the rows)."""
+        ids = torch.as_tensor(idx, dtype=torch.int64, device=self.device)
+        if self.store is None:
+            return ids, None
+        slots = self._ensure_round(state, idx)
+        return torch.as_tensor(slots, device=self.device), ids
 
     def _visit_weight(self, walkers):
         """Eager rounds' importance weights: each walker's latest visit's
@@ -395,7 +462,30 @@ class RWSADMMTrainer(TrainerBase):
             raise ValueError(
                 "scan_fused fuses the closed-form triple update; use "
                 "solver='closed_form' (prox_sgd has no closed-form x step)")
+        if use_fused and self.dp_clip is not None:
+            raise ValueError("scan_fused does not support DP uploads; "
+                             "use engine='scan'")
         return use_fused
+
+    def _window_key(self, engine: str, rounds: int) -> tuple:
+        """A window's capture key: (engine, length, fleet mode, whether it
+        carries ``iw``)."""
+        return (engine, rounds, None, self._use_iw)
+
+    def chunk_is_cold(self, engine: str, rounds: int) -> bool:
+        """True when the next window of this engine and length is the
+        first of its capture key (captured on a card, so its span
+        includes the capture): the telemetry spans tag it
+        ``includes_compile``."""
+        return self._window_key(engine, rounds) not in self._chunk_shapes
+
+    def prefetch_chunk(self, sched) -> int:
+        """Hand the next window's working set to the store's staging
+        thread (no-op unless ``prefetch=True``): its dataset rows are drawn
+        on the host while the current window runs."""
+        if self.store is None or not self.store.prefetch_enabled:
+            return 0
+        return self.store.prefetch(np.asarray(sched.idx).reshape(-1))
 
     def run_chunk(self, state: RWSADMMState, sched: ZoneSchedule,
                   engine: str = "scan"):
@@ -406,15 +496,22 @@ class RWSADMMTrainer(TrainerBase):
         CUDA device the state is the trainer's carry."""
         use_fused = self._engine_use_fused(engine)
         cols = self._window_columns(sched)
+        if self.store is not None:
+            # The window's whole visited set (padding ids included) made
+            # resident before it runs; its rounds index slots, and the
+            # global ids ride along for ``visited``.
+            with self._phase("ensure", rounds=int(sched.rounds)):
+                cols["gid"] = cols["idx"]
+                cols["idx"] = self._ensure_round(state, sched.idx)
+        key = self._window_key(engine, sched.rounds)
         if self.device.type != "cuda":
             ins = {k: torch.as_tensor(v, device=self.device)
                    for k, v in cols.items()}
             state, losses, kappas = self._window(state, ins, use_fused)
         else:
-            state, losses, kappas = self._replay(
-                state, cols, (engine, sched.rounds,
-                              getattr(sched, "mode", None), "iw" in cols),
-                use_fused)
+            state, losses, kappas = self._replay(state, cols, key,
+                                                 use_fused)
+        self._chunk_shapes.add(key)
         return state, {"train_loss": losses, "kappa": kappas}
 
     def _window_columns(self, sched: ZoneSchedule) -> dict:
@@ -430,11 +527,11 @@ class RWSADMMTrainer(TrainerBase):
         """The window's rounds in order: ``(state, losses (R,), κ (R,))``."""
         losses, kappas = [], []
         for r in range(ins["idx"].shape[0]):
-            state, loss = self._round_impl(state, ins["idx"][r],
-                                           ins["mask"][r], ins["keys"][r],
-                                           ins["iw"][r] if "iw" in ins
-                                           else None,
-                                           use_fused=use_fused)
+            state, loss = self._round_impl(
+                state, ins["idx"][r], ins["mask"][r], ins["keys"][r],
+                ins["iw"][r] if "iw" in ins else None,
+                ins["gid"][r] if "gid" in ins else None,
+                use_fused=use_fused)
             losses.append(loss)
             kappas.append(state.server.kappa)
         return state, torch.stack(losses), torch.stack(kappas)
@@ -525,8 +622,34 @@ class RWSADMMTrainer(TrainerBase):
     def personalized_params(self, state: RWSADMMState, rows: slice = slice(None)):
         """x_i for visited clients; unvisited clients fall back to the
         server token y (what the mobile server would hand them)."""
-        v = state.visited[rows].unsqueeze(-1)
-        return torch.where(v, state.clients.x[rows], state.server.y)
+        self._refuse_lazy("personalized_params would materialize an "
+                          "(n, P) stack; on the lazy plane use evaluate() "
+                          "(resident-set metrics) or read trainer.store")
+        base = getattr(state, "base", state)
+        v = base.visited[rows].unsqueeze(-1)
+        return torch.where(v, base.clients.x[rows], self._eval_token(state))
+
+    def _refuse_lazy(self, why: str) -> None:
+        if self.store is not None:
+            raise NotImplementedError(why)
+
+    def _eval_token(self, state):
+        """The token unvisited clients evaluate against (the fleet's is its
+        rendezvous mean)."""
+        return state.server.y
+
+    def _lazy_personalized_rows(self, state) -> torch.Tensor:
+        """Per-slot personalization for the resident-set evaluation, as
+        :meth:`personalized_params`: a slot whose client the walk visited
+        evaluates its x row, the rest the token."""
+        store = self.store
+        occ = store.gid_of >= 0
+        base = getattr(state, "base", state)
+        ids = torch.as_tensor(np.where(occ, store.gid_of, 0),
+                              device=self.device)
+        v = base.visited[ids] & torch.as_tensor(occ, device=self.device)
+        return torch.where(v.unsqueeze(-1), base.clients.x,
+                           self._eval_token(state))
 
     def global_params(self, state: RWSADMMState):
         return state.server.y
@@ -543,6 +666,9 @@ class RWSADMMTrainer(TrainerBase):
         clients, each client's training loss taken at its x on the batch
         ``randint(key, (B,), 0, n_i)`` without dropout (the reference's
         key, shared by every client). A dense-plane diagnostic."""
+        self._refuse_lazy("lyapunov iterates all n clients' data, a "
+                          "dense-plane diagnostic; run it on a dense twin "
+                          "at small n")
         clients = torch.arange(self.n_clients, device=self.device)
         idx, _ = prng.draws(key.expand(self.n_clients, 2),
                             batch=self.batch_size, spans=self.data.n_train,

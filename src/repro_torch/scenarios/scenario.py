@@ -30,8 +30,8 @@ draw sequence. With the default ``static_regen`` config (links and
 churn off) the mobility stream consumes exactly like ``DynamicGraph``'s
 single RNG — bit-for-bit identical trajectories.
 
-Port of ``repro/scenarios/scenario.py`` (without the telemetry spans:
-the port has no telemetry yet).
+Port of ``repro/scenarios/scenario.py``. With a ``telemetry`` run
+attached, :meth:`Scenario.schedule` records a ``scenario_rollout`` span.
 
 ``positions_only=True`` drops the connectivity stack entirely: the
 mobility model advances positions (identical RNG consumption — the
@@ -55,12 +55,13 @@ from .mobility import build_mobility
 
 class Scenario:
     def __init__(self, n: int, cfg: ScenarioConfig | str, seed: int = 0,
-                 *, positions_only: bool = False):
+                 *, positions_only: bool = False, telemetry=None):
         if isinstance(cfg, str):
             cfg = get_scenario_config(cfg)
         self.n = n
         self.cfg = cfg
         self.positions_only = bool(positions_only)
+        self.telemetry = telemetry   # TelemetryRun or None (off)
         self.mobility = build_mobility(n, cfg.mobility,
                                        backend=cfg.graph_backend,
                                        k_max=cfg.neighbor_k_max)
@@ -143,6 +144,15 @@ class Scenario:
         if include_current:
             graphs.append(self.current())
             avails.append(self.avail)
+        if self.telemetry is None:
+            return self._rollout(rounds, graphs, avails, batched)
+        with self.telemetry.phase("scenario_rollout", rounds=rounds,
+                                  batched=bool(batched),
+                                  backend=self.cfg.graph_backend):
+            return self._rollout(rounds, graphs, avails, batched)
+
+    def _rollout(self, rounds: int, graphs: list, avails: list,
+                 batched: bool) -> list[ClientGraph]:
         if batched:
             chunk = max(1, int(self.cfg.rollout_chunk))
             while len(graphs) < rounds:

@@ -30,6 +30,9 @@ SCENARIO_TWINS = [ROOT / "benchmarks" / "scenario_sweep_torch.py",
                   ROOT / "benchmarks" / "comm_cost_torch.py",
                   ROOT / "benchmarks" / "scan_scaling_torch.py",
                   ROOT / "examples" / "mobile_server_sim_torch.py"]
+#: the lazy-plane slice's benchmark twin (its --lazy section lives in
+#: scan_scaling_torch.py)
+TELEMETRY_TWINS = [ROOT / "benchmarks" / "telemetry_overhead_torch.py"]
 #: the paper's other result scripts (Fig. 2, Table 2, Fig. 3/4, mixing,
 #: ablations, the personalization comparison)
 PAPER_TWINS = {name: ROOT / sub / f"{name}_torch.py" for sub, name in (
@@ -38,7 +41,8 @@ PAPER_TWINS = {name: ROOT / sub / f"{name}_torch.py" for sub, name in (
     ("benchmarks", "ablations"), ("examples", "personalization_comparison"))}
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py",
-    *TWINS.values(), *SCENARIO_TWINS, *PAPER_TWINS.values()]
+    *TWINS.values(), *SCENARIO_TWINS, *PAPER_TWINS.values(),
+    *TELEMETRY_TWINS]
 
 
 def _forbidden(name: str) -> bool:
@@ -80,6 +84,10 @@ def test_imports_with_jax_and_reference_blocked():
         "import benchmarks.table2_scaling_torch, benchmarks.mixing_torch\n"
         "import benchmarks.ablations_torch\n"
         "import examples.personalization_comparison_torch\n"
+        "import repro_torch.fl.client_store, repro_torch.checkpoint\n"
+        "import repro_torch.core.privacy, repro_torch.telemetry\n"
+        "import repro_torch.telemetry.report, repro_torch.telemetry.smoke\n"
+        "import benchmarks.telemetry_overhead_torch\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

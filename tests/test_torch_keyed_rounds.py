@@ -226,6 +226,12 @@ def test_unported_keywords_name_their_item(feds, name, fleet):
         cls(MLR(SHAPE), feds[1], device="cpu", no_such_argument=1)
 
 
+def test_only_mesh_is_unported():
+    """Telemetry, the lazy plane's store and prefetch, and DP uploads are
+    ported; only the mesh waits."""
+    assert set(UNPORTED) == {"mesh"}
+
+
 #: each walk keyword with a value that moves the walker off the default
 WALK_KEYWORDS = {"transition": dict(transition="metropolis"),
                  "walk_policy": dict(walk_policy="staleness"),
