@@ -18,10 +18,10 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``flash_decode`` (fp32 at 1e-5, bf16 at atol 1e-3 + rtol 1e-2 against
    the plain softmax and the split reference; lengths below S, a window,
    a row with no valid key, every hd remainder of the tensor-core
-   steps). Every kernel by device time over input sets that together
-   exceed the L2 (cold) and over one set (warm), with CUDA-graph replay
-   beside; one ``scaled_dot_product_attention`` call timed the same way
-   as flash decode's yardstick. Then ``threefry`` (the port of
+   steps, gemma3-12b's shapes). Every kernel by device time over input
+   sets that together exceed the L2 (cold) and over one set (warm), with
+   CUDA-graph replay beside; one ``scaled_dot_product_attention`` call
+   timed the same way as flash decode's yardstick. Then ``threefry`` (the port of
    ``jax.random``'s sampler): ``threefry_draws`` bit for bit against the
    plain integer ops at the zone's 8 leaves, the fleet's 24, prox-SGD's
    step-major tree, the edge spans and its one-output forms, and
@@ -140,14 +140,33 @@ Phases (each prints its own lines; any failure exits non-zero):
    0.0, the quickstart's hitting time and MB a round the reference's
    (58; 2.92 and 7.17). The accuracies are printed beside the
    reference's.
-8. serve path — RecurrentGemma-9B at full width (bf16, seeded random
-   weights) through ``launch/serve.py``: prefill 4 × 2040 tokens (one
-   ``rglru_scan`` launch per RG-LRU layer, 26) and 15 greedy decode steps
-   (one ``flash_decode`` launch per local layer and step, 180; the rings
-   wrap at step 8), each kernel path's launches checked; then the decode
-   logits against a teacher-forced ``apply`` over the same 2056 tokens, a
-   profiled prefill and decode step, and the same generation and check in
-   fp32, where the bound is tight enough to fail a fault in the ring.
+8. serve path — RecurrentGemma-9B at full width and one 19-layer pattern
+   of its two (bf16, seeded random weights) through ``launch/serve.py``:
+   prefill 4 × 2040 tokens (one ``rglru_scan`` launch per RG-LRU layer,
+   13) and 15 greedy decode steps (one ``flash_decode`` launch per local
+   layer and step, 90; the rings wrap at step 8), each kernel path's
+   launches checked; then the decode logits against a teacher-forced
+   ``apply`` over the same 2056 tokens, a profiled prefill and decode
+   step, and the same generation and check with the same weights in fp32,
+   where the bound is tight enough to fail a fault in the ring.
+8a. model zoo — gemma3-12b at full width and depth (48 layers: 40 local
+   with a 1024-key ring that wraps during the prefill, 8 global; hd 240,
+   G = 2), bf16, through the same serve: exactly 720 ``flash_decode``
+   launches (48 × 15) and no other kernel, the teacher check, a profiled
+   prefill and decode step; its first pattern (6 layers) in fp32 with the
+   same weights at the fp32 bound; then tinyllama-1.1b, qwen2-7b (qkv
+   bias drawn at random, G = 7) and yi-34b (G = 7) at full width and 2
+   layers through the same serve and check. The kernel phase holds flash
+   decode at gemma3's shapes (global 2056 keys timed beside SDPA and its
+   bound, the full ring, lengths below S; bf16 and fp32).
+8b. training — RWSADMM on tinyllama-1.1b at full width and depth (22
+   layers, bf16) through ``launch/steps.py``'s ``make_train_step``: three
+   clients on the walker, 4 × 2048 tokens a step, five rounds; finite
+   losses, x moved, κ decayed, the leaves' dtypes after steps 1 and 2 as
+   the reference's promotion gives them, no hand kernel launched; ms a
+   step, tokens/s, peak memory. One step of a 2-layer fp32 cut on the
+   card against the same step on the CPU, and ``examples/
+   federated_lm_torch.py`` at its default size.
 
 Ends with a ``{"kernels": [...]}`` line, the paths' summaries, each
 phase's seconds, the ``nvidia-smi`` line and, last, ``{"ok": true,
@@ -1920,10 +1939,11 @@ GATES = dict(n_samples=1200, n_clients=10, clients_per_round=5, rounds=60,
                                       "pfedme": 0.6, "ditto": 0.6,
                                       "apfl": 0.6, "walkman": 0.35})
 # benchmarks/table1.py's grid through its port twin; 120 rounds as there
-# for the kernel's shapes and the plain hold, the grid itself cut to 60
-# (it took 144 s of the smoke at 120).
+# for the kernel's shapes and the plain hold, the grid itself cut to 40
+# (it took 144 s of the smoke at 120; the 120-round grid's reading is
+# the twin's own run, PERF.md §6).
 TABLE1_ROUNDS = 120
-TABLE1_GRID_ROUNDS = 60
+TABLE1_GRID_ROUNDS = 40
 #: clients of each Table 1 dataset (``benchmarks/table1_torch.datasets``)
 TABLE1_CLIENTS = {"mnist_like": 10, "synthetic": 20}
 TABLE1_PERSONALIZED = ("perfedavg", "pfedme", "ditto", "apfl", "rwsadmm")
@@ -2572,7 +2592,7 @@ def compare_lockstep(make, steps: int, leaves, unit: str, hp,
 LAZY = dict(capacity=40, window=4, rounds=80, fleet_capacity=50,
             fleet_window=2, fleet_steps=30, timed_windows=5,
             fedavg_rounds=3, fedavg_capacity=12, dp_rounds=8, dp_window=4,
-            ckpt_rounds=40, check_clients=100_000, check_window=8,
+            ckpt_rounds=40, check_clients=100_000, check_window=4,
             overhead_clients=2000, overhead_repeats=10, overhead_rounds=32,
             overhead_pct=5.0)
 
@@ -2789,7 +2809,7 @@ def fedavg_lazy(device, model, data, factory) -> dict:
 
 def lazy_check_subprocess(device) -> dict:
     """``benchmarks/scan_scaling_torch.py --lazy-check`` at n = 100,000 in
-    its own process (its peak RSS is its own): windows of 8 rounds of
+    its own process (its peak RSS is its own): windows of 4 rounds of
     ``scan_fused`` with prefetch off and on (bit for bit equal) and of
     ``scan``, every window's host columns against the CPU's
     ``schedule()``."""
@@ -3119,15 +3139,17 @@ FLASH_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (1e-3, 1e-2)}
 # relative RMS error per position. In bf16 the two paths round the same
 # math at different places (cuBLAS tiles a 1-token product otherwise than
 # a 2040-token one, the flash kernel sums in another order than the
-# chunked softmax), and those ulps (2^-8 relative) compound over 38
-# layers: the H100 reads 1.42-1.64e-2. 5e-2 leaves 3x room over that; it
-# fails arithmetic in a coarser type or a fault of order one, but not a
-# fault in the ring: with random weights the attention spreads over ~2048
-# keys, so a key more, fewer or stale, or a RoPE position one too far,
-# read 1.66-1.90e-2 on the H100 (tests/test_torch_teacher_probe.py). The
-# fp32 pass holds the ring: there the paths agree to float rounding
-# (3.5e-6 on the H100), and those four faults read 2.7e-4 (one key too
-# many before the wrap) to 7.8e-3; 1e-4 lies between.
+# chunked softmax), and those ulps (2^-8 relative) compound over the
+# layers: the H100 reads 1.42-1.64e-2 on RecurrentGemma's 38, 1.35e-2 on
+# its 19 and on gemma3-12b's 48, 3.7e-3-7.7e-3 on the 2-layer cuts.
+# 5e-2 leaves 3x room over that; it fails arithmetic in a coarser type or
+# a fault of order one, but not a fault in the ring: with random weights
+# the attention spreads over ~2048 keys, so a key more, fewer or stale,
+# or a RoPE position one too far, read 1.66-1.90e-2 on the H100
+# (tests/test_torch_teacher_probe.py). The fp32 pass holds the ring:
+# there the paths agree to float rounding (3.5e-6 on the H100; gemma3-
+# 12b's first pattern 2.1e-6), and those four faults read 2.7e-4 (one
+# key too many before the wrap) to 7.8e-3; 1e-4 lies between.
 TEACHER_REL_RMS = {"bfloat16": 5e-2, "float32": 1e-4}
 
 
@@ -3358,27 +3380,63 @@ def phase_lm_kernels(device, card: str) -> dict:
             check_flash_decode(2, 8, 2, 48, 1000, [1000, 129], 300,
                                "bfloat16", device, card, False),
             check_flash_decode(2, 4, 1, 24, 1000, [999, 65], None,
-                               "bfloat16", device, card, False)],
+                               "bfloat16", device, card, False),
+            *gemma3_flash_checks(device, card)],
     }
 
 
+#: gemma3-12b's attention at the serve shape: H 16 over K 8 (G = 2),
+#: hd 240 (the bf16 score loop ends on a 16-dimension step), a global
+#: layer's 2056 keys and a local layer's full ring of 1024
+GEMMA3_FLASH = dict(b=4, h=16, kv=8, hd=240, s=2056, ring=1024)
+
+
+def gemma3_flash_checks(device, card: str) -> list:
+    """Flash decode at gemma3-12b's shapes in bf16 and fp32: the global
+    layer (timed cold and warm beside SDPA and its bound, in bf16), the
+    full ring, and lengths below S; each row marked ``gemma3``."""
+    g = GEMMA3_FLASH
+    b, h, kv, hd, s, ring = (g[k] for k in ("b", "h", "kv", "hd", "s",
+                                            "ring"))
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for size, lengths in ((s, [s] * b), (ring, [ring] * b),
+                              (s, [s, s - 56, ring + 1, 1])):
+            timed = dtype == "bfloat16" and size == s and lengths[1] == s
+            rows.append(check_flash_decode(b, h, kv, hd, size, lengths, None,
+                                           dtype, device, card, timed)
+                        | {"gemma3": True})
+    return rows
+
+
+#: RecurrentGemma-9B's serve runs one 19-layer pattern of its two (13
+#: RG-LRU, 6 local layers): the depth cut that pays for the model zoo's
+#: phases; each layer kind keeps its full width, and the scan its
+#: full-shape timed row in the LM kernel phase
+RG_SERVE_LAYERS = 19
+
+
 def phase_serve(device) -> dict:
-    """RecurrentGemma-9B at full width, bf16, seeded random weights:
-    prefill 4 × 2040 tokens and 15 greedy decode steps through
-    ``launch/serve.py``, the local rings wrapping at decode step 8; then
-    the decode logits against a teacher-forced ``apply``, a profile, and
-    the generation and check again in fp32."""
+    """RecurrentGemma-9B at full width and one pattern's depth, bf16,
+    seeded random weights: prefill 4 × 2040 tokens and 15 greedy decode
+    steps through ``launch/serve.py``, the local rings wrapping at decode
+    step 8; then the decode logits against a teacher-forced ``apply``, a
+    profile, and the generation and check again with the same weights in
+    fp32."""
     import dataclasses
 
     import torch
 
+    from repro_torch.configs import get_config
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.registry import build_model, random_batch
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    model = serve.load_model(LM_ARCH, device=device, seed=SERVE["seed"])
+    model = build_model(dataclasses.replace(get_config(LM_ARCH),
+                                            n_layers=RG_SERVE_LAYERS),
+                        device=device).init(SERVE["seed"])
     torch.cuda.synchronize()
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
@@ -3460,18 +3518,37 @@ def phase_serve(device) -> dict:
         row[label.replace(" ", "_") + "_profile"] = profile_breakdown(
             fn, reps, label)
 
-    # The same path in fp32 (seeded weights of its own): decode and the
+    # The same path in fp32 with the same weights: decode and the
     # teacher-forced apply agree to float rounding there, so this pass
     # holds the ring's slots and lengths at full width.
-    del prefill, step, tok, cache, fn, model
+    del prefill, step, tok, cache, fn
+    model = as_float32(model)
     torch.cuda.empty_cache()
-    model = build_model(dataclasses.replace(cfg, dtype="float32"),
-                        device=device).init(SERVE["seed"])
     ids, logits = greedy(model, batch, gen, max_len)
     row["teacher"]["float32"] = teacher = teacher_forced_errors(
         model, batch["tokens"], ids, logits)
     hold_teacher(teacher, "float32", prompt + gen)
     return row
+
+
+def as_float32(model, n_layers: int | None = None):
+    """An fp32 ``LM`` holding ``model``'s weights (its first ``n_layers``
+    layers when given)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models.registry import build_model
+
+    cfg = model.cfg
+    n_layers = n_layers or cfg.n_layers
+    out = build_model(dataclasses.replace(cfg, dtype="float32",
+                                          n_layers=n_layers),
+                      device=model.device)
+    state = {k: v for k, v in model.state_dict().items()
+             if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers}
+    out.load_state_dict(state)
+    return out
 
 
 def greedy(model, batch, gen: int, max_len: int):
@@ -3561,6 +3638,355 @@ def profile_breakdown(fn, reps: int, label: str) -> dict:
         + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by_class.items()))
         + "; top: " + "; ".join(f"{k[:60]} {v:.3f}" for v, k in top))
     return out
+
+
+# ---------------------------------------------------------------------------
+# The attention-only model zoo (gemma3-12b at full width and depth, three
+# more archs at full width and 2 layers) and RWSADMM training of
+# tinyllama-1.1b.
+ZOO_ARCH = "gemma3-12b"
+#: gemma3-12b's fp32 pass: its first pattern (5 local layers, 1 global)
+ZOO_FP32_LAYERS = 6
+#: archs held at full width with their depth cut to 2 layers
+ZOO_CUTS = ("tinyllama-1.1b", "qwen2-7b", "yi-34b")
+ZOO_CUT_LAYERS = 2
+#: the qkv bias (zeros at init, as the reference's) drawn at this scale
+#: for the serve check, so that the card adds something
+QKV_BIAS_SCALE = 0.5
+
+
+def serve_lm(model, label: str) -> dict:
+    """``launch/serve.py``'s generation of ``SERVE``'s batch on ``model``:
+    exactly one ``flash_decode`` launch per attention layer and decode
+    step and no other kernel; the decode logits against a teacher-forced
+    ``apply`` at the dtype's bound; prefill and decode times, tokens/s and
+    peak memory."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import random_batch
+
+    cfg = model.cfg
+    bsz, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    max_len = prompt + gen
+    batch = random_batch(cfg, bsz, prompt, seed=SERVE["seed"],
+                         device=model.device)
+    for _ in serve.generate(model, {"tokens": batch["tokens"][:, :64]}, 2,
+                            66):    # warm-up, uncounted
+        pass
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    steps = serve.generate(model, batch, gen, max_len)
+    first = next(steps)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    after_prefill = launch_counts()
+    rest = list(steps)
+    torch.cuda.synchronize()
+    t_total = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_attn = sum(blk.kind != "rglru" for blk in model.layers)
+    want_prefill = {n: 0 for n in _wrappers()}
+    want_total = want_prefill | {"flash_decode": n_attn * (gen - 1)}
+    ids = torch.cat([first[0]] + [tok for tok, _ in rest], dim=1)
+    logits = torch.stack([first[1]] + [lg for _, lg in rest], dim=1)
+    row = {"layers": cfg.n_layers, "dtype": cfg.dtype,
+           "prefill_ms": t_prefill * 1e3,
+           "decode_ms_per_step": (t_total - t_prefill) / (gen - 1) * 1e3,
+           "tok_per_s": bsz * gen / t_total, "peak_gib": peak / 2**30,
+           "launches": {"flash_decode": counts["flash_decode"]},
+           "ids_row0": ids[0].tolist()}
+    log(f"{label}: {cfg.n_layers} layers {cfg.dtype}: prefill {bsz}x{prompt} "
+        f"in {row['prefill_ms']:.1f} ms, {gen - 1} decode steps at "
+        f"{row['decode_ms_per_step']:.2f} ms a step, {row['tok_per_s']:.1f} "
+        f"tok/s over the call, peak allocated {row['peak_gib']:.2f} GiB, "
+        f"launches {counts}; ids row 0 {row['ids_row0']}")
+    if (after_prefill != want_prefill or counts != want_total
+            or tuple(ids.shape) != (bsz, gen)
+            or not bool(logits.isfinite().all())):
+        raise AssertionError(f"{label}: launches after prefill "
+                             f"{after_prefill} (want {want_prefill}), after "
+                             f"decode {counts} (want {want_total}), ids "
+                             f"{tuple(ids.shape)}, finite logits "
+                             f"{bool(logits.isfinite().all())}")
+    row["teacher"] = teacher_forced_errors(model, batch["tokens"], ids,
+                                           logits)
+    del logits
+    hold_teacher(row["teacher"], cfg.dtype, prompt + gen)
+    return row
+
+
+def phase_zoo_serve(device) -> dict:
+    """gemma3-12b at full width and depth (48 layers: 40 local with a
+    1024-key ring that wraps during the 2040-token prefill, 8 global), bf16,
+    seeded random weights, through ``launch/serve.py``: 720 flash-decode
+    launches and nothing else, the teacher check, a profiled prefill and
+    decode step; its first pattern again in fp32 with the same weights;
+    then tinyllama-1.1b, qwen2-7b (qkv bias, G = 7) and yi-34b (G = 7) at
+    full width and 2 layers through the same serve and check."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.registry import build_model, random_batch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = serve.load_model(ZOO_ARCH, device=device, seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    kinds = [blk.kind for blk in model.layers]
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {ZOO_ARCH: {"params": n_params, "param_count": cfg.param_count(),
+                      "init_s": time.perf_counter() - t0}}
+    log(f"zoo: {ZOO_ARCH} {cfg.n_layers} layers ({kinds.count('local')} "
+        f"local, window {cfg.window}, {kinds.count('attn')} global), d "
+        f"{cfg.d_model}, hd {cfg.hd}, H {cfg.n_heads} over K "
+        f"{cfg.n_kv_heads}, vocab {cfg.vocab}, {n_params:,} params "
+        f"({cfg.param_count():,} by param_count), {cfg.dtype}, init "
+        f"{out[ZOO_ARCH]['init_s']:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    out[ZOO_ARCH] |= serve_lm(model, ZOO_ARCH)
+    bsz, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    batch = random_batch(cfg, bsz, prompt, seed=SERVE["seed"], device=device)
+    prefill = make_prefill_step(model, prompt + gen)
+    step = make_serve_step(model)
+    tok, _, cache = prefill(batch)
+    tok, _, cache = step(cache, tok)
+    for label, fn, reps in (("prefill", lambda: prefill(batch), 1),
+                            ("decode step", lambda: step(cache, tok), 3)):
+        out[ZOO_ARCH][label.replace(" ", "_") + "_profile"] = \
+            profile_breakdown(fn, reps, f"{ZOO_ARCH} {label}")
+    del prefill, step, tok, cache, fn
+    model = as_float32(model, ZOO_FP32_LAYERS)
+    torch.cuda.empty_cache()
+    out[ZOO_ARCH]["float32"] = serve_lm(model, f"{ZOO_ARCH} fp32")
+    del model
+    torch.cuda.empty_cache()
+
+    for arch in ZOO_CUTS:
+        cfg = dataclasses.replace(get_config(arch), n_layers=ZOO_CUT_LAYERS)
+        t0 = time.perf_counter()
+        model = build_model(cfg, device=device).init(SERVE["seed"])
+        if cfg.qkv_bias:
+            gen_b = torch.Generator().manual_seed(SERVE["seed"])
+            with torch.no_grad():
+                for blk in model.layers:
+                    for b in (blk.mix.bq, blk.mix.bk, blk.mix.bv):
+                        b.copy_(torch.randn(b.shape, generator=gen_b)
+                                * QKV_BIAS_SCALE)
+        torch.cuda.synchronize()
+        log(f"zoo: {arch} cut to {cfg.n_layers} layers, d {cfg.d_model}, "
+            f"hd {cfg.hd}, H {cfg.n_heads} over K {cfg.n_kv_heads}, vocab "
+            f"{cfg.vocab}, qkv bias {cfg.qkv_bias}, tied "
+            f"{cfg.tie_embeddings}, "
+            f"{sum(p.numel() for p in model.parameters()):,} params, init "
+            f"{time.perf_counter() - t0:.2f} s")
+        out[arch] = serve_lm(model, arch)
+        del model
+        torch.cuda.empty_cache()
+    return out
+
+
+#: tinyllama-1.1b trained at full width and depth in its config's bf16:
+#: three clients on the walker, 4 × 2048 tokens a step (its context),
+#: five rounds, at the reference example's hyperparameters
+TRAIN = dict(arch="tinyllama-1.1b", clients=3, batch=4, seq=2048, rounds=5,
+             seed=0, beta=2.0, kappa=0.001, epsilon=1e-5)
+#: the leaves' dtypes (x, z, y) after the first and second step under the
+#: reference's promotion (its κ is a strong fp32 scalar)
+TRAIN_DTYPES = (("bfloat16", "float32", "float32"),
+                ("float32", "float32", "float32"))
+#: one step of a 2-layer fp32 cut, card against CPU, on 2 × 256 tokens:
+#: x, z and y at this tolerance except y's sign flips, which must be ties
+#: (|y' − x| within twice the tolerance) and few
+PARITY_STEP = dict(layers=2, batch=2, seq=256, atol=1e-6, rtol=1e-5,
+                   max_flip_share=1e-4)
+
+
+def lm_step_parity(device) -> dict:
+    """One RWSADMM step of tinyllama-1.1b at full width, 2 layers, fp32,
+    from the same weights and tokens on the card and on the CPU."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from examples.federated_lm_torch import heterogeneous_stream
+    from repro_torch.configs import get_config
+    from repro_torch.core.rwsadmm import RWSADMMHparams
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.registry import build_model
+
+    p = PARITY_STEP
+    cfg = dataclasses.replace(get_config(TRAIN["arch"]),
+                              n_layers=p["layers"], dtype="float32")
+    hp = RWSADMMHparams(beta=TRAIN["beta"], kappa=TRAIN["kappa"],
+                        epsilon=TRAIN["epsilon"])
+    cpu = build_model(cfg, device="cpu").init(TRAIN["seed"])
+    card = build_model(cfg, device=device)
+    card.load_state_dict(cpu.state_dict())
+    tokens = heterogeneous_stream(cfg.vocab, 1, p["batch"], p["seq"],
+                                  np.random.default_rng(TRAIN["seed"]))
+    results = []
+    for model in (cpu, card):
+        params = {k: v.detach() for k, v in model.named_parameters()}
+        state, loss = make_train_step(model, hp, TRAIN["clients"])(
+            init_train_state(params, hp),
+            {"tokens": torch.as_tensor(tokens, device=model.device)})
+        results.append((state, float(loss)))
+    (want, want_loss), (got, got_loss) = results
+    start = {k: v.detach() for k, v in cpu.named_parameters()}   # y' = x'
+    errs, flips = {}, 0
+    for name in ("x", "z", "y"):
+        worst = 0.0
+        for leaf, w in getattr(want, name).items():
+            g = getattr(got, name)[leaf].cpu()
+            bad = ~torch.isclose(g, w, atol=p["atol"], rtol=p["rtol"])
+            if name == "y":     # sgn(y' − x) may differ at a tie
+                y0 = start[leaf]
+                gap = (y0 - want.x[leaf]).abs()
+                tie = gap <= 2 * (p["atol"] + p["rtol"] * y0.abs())
+                flip = torch.sign(y0 - want.x[leaf]) != torch.sign(
+                    y0 - got.x[leaf].cpu())
+                if bool((flip & ~tie).any()) or int(flip.sum()) > \
+                        p["max_flip_share"] * flip.numel() + 1:
+                    raise AssertionError(f"lm step parity: {leaf} flips "
+                                         f"{int(flip.sum())}, not ties")
+                flips += int(flip.sum())
+                bad &= ~flip
+            if bool(bad.any()):
+                raise AssertionError(f"lm step parity: {name} {leaf} card vs "
+                                     f"CPU beyond {p['atol']}/{p['rtol']}: "
+                                     f"{float((g - w).abs().max())}")
+            worst = max(worst, float((g - w).abs().max()))
+        errs[name] = worst
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    row = {"loss_cpu": want_loss, "loss_card": got_loss, "loss_rel": loss_rel,
+           "max_abs": errs, "y_sign_flips": flips,
+           "tokens": p["batch"] * p["seq"]}
+    log(f"train parity: tinyllama-1.1b {p['layers']} layers fp32, one step "
+        f"on {p['batch']}x{p['seq']} tokens, card vs CPU: loss {got_loss} vs "
+        f"{want_loss} (rel {loss_rel:.3g}), max abs x/z/y {errs}, y sign "
+        f"flips at ties {flips} (tolerance atol {p['atol']} rtol "
+        f"{p['rtol']})")
+    if not loss_rel <= p["rtol"]:
+        raise AssertionError(f"lm step parity: loss {row}")
+    return row
+
+
+def phase_train(device) -> dict:
+    """RWSADMM training of tinyllama-1.1b at full width and depth through
+    ``launch/steps.py``'s ``make_train_step``: a random walk over three
+    clients' heterogeneous streams for five rounds; gated on finite losses,
+    x moved, κ decayed, the reference's dtype promotion after steps 1 and
+    2, and no hand kernel launched. Then a 2-layer fp32 step card vs CPU
+    and ``examples/federated_lm_torch.py`` at its default size."""
+    import numpy as np
+    import torch
+
+    from examples.federated_lm_torch import heterogeneous_stream
+    from examples.federated_lm_torch import main as federated_lm
+    from repro_torch.configs import get_config
+    from repro_torch.core.graph import DynamicGraph
+    from repro_torch.core.markov import RandomWalkServer
+    from repro_torch.core.rwsadmm import RWSADMMHparams
+    from repro_torch.launch.steps import TrainState, init_train_state, \
+        make_train_step
+    from repro_torch.models.registry import build_model
+
+    t = TRAIN
+    t0 = time.perf_counter()
+    cfg = get_config(t["arch"])
+    model = build_model(cfg, device=device).init(t["seed"])
+    torch.cuda.synchronize()
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    log(f"train: {t['arch']} {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {sum(v.numel() for v in params.values()):,} params "
+        f"{cfg.dtype}, init {time.perf_counter() - t0:.2f} s")
+    hp = RWSADMMHparams(beta=t["beta"], kappa=t["kappa"],
+                        epsilon=t["epsilon"])
+    step = make_train_step(model, hp, n_total=t["clients"])
+    rng = np.random.default_rng(t["seed"])
+    batches = [torch.as_tensor(heterogeneous_stream(cfg.vocab, c, t["batch"],
+                                                    t["seq"], rng),
+                               device=device) for c in range(t["clients"])]
+    states = [init_train_state(params, hp) for _ in range(t["clients"])]
+    dyn = DynamicGraph(t["clients"], min_degree=2, regen_every=10, seed=0)
+    walker = RandomWalkServer(seed=1)
+    walker.reset(dyn.current())
+    y, kappa = states[0].y, states[0].kappa
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    visits, losses, step_ms, dtypes = [], [], [], []
+    for r in range(t["rounds"]):
+        g = dyn.step() if r else dyn.current()
+        i_k = walker.step(g) if r else walker.position
+        st = TrainState(x=states[i_k].x, z=states[i_k].z, y=y, kappa=kappa)
+        t1 = time.perf_counter()
+        st, loss = step(st, {"tokens": batches[i_k]})
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        states[i_k], y, kappa = st, st.y, st.kappa
+        visits.append(i_k)
+        losses.append(float(loss))
+        dtypes.append(tuple(str({v.dtype for v in getattr(st, n).values()})
+                            for n in ("x", "z", "y")))
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    moved = any(not torch.equal(states[c].x[k].float(), params[k].float())
+                for c in set(visits) for k in params)
+    want_kappa = np.float32(t["kappa"])
+    for _ in range(t["rounds"]):
+        want_kappa = np.float32(want_kappa * np.float32(0.99))
+    steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    tokens = t["batch"] * t["seq"]
+    want_dtypes = [tuple(str({getattr(torch, d)}) for d in dts)
+                   for dts in TRAIN_DTYPES]
+    row = {"visits": visits, "losses": losses, "step_ms": step_ms,
+           "steady_step_ms": steady, "tok_per_s": tokens / steady * 1e3,
+           "peak_gib": peak / 2**30, "kappa": float(kappa),
+           "dtypes_after_steps_1_2": dtypes[:2], "launches": counts}
+    log(f"train: {t['rounds']} rounds over clients {visits}: losses "
+        f"{losses}, ms a step {[round(m, 1) for m in step_ms]} (steady "
+        f"median {steady:.1f} ms, {row['tok_per_s']:.0f} tokens/s on "
+        f"{tokens} tokens a step), peak allocated {row['peak_gib']:.2f} GiB, "
+        f"kappa {float(kappa)}, dtypes x/z/y after steps 1, 2 {dtypes[:2]}, "
+        f"launches {counts}")
+    if not (all(np.isfinite(losses)) and moved
+            and abs(float(kappa) - float(want_kappa)) <= 1e-6 * want_kappa
+            and dtypes[:2] == want_dtypes
+            and not any(counts.values())):
+        raise AssertionError(f"train: finite {all(np.isfinite(losses))}, x "
+                             f"moved {moved}, kappa {float(kappa)} (want "
+                             f"{want_kappa}), dtypes {dtypes[:2]} (want "
+                             f"{want_dtypes}), launches {counts}")
+    del model, params, states, st, y, step, batches
+    torch.cuda.empty_cache()
+
+    row["parity"] = lm_step_parity(device)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    visits, ex_losses = federated_lm(["--device", str(device)])
+    torch.cuda.synchronize()
+    ex = {"seconds": time.perf_counter() - t0, "rounds": len(visits),
+          "launches": launch_counts(),
+          "first_last": {c: (v[0], v[-1]) for c, v in ex_losses.items()}}
+    log(f"train: examples/federated_lm_torch.py at its default size: "
+        f"{ex['rounds']} rounds in {ex['seconds']:.2f} s, first/last loss "
+        f"per client {ex['first_last']}, launches {ex['launches']}")
+    if not all(np.isfinite(v).all() for v in ex_losses.values()) \
+            or any(ex["launches"].values()):
+        raise AssertionError(f"federated_lm_torch: {ex}")
+    row["example"] = ex
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -3686,6 +4112,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve_path"] = run_phase("serve", phase_serve, device)
     launches.update(paths["serve_path"]["launches"])
+    paths["zoo_serve"] = run_phase("zoo serve", phase_zoo_serve, device)
+    paths["train"] = run_phase("train", phase_train, device)
+    # flash_decode on the zoo's serve paths, each driven with the counts at
+    # 0: gemma3-12b bf16 at full depth, its fp32 pattern, the 2-layer cuts
+    zoo = paths["zoo_serve"]
+    zoo_launches = {"gemma3-12b": zoo[ZOO_ARCH]["launches"]["flash_decode"],
+                    "gemma3-12b-fp32": zoo[ZOO_ARCH]["float32"]["launches"][
+                        "flash_decode"]}
+    zoo_launches.update({a: zoo[a]["launches"]["flash_decode"]
+                         for a in ZOO_CUTS})
 
     # Every kernel's "ms" is its device time per call with a cold L2.
     extra = ("ms_warm", "graph_ms", "graph_ms_warm", "library_ms_warm",
@@ -3716,6 +4152,13 @@ def main() -> int:
                             if e.startswith(kernel)}
         if "sign_flips" in timed:
             row["sign_flips"] = sum(r["sign_flips"] for r in checks)
+        if kernel == "flash_decode":
+            g3 = next(r for r in checks if r.get("gemma3") and "ms" in r)
+            row["launches_zoo"] = zoo_launches
+            row["gemma3_shape"] = {k: g3[k] for k in (
+                "shape", "ms", "ms_warm", "graph_ms", "library_ms",
+                "library_ms_warm", "plain_ms", "bound_ms", "bound_by",
+                "share_of_bound", "config")}
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     for label, summary in paths.items():

@@ -1,4 +1,11 @@
 """Architecture configs the port runs (a copy of the JAX package's config
-system, registering only RecurrentGemma-9B)."""
+system, registering the architectures whose layers the port has)."""
 from .base import ModelConfig, get_config, list_archs, register  # noqa: F401
-from . import recurrentgemma_9b  # noqa: F401,E402  (registers it)
+# Importing these modules registers them.
+from . import (  # noqa: F401,E402
+    gemma3_12b,
+    qwen2_7b,
+    recurrentgemma_9b,
+    tinyllama_1_1b,
+    yi_34b,
+)

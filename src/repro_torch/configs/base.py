@@ -1,10 +1,12 @@
 """Architecture configs: the port's own copy of the JAX package's
 ``ModelConfig`` (``hd``, ``pattern_repeats``, ``param_count()``,
 ``reduced()``) and its registry, holding only what the port's ``LM``
-runs: global and local attention with standard RoPE, RG-LRU, a dense FFN
-and tied embeddings. Fields of the rest of the model zoo (MoE, frontends,
-encoders, mLSTM/sLSTM, learned positions, qkv bias) come with the slice
-that runs them (ROADMAP Queue 1 item 8).
+runs: global and local attention with standard RoPE and an optional qkv
+bias, RG-LRU, a dense FFN, and a tied embedding or an untied head.
+Fields of the rest of the model zoo (MoE, frontends, encoders,
+mLSTM/sLSTM, learned positions) come with the slice that runs them
+(ROADMAP Queue 1 item 8); ``rope`` takes the reference's values, and the
+``LM`` refuses all but ``"standard"``.
 
 Only architectures whose model the port runs are registered;
 ``get_config`` of any other raises.
@@ -33,7 +35,10 @@ class ModelConfig:
     window: int = 4096           # sliding-window size for "local" layers
 
     head_dim: Optional[int] = None   # default d_model // n_heads
+    qkv_bias: bool = False
+    rope: str = "standard"       # standard | mrope | none
     rope_theta: float = 1e4
+    tie_embeddings: bool = False
     norm_eps: float = 1e-6
     act: str = "silu"            # mlp activation: silu (SwiGLU) | gelu
 
@@ -59,6 +64,8 @@ class ModelConfig:
         for kind in set(self.layer_pattern):
             if kind in ("attn", "local"):
                 per_kind[kind] = d * h * hd + 2 * d * kv * hd + h * hd * d
+                if self.qkv_bias:
+                    per_kind[kind] += (h + 2 * kv) * hd
             elif kind == "rglru":
                 # in-proj ×2 + conv4 + r/i gates + out proj.
                 per_kind[kind] = 5 * d * d + 4 * d
@@ -68,7 +75,15 @@ class ModelConfig:
                 for kind in self.layer_pattern) * self.pattern_repeats
         ffn = (3 * d * ff if self.act == "silu" else 2 * d * ff) if ff else 0
         n += self.n_layers * (ffn + (2 * d if ffn else 0))
-        return int(n + v * d)  # + the tied embedding
+        n += v * d  # embeddings
+        if not self.tie_embeddings:
+            n += v * d
+        if self.rope == "none" and any(k in ("attn", "local")
+                                       for k in self.layer_pattern):
+            raise NotImplementedError(
+                f"{self.arch_id}: learned positions (rope='none') are not "
+                f"in the port yet (ROADMAP Queue 1 item 8)")
+        return int(n)
 
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":

@@ -16,7 +16,9 @@ RECURRENTGEMMA_9B = register(ModelConfig(
     vocab=256000,
     layer_pattern=_PATTERN,
     window=2048,
+    rope="standard",
     rope_theta=1e4,
     act="gelu",
+    tie_embeddings=True,
     source="arXiv:2402.19427",
 ))

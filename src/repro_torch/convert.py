@@ -120,7 +120,8 @@ def load_reference(module: torch.nn.Module, ref_params: Mapping) -> None:
 # ------------------------------------------------------------- LM ---------
 # The reference LM's params: {"embed", "final_norm": {"scale"}, "layers":
 # tuple over pattern index gi of dicts whose leaves stack the pattern's
-# repeats on a leading axis}. The port's LM names layer
+# repeats on a leading axis} and, untied, "head"; a qkv bias rides in
+# each attention layer's "mix" as "bq", "bk", "bv". The port's LM names layer
 # l = r·len(pattern) + gi as "layers.{l}.<path>".
 
 def _leaf_to_torch(leaf, device=None) -> torch.Tensor:
@@ -139,6 +140,8 @@ def lm_state_from_reference(ref_params: Mapping, cfg, device=None
     port ``LM``'s ``state_dict``, each leaf in its own dtype."""
     g = len(cfg.layer_pattern)
     state = {"embed": _leaf_to_torch(ref_params["embed"], device)}
+    if "head" in ref_params:     # an untied output head (d, vocab)
+        state["head"] = _leaf_to_torch(ref_params["head"], device)
     for path, leaf in _walk(ref_params["final_norm"], "final_norm"):
         state[path] = _leaf_to_torch(leaf, device)
     for gi, group in enumerate(ref_params["layers"]):

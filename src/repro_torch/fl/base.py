@@ -239,10 +239,10 @@ class TrainerBase:
     def initial_params(self, seed: int = 0,
                        params: torch.Tensor | None = None) -> torch.Tensor:
         """Flat ``(P,)`` fp32 params on the device: ``params`` if given,
-        else the model init drawn from a CPU generator seeded with
-        ``seed``."""
+        else the reference's ``model.init(PRNGKey(seed))``, drawn on the
+        CPU whatever the device (see ``SmallModel.init_params``)."""
         if params is None:
-            init = self.model.init_params(torch.Generator().manual_seed(seed))
+            init = self.model.init_params(prng.prng_key(seed))
             params = self.layout.flatten(init)
         return params.to(device=self.device, dtype=torch.float32)
 

@@ -276,7 +276,7 @@ class RWSADMMTrainer(TrainerBase):
     def init_state(self, seed: int = 0, params: torch.Tensor | None = None
                    ) -> RWSADMMState:
         """Fresh state. ``params`` (flat ``(P,)``) overrides the model init
-        drawn from a CPU generator seeded with ``seed``."""
+        the reference draws from ``PRNGKey(seed)``."""
         params = self.initial_params(seed, params)
         if self.store is not None:
             clients, server = self._init_lazy(params)

@@ -16,14 +16,15 @@ import torch
 from torch import nn
 
 from ..kernels.flash_decode.ops import flash_decode
-from .layers import apply_rope, dense_init, param, torch_dtype
+from .layers import NormalDraws, apply_rope, dense_init, param, \
+    torch_dtype
 
 NEG_INF = -1e30
 
 
 class Attention(nn.Module):
-    """``wq``, ``wk``, ``wv``, ``wo``, named and shaped as the reference's
-    dict (no qkv bias)."""
+    """``wq``, ``wk``, ``wv``, ``wo`` and, with ``cfg.qkv_bias``, ``bq``,
+    ``bk``, ``bv``, named and shaped as the reference's dict."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -33,21 +34,31 @@ class Attention(nn.Module):
         self.wk = param(d, kv * hd, **kw)
         self.wv = param(d, kv * hd, **kw)
         self.wo = param(h * hd, d, **kw)
+        self.qkv_bias = cfg.qkv_bias
+        if cfg.qkv_bias:
+            self.bq = param(h * hd, **kw)
+            self.bk = param(kv * hd, **kw)
+            self.bv = param(kv * hd, **kw)
 
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        dense_init(self.wq, gen)
-        dense_init(self.wk, gen)
-        dense_init(self.wv, gen)
-        dense_init(self.wo, gen, 1.0 / np.sqrt(self.wo.shape[0]))
+    def reset_parameters(self, draws: NormalDraws) -> None:
+        dense_init(self.wq, draws)
+        dense_init(self.wk, draws)
+        dense_init(self.wv, draws)
+        dense_init(self.wo, draws, 1.0 / np.sqrt(self.wo.shape[0]))
+        if self.qkv_bias:   # zeros, as the reference's
+            with torch.no_grad():
+                for b in (self.bq, self.bk, self.bv):
+                    b.zero_()
 
 
 def _project_qkv(p, x, cfg):
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p.wq).reshape(b, s, h, hd)
-    k = (x @ p.wk).reshape(b, s, kv, hd)
-    v = (x @ p.wv).reshape(b, s, kv, hd)
-    return q, k, v
+    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    if cfg.qkv_bias:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
+            v.reshape(b, s, kv, hd))
 
 
 def _rope_qk(q, k, positions, cfg):

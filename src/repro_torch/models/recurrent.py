@@ -15,7 +15,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.rglru_scan.ops import rglru_scan
-from .layers import dense_init, normal_, param, torch_dtype
+from .layers import NormalDraws, dense_init, param, torch_dtype
 
 _C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -35,15 +35,15 @@ class RGLRU(nn.Module):
         self.lam = param(d, dtype=torch.float32, device=device)
         self.w_out = param(d, d, **kw)
 
-    def reset_parameters(self, gen: torch.Generator) -> None:
-        dense_init(self.w_x, gen)
-        dense_init(self.w_g, gen)
-        normal_(self.conv_w, gen, 0.1)
-        dense_init(self.w_rg, gen)
-        dense_init(self.w_ig, gen)
+    def reset_parameters(self, draws: NormalDraws) -> None:
+        dense_init(self.w_x, draws)
+        dense_init(self.w_g, draws)
+        draws.add(self.conv_w, 0.1)
+        dense_init(self.w_rg, draws)
+        dense_init(self.w_ig, draws)
         with torch.no_grad():
             self.lam.fill_(0.7)
-        dense_init(self.w_out, gen)
+        dense_init(self.w_out, draws)
 
 
 class RGLRUState(NamedTuple):

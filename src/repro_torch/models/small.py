@@ -38,9 +38,10 @@ class _Dense(nn.Module):
         self.w = nn.Parameter(torch.empty(n_in, n_out))
         self.b = nn.Parameter(torch.zeros(n_out))
 
-    def init_params(self, gen: torch.Generator) -> dict[str, torch.Tensor]:
-        return {"w": torch.randn(self.w.shape, generator=gen) * self.scale,
-                "b": torch.zeros(self.b.shape)}
+    def init_params(self, key: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The reference's ``_dense_init``: ``normal(split(key)[0])``."""
+        return {"w": prng.normal(prng.split(key)[0], self.w.shape)
+                * self.scale, "b": torch.zeros(self.b.shape)}
 
     def forward(self, x):
         return x @ self.w + self.b
@@ -55,8 +56,9 @@ class _Conv5(nn.Module):
         self.w = nn.Parameter(torch.empty(5, 5, c_in, c_out))
         self.b = nn.Parameter(torch.zeros(c_out))
 
-    def init_params(self, gen: torch.Generator) -> dict[str, torch.Tensor]:
-        return {"w": torch.randn(self.w.shape, generator=gen) * self.scale,
+    def init_params(self, key: torch.Tensor) -> dict[str, torch.Tensor]:
+        """``normal(key)`` in HWIO, with no split (the reference's CNN)."""
+        return {"w": prng.normal(key, self.w.shape) * self.scale,
                 "b": torch.zeros(self.b.shape)}
 
     def forward(self, x):
@@ -66,7 +68,7 @@ class _Conv5(nn.Module):
 class SmallModel(nn.Module):
     """Common interface: ``forward(x, *, train, keep)`` and
     :meth:`init_params`, which draws a fresh parameter dict (module
-    names, CPU, fp32) from a generator without touching the module."""
+    names, CPU, fp32) from a threefry key without touching the module."""
 
     name = "small"
     convex = False
@@ -77,16 +79,21 @@ class SmallModel(nn.Module):
         """Fill the module's own parameters from seed 0 (training draws
         its init through :meth:`init_params` with the run's seed)."""
         with torch.no_grad():
-            params = self.init_params(torch.Generator().manual_seed(0))
+            params = self.init_params(prng.prng_key(0))
             for name, p in self.named_parameters():
                 p.copy_(params[name])
 
-    def init_params(self, generator: torch.Generator
-                    ) -> dict[str, torch.Tensor]:
+    def init_params(self, key: torch.Tensor) -> dict[str, torch.Tensor]:
+        """The reference's ``model.init(key)`` along its key tree: one
+        layer takes ``key`` itself, several take ``split(key, n)`` in
+        order. Draw on the CPU: ``erf_inv`` may round otherwise on
+        another device, and a seed must give the same weights on all."""
+        layers = list(self.named_children())
+        keys = [key] if len(layers) == 1 else prng.split(key, len(layers))
         out = {}
-        for name, layer in self.named_children():
-            for k, v in layer.init_params(generator).items():
-                out[f"{name}.{k}"] = v
+        for (name, layer), k in zip(layers, keys):
+            for leaf, v in layer.init_params(k).items():
+                out[f"{name}.{leaf}"] = v
         return out
 
     def dropout_shapes(self, batch: int) -> tuple[tuple[int, ...], ...]:

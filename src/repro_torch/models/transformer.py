@@ -15,21 +15,27 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
 from .. import resolve_device
 from . import attention as attn_mod
 from . import recurrent as rec_mod
-from .layers import MLP, RMSNorm, embedding_init, mlp, param, rmsnorm, \
-    torch_dtype
+from .layers import MLP, NormalDraws, RMSNorm, dense_init, embedding_init, \
+    mlp, param, rmsnorm, torch_dtype
 
 KINDS = ("attn", "local", "rglru")
 
 
 class Block(nn.Module):
     """One layer: ``norm1``, ``mix`` and, when d_ff > 0, ``norm2`` and
-    ``ffn``."""
+    ``ffn``. Calling it runs the layer without a cache (training and
+    ``apply``)."""
 
     def __init__(self, cfg, kind: str, *, device=None):
         super().__init__()
+        self.cfg = cfg
         self.kind = kind
         dt = torch_dtype(cfg)
         self.norm1 = RMSNorm(cfg.d_model, dtype=dt, device=device)
@@ -42,11 +48,46 @@ class Block(nn.Module):
             self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dt,
                            device=device)
 
+    def ffn_residual(self, h: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "ffn"):
+            hn2 = rmsnorm(self.norm2, h, self.cfg.norm_eps)
+            h = h + mlp(self.ffn, hn2, self.cfg.act)
+        return h
+
+    def forward(self, h: torch.Tensor, positions: torch.Tensor
+                ) -> torch.Tensor:
+        hn = rmsnorm(self.norm1, h, self.cfg.norm_eps)
+        if self.kind == "rglru":
+            mixed = rec_mod.rglru_block(self.mix, hn)
+        else:
+            mixed = attn_mod.attention(self.mix, hn, positions, self.cfg,
+                                       kind=self.kind)
+        return self.ffn_residual(h + mixed)
+
+
+def _remat(block: Block, h: torch.Tensor, positions: torch.Tensor
+           ) -> torch.Tensor:
+    """``block(h, positions)`` that keeps only its input for backward and
+    runs again there (the reference's ``jax.checkpoint`` per pattern
+    group). The block's parameters go through ``checkpoint`` as inputs:
+    the recompute then reads the tensors this forward read (under
+    ``functional_call``, the caller's), not whatever the module holds by
+    the time backward runs."""
+    names, tensors = zip(*block.named_parameters())
+
+    def run(h, *tensors):
+        return functional_call(block, dict(zip(names, tensors)),
+                               (h, positions))
+
+    return checkpoint(run, h, *tensors, use_reentrant=False)
+
 
 class LM(nn.Module):
     """Decoder-only LM. Build with ``LM(cfg, device=...)`` (``cuda`` unless
     given), then ``init`` the weights from a seed (or load the
-    reference's with ``convert.load_lm_reference``)."""
+    reference's with ``convert.load_lm_reference``). Calling the module
+    computes the training loss (:meth:`loss`), so ``functional_call``
+    takes gradients at any params; :meth:`apply` gives the logits."""
 
     def __init__(self, cfg, *, device=None):
         super().__init__()
@@ -55,9 +96,16 @@ class LM(nn.Module):
             raise NotImplementedError(
                 f"{cfg.arch_id}: layer kinds other than {'/'.join(KINDS)} "
                 f"are not in the port yet (ROADMAP Queue 1 item 8)")
+        if cfg.rope != "standard":
+            raise NotImplementedError(
+                f"{cfg.arch_id}: rope={cfg.rope!r} is not in the port yet "
+                f"(ROADMAP Queue 1 item 8)")
         self.cfg = cfg
         self.embed = param(cfg.vocab, cfg.d_model, dtype=torch_dtype(cfg),
                            device=device)
+        if not cfg.tie_embeddings:
+            self.head = param(cfg.d_model, cfg.vocab, dtype=torch_dtype(cfg),
+                              device=device)
         self.final_norm = RMSNorm(cfg.d_model, dtype=torch_dtype(cfg),
                                   device=device)
         self.layers = nn.ModuleList(
@@ -72,43 +120,33 @@ class LM(nn.Module):
     # ------------------------------------------------------------ init --
     def init(self, seed: int = 0) -> "LM":
         """Random weights from ``seed`` at the reference's scales and
-        dtypes, drawn on a CPU generator: the same weights on every
-        device (not the reference's: ``jax.random.normal`` is not
-        ported)."""
-        gen = torch.Generator().manual_seed(seed)
-        embedding_init(self.embed, gen)
+        dtypes, drawn on CPU generators (``layers.NormalDraws``): the same
+        weights on every device, but not the reference's key tree (parity
+        tests load the reference's weights with
+        ``convert.load_lm_reference``)."""
+        draws = NormalDraws(seed)
+        embedding_init(self.embed, draws)
         self.final_norm.reset_parameters()
         for block in self.layers:
             for m in (block.norm1, block.mix, getattr(block, "norm2", None),
                       getattr(block, "ffn", None)):
                 if m is not None:
-                    m.reset_parameters(gen)
+                    m.reset_parameters(draws)
+        if not self.cfg.tie_embeddings:
+            dense_init(self.head, draws)
+        draws.run()
         return self
 
     # --------------------------------------------------------- forward --
-    def _ffn(self, block: Block, h: torch.Tensor) -> torch.Tensor:
-        if hasattr(block, "ffn"):
-            hn2 = rmsnorm(block.norm2, h, self.cfg.norm_eps)
-            h = h + mlp(block.ffn, hn2, self.cfg.act)
-        return h
-
-    def _block(self, block: Block, h, positions, decode_cache=None):
-        cfg = self.cfg
-        hn = rmsnorm(block.norm1, h, cfg.norm_eps)
-        new_cache = None
-        if decode_cache is None:
-            if block.kind == "rglru":
-                mixed = rec_mod.rglru_block(block.mix, hn)
-            else:
-                mixed = attn_mod.attention(block.mix, hn, positions, cfg,
-                                           kind=block.kind)
-        elif block.kind == "rglru":
+    def _decode_block(self, block: Block, h, decode_cache):
+        hn = rmsnorm(block.norm1, h, self.cfg.norm_eps)
+        if block.kind == "rglru":
             mixed, new_cache = rec_mod.rglru_decode_step(block.mix, hn,
                                                          decode_cache)
         else:
             mixed, new_cache = attn_mod.decode_attention(
-                block.mix, hn, decode_cache, cfg, kind=block.kind)
-        return self._ffn(block, h + mixed), new_cache
+                block.mix, hn, decode_cache, self.cfg, kind=block.kind)
+        return block.ffn_residual(h + mixed), new_cache
 
     def _assemble_inputs(self, batch: dict):
         """Token embeddings (B, S, d) and positions (B, S)."""
@@ -118,15 +156,41 @@ class LM(nn.Module):
         return self.embed[tokens], positions
 
     def apply(self, batch: dict) -> torch.Tensor:
-        """Training/prefill forward → logits (B, S, vocab) fp32."""
+        """Training/prefill forward → logits (B, S, vocab) fp32. With
+        autograd on, each block runs again in backward (:func:`_remat`)."""
         h, positions = self._assemble_inputs(batch)
+        remat = torch.is_grad_enabled()
         for block in self.layers:
-            h, _ = self._block(block, h, positions)
+            h = _remat(block, h, positions) if remat else block(h, positions)
         return self._logits(rmsnorm(self.final_norm, h, self.cfg.norm_eps))
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        """Tied embedding, in fp32."""
-        return h.float() @ self.embed.float().T
+        """The tied embedding or the untied head, in fp32."""
+        if self.cfg.tie_embeddings:
+            return h.float() @ self.embed.float().T
+        return h.float() @ self.head.float()
+
+    def loss(self, batch: dict, *, ce_impl: str = "gather") -> torch.Tensor:
+        """Next-token cross entropy, the mean over (B, S − 1) positions.
+        ``ce_impl``: "gather" (log-softmax, then the targets' entries) or
+        "onehot" (logsumexp − Σ logits·onehot(targets)), the reference's
+        two forms."""
+        logits = self.apply(batch)[:, :-1]
+        targets = batch["tokens"][:, 1:].long()
+        if ce_impl == "onehot":
+            lse = torch.logsumexp(logits, dim=-1)
+            tgt = (logits * F.one_hot(targets, logits.shape[-1])
+                   .to(logits.dtype)).sum(-1)
+            return (lse - tgt).mean()
+        if ce_impl != "gather":
+            raise ValueError(f"ce_impl must be 'gather' or 'onehot', got "
+                             f"{ce_impl!r}")
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, targets[..., None]).mean()
+
+    def forward(self, batch: dict, *, ce_impl: str = "gather"
+                ) -> torch.Tensor:
+        return self.loss(batch, ce_impl=ce_impl)
 
     # ---------------------------------------------------------- decode --
     def init_cache(self, batch: int, max_len: int) -> dict:
@@ -158,7 +222,7 @@ class LM(nn.Module):
                 mixed, nc = attn_mod.prefill_attention(
                     block.mix, hn, positions, layer_cache, cfg,
                     kind=block.kind)
-            h = self._ffn(block, h + mixed)
+            h = block.ffn_residual(h + mixed)
             new_layers.append(nc)
         logits = self._logits(rmsnorm(self.final_norm, h, cfg.norm_eps))
         return logits, {"step": h.shape[1], "layers": new_layers}
@@ -170,7 +234,7 @@ class LM(nn.Module):
         h = self.embed[tokens]
         new_layers = []
         for block, layer_cache in zip(self.layers, cache["layers"]):
-            h, nc = self._block(block, h, None, decode_cache=layer_cache)
+            h, nc = self._decode_block(block, h, layer_cache)
             new_layers.append(nc)
         h = rmsnorm(self.final_norm, h, self.cfg.norm_eps)
         return self._logits(h)[:, 0], {"step": cache["step"] + 1,

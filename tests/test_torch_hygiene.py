@@ -33,6 +33,10 @@ SCENARIO_TWINS = [ROOT / "benchmarks" / "scenario_sweep_torch.py",
 #: the lazy-plane slice's benchmark twin (its --lazy section lives in
 #: scan_scaling_torch.py)
 TELEMETRY_TWINS = [ROOT / "benchmarks" / "telemetry_overhead_torch.py"]
+#: the model zoo's examples (run on the CPU in tests/test_torch_zoo.py and
+#: tests/test_torch_train_step.py)
+ZOO_TWINS = [ROOT / "examples" / "serve_personalized_torch.py",
+             ROOT / "examples" / "federated_lm_torch.py"]
 #: the paper's other result scripts (Fig. 2, Table 2, Fig. 3/4, mixing,
 #: ablations, the personalization comparison)
 PAPER_TWINS = {name: ROOT / sub / f"{name}_torch.py" for sub, name in (
@@ -42,7 +46,7 @@ PAPER_TWINS = {name: ROOT / sub / f"{name}_torch.py" for sub, name in (
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py",
     *TWINS.values(), *SCENARIO_TWINS, *PAPER_TWINS.values(),
-    *TELEMETRY_TWINS]
+    *TELEMETRY_TWINS, *ZOO_TWINS]
 
 
 def _forbidden(name: str) -> bool:
@@ -88,6 +92,8 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.core.privacy, repro_torch.telemetry\n"
         "import repro_torch.telemetry.report, repro_torch.telemetry.smoke\n"
         "import benchmarks.telemetry_overhead_torch\n"
+        "import repro_torch.launch.steps, examples.federated_lm_torch\n"
+        "import examples.serve_personalized_torch\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -222,7 +222,7 @@ def test_registry_and_batches():
                            device="cpu")["tokens"]
         assert np.array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="Queue 1 item 8"):
-        get_config("gemma3-12b")
+        get_config("xlstm-350m")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
         build_model(dataclasses.replace(cfg, layer_pattern=("mlstm",),
                                         n_layers=2), device="cpu")
