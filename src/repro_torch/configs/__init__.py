@@ -7,5 +7,6 @@ from . import (  # noqa: F401,E402
     qwen2_7b,
     recurrentgemma_9b,
     tinyllama_1_1b,
+    xlstm_350m,
     yi_34b,
 )

@@ -2,11 +2,14 @@
 ``ModelConfig`` (``hd``, ``pattern_repeats``, ``param_count()``,
 ``reduced()``) and its registry, holding only what the port's ``LM``
 runs: global and local attention with standard RoPE and an optional qkv
-bias, RG-LRU, a dense FFN, and a tied embedding or an untied head.
-Fields of the rest of the model zoo (MoE, frontends, encoders,
-mLSTM/sLSTM, learned positions) come with the slice that runs them
-(ROADMAP Queue 1 item 8); ``rope`` takes the reference's values, and the
-``LM`` refuses all but ``"standard"``.
+bias, RG-LRU, the xLSTM's mLSTM and sLSTM, a dense FFN or none
+(``d_ff = 0``), and a tied embedding or an untied head. ``rope="none"``
+runs on a stack without attention (xLSTM): the reference adds a learned
+position table only to rope-less attention stacks. Fields of the rest of
+the model zoo (MoE, frontends, encoders, learned positions) come with
+the slice that runs them (ROADMAP Queue 1 item 8); ``rope`` takes the
+reference's values, and the ``LM`` refuses ``"mrope"`` and ``"none"``
+with attention.
 
 Only architectures whose model the port runs are registered;
 ``get_config`` of any other raises.
@@ -30,7 +33,8 @@ class ModelConfig:
 
     # Layer mixing: the repeating unit of layer kinds; n_layers must be a
     # multiple of len(layer_pattern). Kinds: "attn" (global), "local"
-    # (sliding window), "rglru" (Griffin recurrent).
+    # (sliding window), "rglru" (Griffin recurrent), "mlstm", "slstm"
+    # (xLSTM).
     layer_pattern: tuple[str, ...] = ("attn",)
     window: int = 4096           # sliding-window size for "local" layers
 
@@ -69,6 +73,12 @@ class ModelConfig:
             elif kind == "rglru":
                 # in-proj ×2 + conv4 + r/i gates + out proj.
                 per_kind[kind] = 5 * d * d + 4 * d
+            elif kind == "mlstm":
+                # up ×2 (d→2d) + q/k/v (2d→2d) + gates + down (2d→d).
+                per_kind[kind] = 18 * d * d + 2 * d * 2 * h
+            elif kind == "slstm":
+                # x-gates (d→4d) + recurrent gates (d→4d) + out proj.
+                per_kind[kind] = 9 * d * d + 4 * d
             else:
                 raise ValueError(kind)
         n = sum(per_kind[kind] + 2 * d  # + norms

@@ -122,7 +122,9 @@ def load_reference(module: torch.nn.Module, ref_params: Mapping) -> None:
 # tuple over pattern index gi of dicts whose leaves stack the pattern's
 # repeats on a leading axis} and, untied, "head"; a qkv bias rides in
 # each attention layer's "mix" as "bq", "bk", "bv". The port's LM names layer
-# l = r·len(pattern) + gi as "layers.{l}.<path>".
+# l = r·len(pattern) + gi as "layers.{l}.<path>". Leaves keep their own
+# dtypes: in a bf16 model RG-LRU's "lam" and the xLSTM's "w_if" and
+# "b_gates" stay fp32.
 
 def _leaf_to_torch(leaf, device=None) -> torch.Tensor:
     """An array-like as a tensor of the same dtype (bfloat16 through fp32,

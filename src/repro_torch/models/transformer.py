@@ -2,13 +2,14 @@
 ``models/transformer.py``, without MoE, mesh or frontends).
 
 A model is ``layer_pattern`` repeated ``pattern_repeats`` times; each
-layer is a mixer (global "attn", sliding-window "local" or recurrent
-"rglru") and a dense FFN, both pre-norm and residual. The layers are one
-``nn.ModuleList`` of ``n_layers`` blocks: layer ``l = r·len(pattern) + gi``
-is the reference's ``params["layers"][gi][r]`` (the reference stacks the
+layer is a mixer (global "attn", sliding-window "local", or recurrent
+"rglru", "mlstm" or "slstm") and, when d_ff > 0, a dense FFN, both
+pre-norm and residual. The layers are one ``nn.ModuleList`` of
+``n_layers`` blocks: layer ``l = r·len(pattern) + gi`` is the
+reference's ``params["layers"][gi][r]`` (the reference stacks the
 repeats of pattern index gi on a leading axis). Serving keeps one cache
-entry per layer: a ``KVCache`` for attention, an ``RGLRUState`` for
-RG-LRU.
+entry per layer: a ``KVCache`` for attention, an ``RGLRUState``,
+``MLSTMState`` or ``SLSTMState`` for a recurrent layer.
 """
 from __future__ import annotations
 
@@ -25,7 +26,12 @@ from . import recurrent as rec_mod
 from .layers import MLP, NormalDraws, RMSNorm, dense_init, embedding_init, \
     mlp, param, rmsnorm, torch_dtype
 
-KINDS = ("attn", "local", "rglru")
+#: each layer kind's mixer module
+MIXERS = {"attn": attn_mod.Attention, "local": attn_mod.Attention,
+          "rglru": rec_mod.RGLRU, "mlstm": rec_mod.MLSTM,
+          "slstm": rec_mod.SLSTM}
+KINDS = tuple(MIXERS)
+ATTENTION = ("attn", "local")
 
 
 class Block(nn.Module):
@@ -39,10 +45,7 @@ class Block(nn.Module):
         self.kind = kind
         dt = torch_dtype(cfg)
         self.norm1 = RMSNorm(cfg.d_model, dtype=dt, device=device)
-        if kind == "rglru":
-            self.mix = rec_mod.RGLRU(cfg, device=device)
-        else:
-            self.mix = attn_mod.Attention(cfg, device=device)
+        self.mix = MIXERS[kind](cfg, device=device)
         if cfg.d_ff > 0:
             self.norm2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
             self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dt,
@@ -54,14 +57,23 @@ class Block(nn.Module):
             h = h + mlp(self.ffn, hn2, self.cfg.act)
         return h
 
+    def recurrent(self, hn: torch.Tensor, return_state: bool = False):
+        """A recurrent mixer over the sequence hn (B, S, d), and its state
+        after the last token when ``return_state``."""
+        if self.kind == "rglru":
+            return rec_mod.rglru_block(self.mix, hn, return_state)
+        block = (rec_mod.mlstm_block if self.kind == "mlstm"
+                 else rec_mod.slstm_block)
+        return block(self.mix, hn, self.cfg, return_state=return_state)
+
     def forward(self, h: torch.Tensor, positions: torch.Tensor
                 ) -> torch.Tensor:
         hn = rmsnorm(self.norm1, h, self.cfg.norm_eps)
-        if self.kind == "rglru":
-            mixed = rec_mod.rglru_block(self.mix, hn)
-        else:
+        if self.kind in ATTENTION:
             mixed = attn_mod.attention(self.mix, hn, positions, self.cfg,
                                        kind=self.kind)
+        else:
+            mixed = self.recurrent(hn)
         return self.ffn_residual(h + mixed)
 
 
@@ -96,10 +108,13 @@ class LM(nn.Module):
             raise NotImplementedError(
                 f"{cfg.arch_id}: layer kinds other than {'/'.join(KINDS)} "
                 f"are not in the port yet (ROADMAP Queue 1 item 8)")
-        if cfg.rope != "standard":
+        attention = any(k in ATTENTION for k in cfg.layer_pattern)
+        if cfg.rope == "mrope" or (cfg.rope == "none" and attention):
+            # rope="none" on attention layers needs the learned position
+            # table; a recurrent stack is order-aware and takes none.
             raise NotImplementedError(
-                f"{cfg.arch_id}: rope={cfg.rope!r} is not in the port yet "
-                f"(ROADMAP Queue 1 item 8)")
+                f"{cfg.arch_id}: rope={cfg.rope!r} with attention is not in "
+                f"the port yet (ROADMAP Queue 1 item 8)")
         self.cfg = cfg
         self.embed = param(cfg.vocab, cfg.d_model, dtype=torch_dtype(cfg),
                            device=device)
@@ -140,12 +155,16 @@ class LM(nn.Module):
     # --------------------------------------------------------- forward --
     def _decode_block(self, block: Block, h, decode_cache):
         hn = rmsnorm(block.norm1, h, self.cfg.norm_eps)
-        if block.kind == "rglru":
+        if block.kind in ATTENTION:
+            mixed, new_cache = attn_mod.decode_attention(
+                block.mix, hn, decode_cache, self.cfg, kind=block.kind)
+        elif block.kind == "rglru":
             mixed, new_cache = rec_mod.rglru_decode_step(block.mix, hn,
                                                          decode_cache)
         else:
-            mixed, new_cache = attn_mod.decode_attention(
-                block.mix, hn, decode_cache, self.cfg, kind=block.kind)
+            step = (rec_mod.mlstm_decode_step if block.kind == "mlstm"
+                    else rec_mod.slstm_decode_step)
+            mixed, new_cache = step(block.mix, hn, decode_cache, self.cfg)
         return block.ffn_residual(h + mixed), new_cache
 
     def _assemble_inputs(self, batch: dict):
@@ -194,14 +213,16 @@ class LM(nn.Module):
 
     # ---------------------------------------------------------- decode --
     def init_cache(self, batch: int, max_len: int) -> dict:
+        init_state = {"rglru": rec_mod.rglru_init_state,
+                      "mlstm": rec_mod.mlstm_init_state,
+                      "slstm": rec_mod.slstm_init_state}
         layers = []
         for kind in (block.kind for block in self.layers):
-            if kind == "rglru":
-                layers.append(rec_mod.rglru_init_state(self.cfg, batch,
-                                                       self.device))
-            else:
+            if kind in ATTENTION:
                 layers.append(attn_mod.init_kv_cache(
                     self.cfg, batch, max_len, kind, device=self.device))
+            else:
+                layers.append(init_state[kind](self.cfg, batch, self.device))
         return {"step": 0, "layers": layers}
 
     @torch.no_grad()
@@ -215,13 +236,12 @@ class LM(nn.Module):
         new_layers = []
         for block, layer_cache in zip(self.layers, cache["layers"]):
             hn = rmsnorm(block.norm1, h, cfg.norm_eps)
-            if block.kind == "rglru":
-                mixed, nc = rec_mod.rglru_block(block.mix, hn,
-                                                return_state=True)
-            else:
+            if block.kind in ATTENTION:
                 mixed, nc = attn_mod.prefill_attention(
                     block.mix, hn, positions, layer_cache, cfg,
                     kind=block.kind)
+            else:
+                mixed, nc = block.recurrent(hn, return_state=True)
             h = block.ffn_residual(h + mixed)
             new_layers.append(nc)
         logits = self._logits(rmsnorm(self.final_norm, h, cfg.norm_eps))

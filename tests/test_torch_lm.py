@@ -154,17 +154,18 @@ def test_greedy_decode_matches_reference_past_the_window():
     assert np.array_equal(torch.cat(ids_p, 1).numpy(), ids_r)
 
 
-def test_serve_main_matches_reference_loop(capsys):
+@pytest.mark.parametrize("arch", [ARCH, "xlstm-350m"])
+def test_serve_main_matches_reference_loop(capsys, arch):
     """``serve.main`` on the CPU: the port's seeded weights, carried back
     to the reference, give the same ids through the reference's own
     prefill and serve steps."""
-    argv = ["--arch", ARCH, "--reduced", "--batch", "2", "--prompt-len",
+    argv = ["--arch", arch, "--reduced", "--batch", "2", "--prompt-len",
             "20", "--gen", "8", "--device", "cpu", "--seed", "0"]
     ids = serve.main(argv)
     assert "tok/s" in capsys.readouterr().out
     assert tuple(ids.shape) == (2, 8)
-    rcfg, cfg = _configs(cut=False)
-    port = serve.load_model(ARCH, reduced=True, device="cpu", seed=0)
+    rcfg, cfg = ref_config(arch).reduced(), get_config(arch).reduced()
+    port = serve.load_model(arch, reduced=True, device="cpu", seed=0)
     params = lm_state_to_reference(port.state_dict(), cfg)
     ref = ref_build(rcfg)
     prefill = jax.jit(ref_steps.make_prefill_step(ref, 28))
@@ -222,10 +223,9 @@ def test_registry_and_batches():
                            device="cpu")["tokens"]
         assert np.array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError, match="Queue 1 item 8"):
-        get_config("xlstm-350m")
+        get_config("qwen3-moe-30b-a3b")
     with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_model(dataclasses.replace(cfg, layer_pattern=("mlstm",),
-                                        n_layers=2), device="cpu")
+        build_model(dataclasses.replace(cfg, rope="mrope"), device="cpu")
 
 
 def test_serve_entry_points_without_device_need_a_gpu(monkeypatch):
