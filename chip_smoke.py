@@ -18,8 +18,9 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``flash_decode`` (fp32 at 1e-5, bf16 at atol 1e-3 + rtol 1e-2 against
    the plain softmax and the split reference; lengths below S, a window,
    a row with no valid key, every hd remainder of the tensor-core
-   steps, gemma3-12b's shapes). Every kernel by device time over input
-   sets that together exceed the L2 (cold) and over one set (warm), with
+   steps, gemma3-12b's and qwen3-moe-30b-a3b's shapes). Every kernel by
+   device time over input sets that together exceed the L2 (cold) and
+   over one set (warm), with
    CUDA-graph replay beside; one ``scaled_dot_product_attention`` call
    timed the same way as flash decode's yardstick. Then ``threefry`` (the port of
    ``jax.random``'s sampler): ``threefry_draws`` bit for bit against the
@@ -99,7 +100,8 @@ Phases (each prints its own lines; any failure exits non-zero):
    bit for bit, one MLR round card vs CPU at 1e-6, ``scan_fused``
    refuses. Telemetry on the store cell ≡ off bit for bit (captures and
    replays equal), the report rendered, the overhead twin at n = 2000
-   within 5 % (its direct figure: the trace's own cost). A checkpoint
+   in its own process within 5 % (the median of 30 interleaved off/on
+   pairs' ratios; the trace's own cost printed beside it). A checkpoint
    with spilled rows restored into a fresh trainer continues bit for bit.
 6. single-client op — one client's update through ``ops.fused_update``
    at the CNN's width, launched once.
@@ -176,6 +178,20 @@ Phases (each prints its own lines; any failure exits non-zero):
    width and depth (three clients, 4 × 512 tokens a step, three rounds;
    the same gates as 8b) and one step of the first pattern in fp32, card
    against CPU.
+8d. MoE — qwen3-moe-30b-a3b at full width and depth (48 layers; H 32
+   over K 4, hd 64; 128 experts, top-8, width 768; 30,079,320,064 by
+   ``param_count``), bf16, seeded random weights, through the same serve
+   at the published capacity factor 1.25: exactly 720 ``flash_decode``
+   launches (48 × 15) and no other kernel, the prefill's dropped (token,
+   expert) slots a layer, a profiled prefill and decode step; then, with
+   the same weights at capacity factor 16 (the capacity is T, nothing
+   drops), the teacher check on the serve batch's row 0 in bf16 and on
+   the first 2 layers in fp32; RWSADMM training at full width cut to 1
+   layer (two clients, 4 × 512 tokens, two rounds; the gates of 8b) and
+   one fp32 step of that cut card against CPU, after layer 0's top-8
+   sets are compared (a flip above a 1e-5 margin fails). The kernel
+   phase holds flash decode at qwen3's decode shape (G = 8, hd 64, 2056
+   keys; bf16 timed beside SDPA and its bound, fp32, lengths below S).
 
 Ends with a ``{"kernels": [...]}`` line, the paths' summaries, each
 phase's seconds, the ``nvidia-smi`` line and, last, ``{"ok": true,
@@ -2602,7 +2618,7 @@ LAZY = dict(capacity=40, window=4, rounds=80, fleet_capacity=50,
             fleet_window=2, fleet_steps=30, timed_windows=5,
             fedavg_rounds=3, fedavg_capacity=12, dp_rounds=8, dp_window=4,
             ckpt_rounds=40, check_clients=100_000, check_window=4,
-            overhead_clients=2000, overhead_repeats=10, overhead_rounds=32,
+            overhead_clients=2000, overhead_repeats=30, overhead_rounds=32,
             overhead_pct=5.0)
 
 
@@ -2933,17 +2949,46 @@ def parity_mlr_data(device):
                                        device=device)
 
 
+def overhead_subprocess() -> dict:
+    """``benchmarks/telemetry_overhead_torch.py`` at n = 2,000 in its own
+    process, as its users run it, over ``LAZY["overhead_repeats"]``
+    interleaved off/on pairs; its own gate off (the caller gates). A pair
+    has a standard deviation of 10–14 % on the card machine's host, on
+    the arms' CPU time as on the wall clock (``scripts/overhead_probe.py``;
+    the upper end with a CUDA context in the process): the median of 30
+    pairs in a fresh process has about 2.5 %."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        rows_path = os.path.join(td, "rows.json")
+        out = subprocess.run(
+            [sys.executable, "-m", "benchmarks.telemetry_overhead_torch",
+             "--clients", str(LAZY["overhead_clients"]),
+             "--rounds", str(LAZY["overhead_rounds"]),
+             "--repeats", str(LAZY["overhead_repeats"]),
+             "--assert-overhead-pct", "-1", "--out", rows_path],
+            cwd=HERE, capture_output=True, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")})
+        if out.returncode != 0:
+            raise AssertionError(f"overhead twin failed ({out.returncode}): "
+                                 f"{out.stdout[-2000:]} {out.stderr[-4000:]}")
+        with open(rows_path) as f:
+            rows = {r["name"].rsplit("/", 1)[1]: r
+                    for r in json.load(f)["rows"]}
+    on, off = rows["on"], rows["off"]
+    return {"n": on["n"], "pairs": on["pairs"], "off_us": off["us_per_round"],
+            "on_us": on["us_per_round"], "overhead_pct": on["overhead_pct"],
+            "pair_pct": on["pair_pct"], "trace_pct": on["trace_pct"]}
+
+
 def telemetry_phase(make, factory, update: str, off: dict) -> dict:
     """Step a's lazy cell again with a telemetry run attached: equal to
     the unrecorded run (``off``) bit for bit, with the same captured and
     replay counts; the report renders; then the overhead twin at
     n = 2,000 (the median pair's on/off at most ``LAZY["overhead_pct"]``
     %)."""
-    import tempfile
-
     import torch
 
-    from benchmarks import telemetry_overhead_torch
     from repro_torch.telemetry import TelemetryRun, read_events
     from repro_torch.telemetry.report import render_report
 
@@ -2968,11 +3013,7 @@ def telemetry_phase(make, factory, update: str, off: dict) -> dict:
     wins = {str(k): (w.captured, w.replays) for k, w in tr.windows.items()}
     phases = [e for e in read_events(tel.events_path) if e["t"] == "phase"]
     report = render_report(run_dir)
-    with tempfile.TemporaryDirectory() as td:
-        over = telemetry_overhead_torch.measure(
-            LAZY["overhead_clients"], rounds=LAZY["overhead_rounds"],
-            repeats=LAZY["overhead_repeats"],
-            out=os.path.join(td, "rows.json"))
+    over = overhead_subprocess()
     checks = {"state equal": all(same.values()),
               "metrics equal": res.round_metrics == off["metrics"],
               "captured and replays equal": wins == off["windows"],
@@ -3390,7 +3431,8 @@ def phase_lm_kernels(device, card: str) -> dict:
                                "bfloat16", device, card, False),
             check_flash_decode(2, 4, 1, 24, 1000, [999, 65], None,
                                "bfloat16", device, card, False),
-            *gemma3_flash_checks(device, card)],
+            *gemma3_flash_checks(device, card),
+            *qwen3_flash_checks(device, card)],
     }
 
 
@@ -3415,6 +3457,27 @@ def gemma3_flash_checks(device, card: str) -> list:
             rows.append(check_flash_decode(b, h, kv, hd, size, lengths, None,
                                            dtype, device, card, timed)
                         | {"gemma3": True})
+    return rows
+
+
+#: qwen3-moe-30b-a3b's attention at the serve shape: H 32 over K 4 (G = 8),
+#: hd 64, 2056 keys
+QWEN3_FLASH = dict(b=4, h=32, kv=4, hd=64, s=2056)
+
+
+def qwen3_flash_checks(device, card: str) -> list:
+    """Flash decode at qwen3-moe-30b-a3b's decode shape in bf16 (timed
+    cold and warm beside SDPA and its bound) and fp32, and with lengths
+    below S; each row marked ``qwen3``."""
+    g = QWEN3_FLASH
+    b, h, kv, hd, s = (g[k] for k in ("b", "h", "kv", "hd", "s"))
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for lengths in ([s] * b, [s, s - 56, 1025, 1]):
+            timed = dtype == "bfloat16" and lengths[1] == s
+            rows.append(check_flash_decode(b, h, kv, hd, s, lengths, None,
+                                           dtype, device, card, timed)
+                        | {"qwen3": True})
     return rows
 
 
@@ -3671,10 +3734,12 @@ ZOO_CUT_LAYERS = 2
 QKV_BIAS_SCALE = 0.5
 
 
-def serve_lm(model, label: str, teacher_bound: float | None = None) -> dict:
-    """``launch/serve.py``'s generation of ``SERVE``'s batch on ``model``:
-    exactly one ``flash_decode`` launch per attention layer and decode
-    step and no other kernel (none at all without attention); the decode
+def serve_lm(model, label: str, teacher_bound: float | None = None, *,
+             rows: int | None = None, teacher: bool = True) -> dict:
+    """``launch/serve.py``'s generation of ``SERVE``'s batch (its first
+    ``rows`` rows when given) on ``model``: exactly one ``flash_decode``
+    launch per attention layer and decode step and no other kernel (none
+    at all without attention); unless ``teacher`` is false, the decode
     logits against a teacher-forced ``apply`` at the dtype's bound (or
     ``teacher_bound``); prefill and decode times, tokens/s and peak
     memory."""
@@ -3684,10 +3749,11 @@ def serve_lm(model, label: str, teacher_bound: float | None = None) -> dict:
     from repro_torch.models.registry import random_batch
 
     cfg = model.cfg
-    bsz, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
+    bsz, prompt, gen = rows or SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     max_len = prompt + gen
-    batch = random_batch(cfg, bsz, prompt, seed=SERVE["seed"],
+    batch = random_batch(cfg, SERVE["batch"], prompt, seed=SERVE["seed"],
                          device=model.device)
+    batch = {"tokens": batch["tokens"][:bsz]}
     for _ in serve.generate(model, {"tokens": batch["tokens"][:, :64]}, 2,
                             66):    # warm-up, uncounted
         pass
@@ -3729,10 +3795,11 @@ def serve_lm(model, label: str, teacher_bound: float | None = None) -> dict:
                              f"decode {counts} (want {want_total}), ids "
                              f"{tuple(ids.shape)}, finite logits "
                              f"{bool(logits.isfinite().all())}")
-    row["teacher"] = teacher_forced_errors(model, batch["tokens"], ids,
-                                           logits)
-    del logits
-    hold_teacher(row["teacher"], cfg.dtype, prompt + gen, teacher_bound)
+    if teacher:
+        row["teacher"] = teacher_forced_errors(model, batch["tokens"], ids,
+                                               logits)
+        del logits
+        hold_teacher(row["teacher"], cfg.dtype, prompt + gen, teacher_bound)
     return row
 
 
@@ -3844,13 +3911,15 @@ def promoted_dtypes(params: dict, step: int) -> dict:
 
 
 def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
-                   deep_tie: float = 0.0) -> dict:
+                   deep_tie: float = 0.0, check=None) -> dict:
     """One RWSADMM step of ``arch`` at full width, cut to its first
     ``layers`` layers, fp32, from the same weights and tokens on the card
     and on the CPU: x, z and y at ``PARITY_STEP``'s tolerance, its atol
     raised by ``grad_share`` of each leaf's step (its largest |new − old|
     on the CPU); y's sign flips must be ties, and those at ties deeper than
-    ``deep_tie`` of the tie are not counted against ``max_flip_share``."""
+    ``deep_tie`` of the tie are not counted against ``max_flip_share``.
+    ``check(cpu, card, tokens)``, when given, runs before the step and its
+    result is kept under "check"."""
     import dataclasses
 
     import numpy as np
@@ -3872,6 +3941,7 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
     card.load_state_dict(cpu.state_dict())
     tokens = heterogeneous_stream(cfg.vocab, 1, p["batch"], p["seq"],
                                   np.random.default_rng(TRAIN["seed"]))
+    checked = check(cpu, card, tokens) if check is not None else None
     results = []
     for model in (cpu, card):
         params = {k: v.detach() for k, v in model.named_parameters()}
@@ -3881,7 +3951,13 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
             {"tokens": torch.as_tensor(tokens, device=model.device)})
         results.append((state, float(loss), time.perf_counter() - t0))
     (want, want_loss, cpu_s), (got, got_loss, card_s) = results
-    start = {k: v.detach() for k, v in cpu.named_parameters()}   # y' = x'
+    # compared on the card: the same elementwise tests, which take
+    # minutes on the host at a billion parameters
+    want = want._replace(**{n: {k: v.to(device) for k, v in
+                                getattr(want, n).items()}
+                            for n in ("x", "z", "y")})
+    start = {k: v.detach().to(device)                            # y' = x'
+             for k, v in cpu.named_parameters()}
     old = {"x": start, "y": start,
            "z": {k: torch.zeros_like(v) for k, v in start.items()}}
     atol = {n: {leaf: p["atol"] + grad_share * float(
@@ -3891,7 +3967,7 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
     for name in ("x", "z", "y"):
         worst = 0.0
         for leaf, w in getattr(want, name).items():
-            g = getattr(got, name)[leaf].cpu()
+            g = getattr(got, name)[leaf]
             bad = ~torch.isclose(g, w, atol=atol[name][leaf], rtol=p["rtol"])
             plain = ~torch.isclose(g, w, atol=p["atol"], rtol=p["rtol"])
             if name == "y":     # sgn(y' − x) may differ at a tie
@@ -3899,7 +3975,7 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
                 gap = (y0 - want.x[leaf]).abs() / (
                     2 * (atol["x"][leaf] + p["rtol"] * y0.abs()))
                 flip = torch.sign(y0 - want.x[leaf]) != torch.sign(
-                    y0 - got.x[leaf].cpu())
+                    y0 - got.x[leaf])
                 deep = int((flip & (gap < deep_tie)).sum())
                 if bool((flip & (gap > 1)).any()) or \
                         int(flip.sum()) - deep > \
@@ -3924,7 +4000,7 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
            "y_sign_flips_counted": counted,
            "beyond_plain_tolerance": beyond_plain,
            "step_s": {"cpu": cpu_s, "card": card_s},
-           "tokens": p["batch"] * p["seq"]}
+           "tokens": p["batch"] * p["seq"], "check": checked}
     log(f"train parity: {arch} {layers} layers fp32, one step "
         f"on {p['batch']}x{p['seq']} tokens (CPU {cpu_s:.1f} s, card "
         f"{card_s:.2f} s), card vs CPU: loss {got_loss} vs {want_loss} (rel "
@@ -3938,11 +4014,14 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
 
 
 def train_on_walker(device, t: dict, label: str) -> dict:
-    """RWSADMM training of ``t["arch"]`` at full width and depth through
-    ``launch/steps.py``'s ``make_train_step``: a random walk over
-    ``t["clients"]`` clients' heterogeneous streams for ``t["rounds"]``
-    rounds; gated on finite losses, x moved, κ decayed, the reference's
-    dtype promotion after steps 1 and 2, and no hand kernel launched."""
+    """RWSADMM training of ``t["arch"]`` at full width and depth (cut to
+    ``t["layers"]`` layers when given) through ``launch/steps.py``'s
+    ``make_train_step``: a random walk over ``t["clients"]`` clients'
+    heterogeneous streams for ``t["rounds"]`` rounds; gated on finite
+    losses, x moved, κ decayed, the reference's dtype promotion after
+    steps 1 and 2, and no hand kernel launched."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -3957,6 +4036,8 @@ def train_on_walker(device, t: dict, label: str) -> dict:
 
     t0 = time.perf_counter()
     cfg = get_config(t["arch"])
+    if "layers" in t:
+        cfg = dataclasses.replace(cfg, n_layers=t["layers"])
     model = build_model(cfg, device=device).init(t["seed"])
     torch.cuda.synchronize()
     params = {k: v.detach() for k, v in model.named_parameters()}
@@ -4003,7 +4084,8 @@ def train_on_walker(device, t: dict, label: str) -> dict:
     want_kappa = np.float32(t["kappa"])
     for _ in range(t["rounds"]):
         want_kappa = np.float32(want_kappa * np.float32(0.99))
-    steady = sorted(step_ms[2:])[len(step_ms[2:]) // 2]
+    later = step_ms[2:] or step_ms[1:]    # the steps after the promotion
+    steady = sorted(later)[len(later) // 2]
     tokens = t["batch"] * t["seq"]
     row = {"visits": visits, "losses": losses, "step_ms": step_ms,
            "steady_step_ms": steady, "tok_per_s": tokens / steady * 1e3,
@@ -4171,6 +4253,255 @@ def phase_xlstm(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Mixture-of-Experts: qwen3-moe-30b-a3b served at full width and depth and
+# trained at full width. Routing, dispatch and the expert GEMMs are plain
+# torch ops (the JAX package has no kernel for them); its 48 attention
+# layers decode through flash decode.
+MOE_ARCH = "qwen3-moe-30b-a3b"
+#: the no-drop passes: capacity factor E/k = 16 makes each expert's
+#: capacity T, so the prefill, the decode steps and the teacher-forced
+#: ``apply`` keep every slot and compute the same function (at the
+#: published 1.25 the prefill drops slots that decode keeps); at batch 1,
+#: SERVE's row 0, where a layer's dispatch buffers (128 × 2056 slots) take
+#: ~3.1 GiB in bf16
+MOE_NO_DROP = dict(capacity_factor=16.0, rows=1)
+#: the bf16 no-drop teacher check's bound for qwen3-moe-30b-a3b
+#: (``TEACHER_REL_RMS`` stays as it is for every other arch). Top-k
+#: routing is discontinuous: bf16 rounding that parts decode from the
+#: teacher-forced pass moves some tokens' 8th expert, and each such flip
+#: moves the logits by far more than rounding does. The reference itself,
+#: at 48 layers and capacity factor 16 (128 experts, top-8; d 256, the
+#: CPU, batch 1, a 2040-token prompt, 16 steps), reads 1.2e-2-6.6e-2 a
+#: position over seeds 0-2, the port there 1.0e-2-6.2e-2 with 13-19 % of
+#: its (token, layer) top-8 sets differing between the two paths
+#: (``tests/test_torch_moe_probe.py``); the H100 read 2.0e-2-6.3e-2 at
+#: full width. Twice the reference's largest; the fp32 pass over the
+#: first 2 layers holds the arithmetic at ``TEACHER_REL_RMS``'s 1e-4.
+MOE_BF16_TEACHER = 0.13
+#: the fp32 pass: the first 2 layers with the same weights
+MOE_FP32_LAYERS = 2
+#: RWSADMM on qwen3-moe-30b-a3b at full width cut to 1 layer
+#: (1,236,017,152 parameters), in its bf16: two clients on the walker,
+#: 4 × 512 tokens a step, two rounds; the card-vs-CPU step on that cut
+MOE_TRAIN = dict(TRAIN, arch=MOE_ARCH, layers=1, clients=2, seq=512,
+                 rounds=2)
+#: a token whose top-8 set differs between the card and the CPU fails
+#: the routing check when the CPU's gap between its 8th and 9th
+#: probability exceeds this (below it, fp32 rounding may order them
+#: either way)
+MOE_FLIP_MARGIN = 1e-5
+
+
+def with_capacity_factor(model, factor: float):
+    """An ``LM`` holding ``model``'s weights (shared, not copied) whose
+    MoE capacity factor is ``factor``."""
+    import dataclasses
+
+    from repro_torch.models.transformer import LM
+
+    cfg = model.cfg
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=factor))
+    out = LM(cfg, device="meta")
+    out.load_state_dict(model.state_dict(), assign=True)
+    return out
+
+
+def ffn_inputs(model, run) -> tuple[list, object]:
+    """``run()`` with a forward hook on every layer's MoE ``ffn``: the
+    inputs the layers got, each flattened to (T, d), in call order, and
+    what ``run()`` returned."""
+    seen = []
+    hooks = [blk.ffn.register_forward_hook(
+        lambda module, args, _: seen.append(
+            args[0].detach().reshape(-1, args[0].shape[-1])))
+        for blk in model.layers]
+    try:
+        return seen, run()
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def top_k_sets(ffn, xf):
+    """Each token's top-k experts under the MoE layer ``ffn``'s router,
+    sorted: (T, k)."""
+    from repro_torch.models import moe
+
+    return moe.route(ffn, xf, ffn.cfg)[1].sort(-1).values
+
+
+def moe_prefill_drops(model) -> dict:
+    """(token, expert) slots past their expert's capacity in each MoE layer
+    during a prefill of ``SERVE``'s batch, from the layers' inputs
+    (``ffn_inputs``)."""
+    import torch
+
+    from repro_torch.models import moe
+    from repro_torch.models.registry import random_batch
+
+    cfg = model.cfg
+    batch = random_batch(cfg, SERVE["batch"], SERVE["prompt"],
+                         seed=SERVE["seed"], device=model.device)
+    with torch.no_grad():
+        seen, _ = ffn_inputs(model, lambda: model.prefill(
+            batch, SERVE["prompt"] + SERVE["gen"]))
+        per_layer = [int(moe.dropped_slots(blk.ffn, xf, cfg))
+                     for blk, xf in zip(model.layers, seen)]
+    del seen
+    t = SERVE["batch"] * SERVE["prompt"]
+    slots = t * cfg.moe.top_k
+    out = {"per_layer": per_layer, "slots_per_layer": slots,
+           "capacity": moe.capacity(t, cfg),
+           "share": sum(per_layer) / (slots * len(per_layer))}
+    log(f"{cfg.arch_id} prefill {SERVE['batch']}x{SERVE['prompt']} at "
+        f"capacity factor {cfg.moe.capacity_factor} (capacity "
+        f"{out['capacity']} a expert, mean load {slots / cfg.moe.n_experts:.1f}"
+        f"): dropped (token, expert) slots a layer {per_layer} of {slots} "
+        f"(share {out['share']:.4f})")
+    if len(per_layer) != cfg.n_layers:
+        raise AssertionError(f"drops counted in {len(per_layer)} layers")
+    return out
+
+
+def moe_routing_flips(cpu, card, tokens) -> dict:
+    """Layer 0's routing of ``tokens`` on the CPU and on the card: each
+    token's top-k set, compared; a flip is printed with the CPU's gap
+    between its k-th and (k+1)-th probability and fails above
+    ``MOE_FLIP_MARGIN``."""
+    import torch
+
+    k = cpu.cfg.moe.top_k
+    sets, xs = [], []
+    with torch.no_grad():
+        for model in (cpu, card):
+            seen, _ = ffn_inputs(model, lambda: model.apply(
+                {"tokens": torch.as_tensor(tokens, device=model.device)}))
+            xs.append(seen[0])
+            sets.append(top_k_sets(model.layers[0].ffn, seen[0]).cpu())
+        probs = torch.softmax(xs[0].float() @ cpu.layers[0].ffn.router, -1)
+    flipped = (sets[0] != sets[1]).any(-1).nonzero().flatten()
+    ranked = probs.sort(-1, descending=True).values
+    margins = (ranked[flipped, k - 1] - ranked[flipped, k]).tolist()
+    row = {"tokens": int(sets[0].shape[0]), "flips": flipped.tolist(),
+           "margins": margins}
+    log(f"moe routing, layer 0, card vs CPU over {row['tokens']} tokens: "
+        f"{len(margins)} top-{k} sets differ" + (
+            f" (tokens {row['flips']}, margins {margins})" if margins else ""))
+    if any(m > MOE_FLIP_MARGIN for m in margins):
+        raise AssertionError(f"moe routing differs card vs CPU beyond a "
+                             f"margin of {MOE_FLIP_MARGIN}: {row}")
+    return row
+
+
+def moe_teacher_route_flips(model, prompt, ids) -> dict:
+    """Each layer's top-k sets at the decode positions: the decode steps
+    (a prefill of ``prompt`` (B, T), then ``ids`` (B, gen) fed one at a
+    time) against one teacher-forced ``apply`` over prompt + ids; counts
+    the (token, layer) pairs whose sets differ."""
+    import torch
+
+    b, t = prompt.shape
+    gen = ids.shape[1]
+    flips = 0
+    with torch.no_grad():
+        seen, _ = ffn_inputs(model, lambda: model.apply(
+            {"tokens": torch.cat([prompt, ids], 1)}))
+        forced = [top_k_sets(blk.ffn, xf).reshape(b, t + gen, -1)
+                  for blk, xf in zip(model.layers, seen)]
+        del seen
+        _, cache = model.prefill({"tokens": prompt}, t + gen)
+        for j in range(gen - 1):
+            seen, (_, cache) = ffn_inputs(model, lambda: model.decode_step(
+                cache, ids[:, j:j + 1]))
+            flips += sum(int((top_k_sets(blk.ffn, xf).reshape(b, -1)
+                              != f[:, t + j]).any(-1).sum())
+                         for blk, xf, f in zip(model.layers, seen, forced))
+    row = {"flips": flips, "compared": b * (gen - 1) * len(model.layers)}
+    log(f"{model.cfg.arch_id} decode vs teacher-forced apply: top-"
+        f"{model.cfg.moe.top_k} sets differ in {flips} of "
+        f"{row['compared']} (token, layer) pairs")
+    return row
+
+
+def phase_moe(device) -> dict:
+    """qwen3-moe-30b-a3b at full width and depth (48 layers of attention, H
+    32 over K 4, hd 64, and an MoE FFN of 128 experts, top-8, width 768),
+    bf16, seeded random weights, through ``launch/serve.py`` at the
+    published capacity factor 1.25: exactly 720 flash-decode launches and
+    no other kernel, the prefill's dropped slots a layer, a profiled
+    prefill and decode step; then, with the same weights at capacity
+    factor 16, the bf16 teacher check on SERVE's row 0 and the first 2
+    layers in fp32 at the fp32 bound; then RWSADMM training at full width
+    cut to 1 layer (``MOE_TRAIN``) and one fp32 step of that cut, card vs
+    CPU, after its layer-0 routing is compared."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import random_batch
+
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(label: str) -> None:   # the phase's seconds by part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[label] = round(now - last[0], 1)
+        last[0] = now
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = serve.load_model(MOE_ARCH, device=device, seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    cfg, e = model.cfg, model.cfg.moe
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"params": n_params, "param_count": cfg.param_count(),
+           "active_param_count": cfg.active_param_count(),
+           "init_s": time.perf_counter() - t0,
+           "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+    log(f"moe: {MOE_ARCH} {cfg.n_layers} layers, d {cfg.d_model}, H "
+        f"{cfg.n_heads} over K {cfg.n_kv_heads}, hd {cfg.hd}, {e.n_experts} "
+        f"experts top-{e.top_k} width {e.d_expert} capacity factor "
+        f"{e.capacity_factor}, vocab {cfg.vocab}, {n_params:,} params "
+        f"({cfg.param_count():,} by param_count, "
+        f"{cfg.active_param_count():,} active), {cfg.dtype}, init "
+        f"{out['init_s']:.2f} s, {out['allocated_gib']:.2f} GiB")
+    mark("init")
+    out |= serve_lm(model, MOE_ARCH, teacher=False)
+    mark("serve")
+    out["dropped_slots"] = moe_prefill_drops(model)
+    out |= profile_serve(model, MOE_ARCH)
+    mark("drops and profile")
+    factor, rows = MOE_NO_DROP["capacity_factor"], MOE_NO_DROP["rows"]
+    model = with_capacity_factor(model, factor)
+    out["no_drop"] = serve_lm(model, f"{MOE_ARCH} capacity factor {factor}",
+                              MOE_BF16_TEACHER, rows=rows)
+    prompt = random_batch(cfg, SERVE["batch"], SERVE["prompt"],
+                          seed=SERVE["seed"], device=device)["tokens"][:rows]
+    out["no_drop"]["route_flips"] = moe_teacher_route_flips(
+        model, prompt, torch.tensor([out["no_drop"]["ids_row0"]],
+                                    device=device))
+    mark("no-drop teacher")
+    model = as_float32(model, MOE_FP32_LAYERS)
+    torch.cuda.empty_cache()
+    out["float32"] = serve_lm(model, f"{MOE_ARCH} capacity factor {factor} "
+                              f"fp32", rows=rows)
+    del model
+    torch.cuda.empty_cache()
+    mark("fp32 teacher")
+    out["train"] = train_on_walker(device, MOE_TRAIN, "moe train")
+    torch.cuda.empty_cache()
+    mark("train")
+    out["train"]["parity"] = lm_step_parity(device, MOE_ARCH,
+                                            MOE_TRAIN["layers"],
+                                            check=moe_routing_flips)
+    mark("train parity")
+    out["seconds"] = seconds
+    log(f"moe phase seconds by part: {seconds}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 _RW_SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
 _TF_SOURCE = "src/repro_torch/kernels/threefry/csrc/threefry.cu"
 SOURCE = {"zone_update": _RW_SOURCE, "multizone_update": _RW_SOURCE,
@@ -4296,6 +4627,7 @@ def main() -> int:
     paths["zoo_serve"] = run_phase("zoo serve", phase_zoo_serve, device)
     paths["train"] = run_phase("train", phase_train, device)
     paths["xlstm"] = run_phase("xlstm", phase_xlstm, device)
+    paths["moe"] = run_phase("moe", phase_moe, device)
     # flash_decode on the zoo's serve paths, each driven with the counts at
     # 0: gemma3-12b bf16 at full depth, its fp32 pattern, the 2-layer cuts
     zoo = paths["zoo_serve"]
@@ -4304,6 +4636,12 @@ def main() -> int:
                         "flash_decode"]}
     zoo_launches.update({a: zoo[a]["launches"]["flash_decode"]
                          for a in ZOO_CUTS})
+    moe_run = paths["moe"]
+    moe_launches = {MOE_ARCH: moe_run["launches"]["flash_decode"],
+                    f"{MOE_ARCH}-no-drop": moe_run["no_drop"]["launches"][
+                        "flash_decode"],
+                    f"{MOE_ARCH}-fp32": moe_run["float32"]["launches"][
+                        "flash_decode"]}
 
     # Every kernel's "ms" is its device time per call with a cold L2.
     extra = ("ms_warm", "graph_ms", "graph_ms_warm", "library_ms_warm",
@@ -4336,11 +4674,14 @@ def main() -> int:
             row["sign_flips"] = sum(r["sign_flips"] for r in checks)
         if kernel == "flash_decode":
             g3 = next(r for r in checks if r.get("gemma3") and "ms" in r)
+            q3 = next(r for r in checks if r.get("qwen3") and "ms" in r)
             row["launches_zoo"] = zoo_launches
-            row["gemma3_shape"] = {k: g3[k] for k in (
-                "shape", "ms", "ms_warm", "graph_ms", "library_ms",
-                "library_ms_warm", "plain_ms", "bound_ms", "bound_by",
-                "share_of_bound", "config")}
+            row["launches_moe"] = moe_launches
+            for key, timed_row in (("gemma3_shape", g3), ("qwen3_shape", q3)):
+                row[key] = {k: timed_row[k] for k in (
+                    "shape", "ms", "ms_warm", "graph_ms", "library_ms",
+                    "library_ms_warm", "plain_ms", "bound_ms", "bound_by",
+                    "share_of_bound", "config")}
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
     for label, summary in paths.items():

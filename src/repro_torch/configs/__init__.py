@@ -1,10 +1,13 @@
 """Architecture configs the port runs (a copy of the JAX package's config
 system, registering the architectures whose layers the port has)."""
-from .base import ModelConfig, get_config, list_archs, register  # noqa: F401
+from .base import ModelConfig, MoESpec, get_config, list_archs, \
+    register  # noqa: F401
 # Importing these modules registers them.
 from . import (  # noqa: F401,E402
     gemma3_12b,
+    kimi_k2_1t_a32b,
     qwen2_7b,
+    qwen3_moe_30b_a3b,
     recurrentgemma_9b,
     tinyllama_1_1b,
     xlstm_350m,

@@ -2,14 +2,16 @@
 ``ModelConfig`` (``hd``, ``pattern_repeats``, ``param_count()``,
 ``reduced()``) and its registry, holding only what the port's ``LM``
 runs: global and local attention with standard RoPE and an optional qkv
-bias, RG-LRU, the xLSTM's mLSTM and sLSTM, a dense FFN or none
-(``d_ff = 0``), and a tied embedding or an untied head. ``rope="none"``
-runs on a stack without attention (xLSTM): the reference adds a learned
-position table only to rope-less attention stacks. Fields of the rest of
-the model zoo (MoE, frontends, encoders, learned positions) come with
-the slice that runs them (ROADMAP Queue 1 item 8); ``rope`` takes the
-reference's values, and the ``LM`` refuses ``"mrope"`` and ``"none"``
-with attention.
+bias, RG-LRU, the xLSTM's mLSTM and sLSTM, a Mixture-of-Experts FFN
+(``moe``, a ``MoESpec``; it takes the place of the dense FFN, and
+``d_ff`` is then the reference's per-expert hidden size, unused), a
+dense FFN or none (``d_ff = 0``), and a tied embedding or an untied
+head. ``rope="none"`` runs on a stack without attention (xLSTM): the
+reference adds a learned position table only to rope-less attention
+stacks. Fields of the rest of the model zoo (frontends, encoders,
+learned positions) come with the slice that runs them (ROADMAP Queue 1
+item 8); ``rope`` takes the reference's values, and the ``LM`` refuses
+``"mrope"`` and ``"none"`` with attention.
 
 Only architectures whose model the port runs are registered;
 ``get_config`` of any other raises.
@@ -18,6 +20,15 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_expert: int               # per-expert FFN hidden size
+    capacity_factor: float = 1.25
+    n_shared_experts: int = 0   # always-on experts (DeepSeek/Kimi style)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +53,7 @@ class ModelConfig:
     qkv_bias: bool = False
     rope: str = "standard"       # standard | mrope | none
     rope_theta: float = 1e4
+    moe: Optional[MoESpec] = None
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
     act: str = "silu"            # mlp activation: silu (SwiGLU) | gelu
@@ -83,7 +95,14 @@ class ModelConfig:
                 raise ValueError(kind)
         n = sum(per_kind[kind] + 2 * d  # + norms
                 for kind in self.layer_pattern) * self.pattern_repeats
-        ffn = (3 * d * ff if self.act == "silu" else 2 * d * ff) if ff else 0
+        if self.moe is not None:
+            e = self.moe
+            ffn = (e.n_experts + e.n_shared_experts) * 3 * d * e.d_expert \
+                + d * e.n_experts
+        elif ff > 0:
+            ffn = 3 * d * ff if self.act == "silu" else 2 * d * ff
+        else:
+            ffn = 0
         n += self.n_layers * (ffn + (2 * d if ffn else 0))
         n += v * d  # embeddings
         if not self.tie_embeddings:
@@ -95,12 +114,32 @@ class ModelConfig:
                 f"in the port yet (ROADMAP Queue 1 item 8)")
         return int(n)
 
+    def active_param_count(self) -> int:
+        """MoE: params touched per token (6·N_active·D flops convention)."""
+        if self.moe is None:
+            return self.param_count()
+        e = self.moe
+        total_ffn = (e.n_experts + e.n_shared_experts) * 3 * self.d_model \
+            * e.d_expert * self.n_layers
+        active_ffn = (e.top_k + e.n_shared_experts) * 3 * self.d_model \
+            * e.d_expert * self.n_layers
+        return int(self.param_count() - total_ffn + active_ffn)
+
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
         """Smoke-test variant: same pattern, tiny dims, fp32."""
         g = len(self.layer_pattern)
         d = min(self.d_model, 256)
         h = max(2, min(self.n_heads, 4))
+        moe = None
+        if self.moe is not None:
+            # capacity_factor ≥ E/k ⇒ capacity = n_tokens ⇒ provably no
+            # drops (each token hits an expert at most once), so decode
+            # and a teacher-forced forward compute the same thing.
+            moe = dataclasses.replace(
+                self.moe, n_experts=4, top_k=2, d_expert=128,
+                n_shared_experts=min(self.moe.n_shared_experts, 1),
+                capacity_factor=4.0)
         return dataclasses.replace(
             self,
             arch_id=self.arch_id + "-reduced",
@@ -112,6 +151,7 @@ class ModelConfig:
             d_ff=min(self.d_ff, 512) if self.d_ff else 0,
             vocab=min(self.vocab, 512),
             window=min(self.window, 64),
+            moe=moe,
             dtype="float32",
         )
 

@@ -1,10 +1,11 @@
 """Decoder-only LM of the model zoo (the JAX package's
-``models/transformer.py``, without MoE, mesh or frontends).
+``models/transformer.py``, without mesh or frontends).
 
 A model is ``layer_pattern`` repeated ``pattern_repeats`` times; each
 layer is a mixer (global "attn", sliding-window "local", or recurrent
-"rglru", "mlstm" or "slstm") and, when d_ff > 0, a dense FFN, both
-pre-norm and residual. The layers are one ``nn.ModuleList`` of
+"rglru", "mlstm" or "slstm") and an FFN: a Mixture-of-Experts
+(``models/moe.py``) when the config has ``moe``, else a dense one when
+d_ff > 0; both pre-norm and residual. The layers are one ``nn.ModuleList`` of
 ``n_layers`` blocks: layer ``l = r·len(pattern) + gi`` is the
 reference's ``params["layers"][gi][r]`` (the reference stacks the
 repeats of pattern index gi on a leading axis). Serving keeps one cache
@@ -23,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from .. import resolve_device
 from . import attention as attn_mod
 from . import recurrent as rec_mod
+from .moe import MoE
 from .layers import MLP, NormalDraws, RMSNorm, dense_init, embedding_init, \
     mlp, param, rmsnorm, torch_dtype
 
@@ -35,9 +37,9 @@ ATTENTION = ("attn", "local")
 
 
 class Block(nn.Module):
-    """One layer: ``norm1``, ``mix`` and, when d_ff > 0, ``norm2`` and
-    ``ffn``. Calling it runs the layer without a cache (training and
-    ``apply``)."""
+    """One layer: ``norm1``, ``mix`` and, with MoE or when d_ff > 0,
+    ``norm2`` and ``ffn`` (an ``MoE`` or an ``MLP``). Calling it runs the
+    layer without a cache (training and ``apply``)."""
 
     def __init__(self, cfg, kind: str, *, device=None):
         super().__init__()
@@ -46,7 +48,11 @@ class Block(nn.Module):
         dt = torch_dtype(cfg)
         self.norm1 = RMSNorm(cfg.d_model, dtype=dt, device=device)
         self.mix = MIXERS[kind](cfg, device=device)
-        if cfg.d_ff > 0:
+        # MoE first: its configs set d_ff to the per-expert hidden size
+        if cfg.moe is not None:
+            self.norm2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
+            self.ffn = MoE(cfg, device=device)
+        elif cfg.d_ff > 0:
             self.norm2 = RMSNorm(cfg.d_model, dtype=dt, device=device)
             self.ffn = MLP(cfg.d_model, cfg.d_ff, cfg.act, dtype=dt,
                            device=device)
@@ -54,7 +60,8 @@ class Block(nn.Module):
     def ffn_residual(self, h: torch.Tensor) -> torch.Tensor:
         if hasattr(self, "ffn"):
             hn2 = rmsnorm(self.norm2, h, self.cfg.norm_eps)
-            h = h + mlp(self.ffn, hn2, self.cfg.act)
+            h = h + (self.ffn(hn2) if self.cfg.moe is not None
+                     else mlp(self.ffn, hn2, self.cfg.act))
         return h
 
     def recurrent(self, hn: torch.Tensor, return_state: bool = False):
