@@ -3432,7 +3432,8 @@ def phase_lm_kernels(device, card: str) -> dict:
             check_flash_decode(2, 4, 1, 24, 1000, [999, 65], None,
                                "bfloat16", device, card, False),
             *gemma3_flash_checks(device, card),
-            *qwen3_flash_checks(device, card)],
+            *qwen3_flash_checks(device, card),
+            *frontend_flash_checks(device, card)],
     }
 
 
@@ -3478,6 +3479,36 @@ def qwen3_flash_checks(device, card: str) -> list:
             rows.append(check_flash_decode(b, h, kv, hd, s, lengths, None,
                                            dtype, device, card, timed)
                         | {"qwen3": True})
+    return rows
+
+
+#: flash decode on the frontends' serve paths (batch 4), each key a row
+#: mark: whisper-large-v3's decoder self-attention (H = K = 20, G = 1,
+#: hd 64) over its 2056-slot cache, timed at the last step's 16 valid
+#: keys; its cached cross-attention over the 1500 encoder frames, every
+#: key valid; qwen2-vl-2b's self-attention (H 12 over K 2, G = 6, hd 128)
+#: over 256 patches, the 2040-token prompt and 16 generated tokens
+FRONTEND_FLASH = {
+    "whisper_self": dict(h=20, kv=20, hd=64, s=2056, timed=[16] * 4,
+                         ragged=[2056, 2041, 16, 1]),
+    "whisper_cross": dict(h=20, kv=20, hd=64, s=1500, timed=[1500] * 4,
+                          ragged=[1500, 1499, 751, 1]),
+    "qwen2vl": dict(h=12, kv=2, hd=128, s=2312, timed=[2312] * 4,
+                    ragged=[2312, 2297, 1025, 1])}
+
+
+def frontend_flash_checks(device, card: str) -> list:
+    """Flash decode at the three ``FRONTEND_FLASH`` shapes in bf16 (the
+    serve path's lengths timed cold and warm beside SDPA and the bound)
+    and fp32, and with ragged lengths; each row marked with its key."""
+    rows = []
+    for key, g in FRONTEND_FLASH.items():
+        for dtype in ("bfloat16", "float32"):
+            for lengths in (g["timed"], g["ragged"]):
+                timed = dtype == "bfloat16" and lengths is g["timed"]
+                rows.append(check_flash_decode(
+                    4, g["h"], g["kv"], g["hd"], g["s"], lengths, None,
+                    dtype, device, card, timed) | {key: True})
     return rows
 
 
@@ -3604,8 +3635,8 @@ def phase_serve(device) -> dict:
 
 
 def as_float32(model, n_layers: int | None = None):
-    """An fp32 ``LM`` holding ``model``'s weights (its first ``n_layers``
-    layers when given)."""
+    """An fp32 model holding ``model``'s weights (its first ``n_layers``
+    layers, of the encoder too for an encoder-decoder, when given)."""
     import dataclasses
 
     import torch
@@ -3613,12 +3644,16 @@ def as_float32(model, n_layers: int | None = None):
     from repro_torch.models.registry import build_model
 
     cfg = model.cfg
-    n_layers = n_layers or cfg.n_layers
-    out = build_model(dataclasses.replace(cfg, dtype="float32",
-                                          n_layers=n_layers),
+    n_layers = min(n_layers or cfg.n_layers, cfg.n_layers)
+    cut = dict(n_layers=n_layers)
+    if cfg.encoder_layers:
+        cut["encoder_layers"] = min(n_layers, cfg.encoder_layers)
+    out = build_model(dataclasses.replace(cfg, dtype="float32", **cut),
                       device=model.device)
+    stacks = ("layers", "enc_layers", "dec_layers")
     state = {k: v for k, v in model.state_dict().items()
-             if not k.startswith("layers.") or int(k.split(".")[1]) < n_layers}
+             if k.split(".")[0] not in stacks
+             or int(k.split(".")[1]) < n_layers}
     out.load_state_dict(state)
     return out
 
@@ -3638,14 +3673,27 @@ def teacher_forced_errors(model, prompt, ids, logits) -> dict:
     """Decode logits (B, gen, vocab) of the ids (B, gen) that followed
     ``prompt`` (B, T) against one teacher-forced ``apply`` over
     prompt + ids: the relative RMS error at each position, the largest
-    absolute error, the logits' RMS and the share of equal argmaxes."""
+    absolute error, the logits' RMS and the share of equal argmaxes.
+    ``prompt`` may be a batch dict, whose stub inputs (a vision stub's
+    patches) then go ahead of the text."""
     import torch
 
-    t, gen = prompt.shape[1], ids.shape[1]
+    batch = prompt if isinstance(prompt, dict) else {"tokens": prompt}
+    t, gen = batch["tokens"].shape[1], ids.shape[1]
+    tokens = torch.cat([batch["tokens"], ids], 1)
     with torch.no_grad():
-        full = model.apply({"tokens": torch.cat([prompt, ids], 1)})
-    forced = full[:, t - 1:t - 1 + gen].clone()
+        full = model.apply(dict(batch, tokens=tokens))
+    off = full.shape[1] - tokens.shape[1]
+    forced = full[:, off + t - 1:off + t - 1 + gen].clone()
     del full
+    return logit_errors(logits, forced)
+
+
+def logit_errors(logits, forced) -> dict:
+    """Logits (B, gen, vocab) against ``forced`` of the same shape: the
+    relative RMS error at each position, the largest absolute error, the
+    logits' RMS and the share of equal argmaxes."""
+    gen = logits.shape[1]
     per_pos = [_rel_rms(logits[:, j], forced[:, j]) for j in range(gen)]
     return {"rel_rms": per_pos, "rel_rms_max": max(per_pos),
             "max_abs": float((logits - forced).abs().max()),
@@ -3655,19 +3703,20 @@ def teacher_forced_errors(model, prompt, ids, logits) -> dict:
 
 
 def hold_teacher(teacher: dict, dtype: str, tokens: int,
-                 bound: float | None = None) -> None:
+                 bound: float | None = None,
+                 what: str = "decode vs teacher-forced apply") -> None:
     """The teacher check at ``bound``, ``TEACHER_REL_RMS[dtype]`` unless
-    an arch states its own."""
+    an arch states its own; ``what`` names the two logits compared."""
     bound = TEACHER_REL_RMS[dtype] if bound is None else bound
-    log(f"serve {dtype}: decode vs teacher-forced apply over {tokens} "
-        f"tokens: relative RMS error per position "
+    log(f"serve {dtype}: {what} over {tokens} "
+        f"positions: relative RMS error per position "
         f"{' '.join(f'{e:.2e}' for e in teacher['rel_rms'])} (bound "
         f"{bound}), max abs {teacher['max_abs']:.4g} on logits of RMS "
         f"{teacher['logit_rms']:.3f}, argmax agreement "
         f"{teacher['argmax_agree']:.3f}")
     if not teacher["rel_rms_max"] <= bound:
-        raise AssertionError(f"{dtype} decode disagrees with teacher-forced "
-                             f"apply: {teacher['rel_rms']}")
+        raise AssertionError(f"{dtype} {what}: beyond {bound}: "
+                             f"{teacher['rel_rms']}")
 
 
 def profile_breakdown(fn, reps: int, label: str) -> dict:
@@ -3750,13 +3799,13 @@ def serve_lm(model, label: str, teacher_bound: float | None = None, *,
 
     cfg = model.cfg
     bsz, prompt, gen = rows or SERVE["batch"], SERVE["prompt"], SERVE["gen"]
-    max_len = prompt + gen
+    max_len = serve.max_len_for(cfg, prompt, gen)
     batch = random_batch(cfg, SERVE["batch"], prompt, seed=SERVE["seed"],
                          device=model.device)
-    batch = {"tokens": batch["tokens"][:bsz]}
-    for _ in serve.generate(model, {"tokens": batch["tokens"][:, :64]}, 2,
-                            66):    # warm-up, uncounted
-        pass
+    batch = {k: v[:bsz] for k, v in batch.items()}    # tokens and stubs
+    for _ in serve.generate(model, dict(batch, tokens=batch["tokens"][:, :64]),
+                            2, serve.max_len_for(cfg, 64, 2)):
+        pass    # warm-up, uncounted
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_launch_counts()
@@ -3783,6 +3832,7 @@ def serve_lm(model, label: str, teacher_bound: float | None = None, *,
            "launches": {"flash_decode": counts["flash_decode"]},
            "ids_row0": ids[0].tolist()}
     log(f"{label}: {cfg.n_layers} layers {cfg.dtype}: prefill {bsz}x{prompt} "
+        f"(after {max_len - prompt - gen} stub patches) "
         f"in {row['prefill_ms']:.1f} ms, {gen - 1} decode steps at "
         f"{row['decode_ms_per_step']:.2f} ms a step, {row['tok_per_s']:.1f} "
         f"tok/s over the call, peak allocated {row['peak_gib']:.2f} GiB, "
@@ -3796,23 +3846,23 @@ def serve_lm(model, label: str, teacher_bound: float | None = None, *,
                              f"{tuple(ids.shape)}, finite logits "
                              f"{bool(logits.isfinite().all())}")
     if teacher:
-        row["teacher"] = teacher_forced_errors(model, batch["tokens"], ids,
-                                               logits)
+        row["teacher"] = teacher_forced_errors(model, batch, ids, logits)
         del logits
-        hold_teacher(row["teacher"], cfg.dtype, prompt + gen, teacher_bound)
+        hold_teacher(row["teacher"], cfg.dtype, max_len, teacher_bound)
     return row
 
 
 def profile_serve(model, label: str) -> dict:
-    """One profiled prefill of ``SERVE``'s batch and three decode steps
-    after it (``profile_breakdown``)."""
+    """One profiled prefill of ``SERVE``'s batch (with its stub patches)
+    and three decode steps after it (``profile_breakdown``)."""
+    from repro_torch.launch.serve import max_len_for
     from repro_torch.launch.steps import make_prefill_step, make_serve_step
     from repro_torch.models.registry import random_batch
 
     bsz, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     batch = random_batch(model.cfg, bsz, prompt, seed=SERVE["seed"],
                          device=model.device)
-    prefill = make_prefill_step(model, prompt + gen)
+    prefill = make_prefill_step(model, max_len_for(model.cfg, prompt, gen))
     step = make_serve_step(model)
     tok, _, cache = prefill(batch)
     tok, _, cache = step(cache, tok)
@@ -3910,8 +3960,20 @@ def promoted_dtypes(params: dict, step: int) -> dict:
                 for k, v in params.items()} for n in ("x", "z", "y")}
 
 
+def stub_inputs(cfg, batch: int, seed: int, device) -> dict:
+    """A stub frontend's inputs (``frames`` or ``patches``) of ``batch``
+    rows, as ``random_batch`` draws them after its tokens; none for a
+    plain LM."""
+    from repro_torch.models.registry import random_batch
+
+    out = random_batch(cfg, batch, 1, seed=seed, device=device)
+    del out["tokens"]
+    return out
+
+
 def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
-                   deep_tie: float = 0.0, check=None) -> dict:
+                   deep_tie: float = 0.0, check=None,
+                   cut: dict | None = None) -> dict:
     """One RWSADMM step of ``arch`` at full width, cut to its first
     ``layers`` layers, fp32, from the same weights and tokens on the card
     and on the CPU: x, z and y at ``PARITY_STEP``'s tolerance, its atol
@@ -3919,7 +3981,9 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
     on the CPU); y's sign flips must be ties, and those at ties deeper than
     ``deep_tie`` of the tie are not counted against ``max_flip_share``.
     ``check(cpu, card, tokens)``, when given, runs before the step and its
-    result is kept under "check"."""
+    result is kept under "check". ``cut`` replaces more config fields
+    (an encoder's layers and frames); a stub frontend's inputs come from
+    ``stub_inputs``."""
     import dataclasses
 
     import numpy as np
@@ -3933,7 +3997,7 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
 
     p = PARITY_STEP
     cfg = dataclasses.replace(get_config(arch), n_layers=layers,
-                              dtype="float32")
+                              dtype="float32", **(cut or {}))
     hp = RWSADMMHparams(beta=TRAIN["beta"], kappa=TRAIN["kappa"],
                         epsilon=TRAIN["epsilon"])
     cpu = build_model(cfg, device="cpu").init(TRAIN["seed"])
@@ -3941,14 +4005,16 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
     card.load_state_dict(cpu.state_dict())
     tokens = heterogeneous_stream(cfg.vocab, 1, p["batch"], p["seq"],
                                   np.random.default_rng(TRAIN["seed"]))
+    stubs = stub_inputs(cfg, p["batch"], TRAIN["seed"], "cpu")
     checked = check(cpu, card, tokens) if check is not None else None
     results = []
     for model in (cpu, card):
         params = {k: v.detach() for k, v in model.named_parameters()}
+        batch = {"tokens": torch.as_tensor(tokens, device=model.device)}
+        batch |= {k: v.to(model.device) for k, v in stubs.items()}
         t0 = time.perf_counter()
         state, loss = make_train_step(model, hp, TRAIN["clients"])(
-            init_train_state(params, hp),
-            {"tokens": torch.as_tensor(tokens, device=model.device)})
+            init_train_state(params, hp), batch)
         results.append((state, float(loss), time.perf_counter() - t0))
     (want, want_loss, cpu_s), (got, got_loss, card_s) = results
     # compared on the card: the same elementwise tests, which take
@@ -4000,9 +4066,12 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
            "y_sign_flips_counted": counted,
            "beyond_plain_tolerance": beyond_plain,
            "step_s": {"cpu": cpu_s, "card": card_s},
-           "tokens": p["batch"] * p["seq"], "check": checked}
-    log(f"train parity: {arch} {layers} layers fp32, one step "
-        f"on {p['batch']}x{p['seq']} tokens (CPU {cpu_s:.1f} s, card "
+           "tokens": p["batch"] * p["seq"], "check": checked,
+           "cut": dict(cut or {}, n_layers=layers)}
+    log(f"train parity: {arch} {layers} layers fp32 (cut {row['cut']}), one "
+        f"step on {p['batch']}x{p['seq']} tokens and "
+        f"{ {k: tuple(v.shape) for k, v in stubs.items()} } stub inputs "
+        f"(CPU {cpu_s:.1f} s, card "
         f"{card_s:.2f} s), card vs CPU: loss {got_loss} vs {want_loss} (rel "
         f"{loss_rel:.3g}), max abs x/z/y {errs}, y sign flips at ties "
         f"{flips} ({counted} above {deep_tie} of a tie) (tolerance atol "
@@ -4017,7 +4086,8 @@ def train_on_walker(device, t: dict, label: str) -> dict:
     """RWSADMM training of ``t["arch"]`` at full width and depth (cut to
     ``t["layers"]`` layers when given) through ``launch/steps.py``'s
     ``make_train_step``: a random walk over ``t["clients"]`` clients'
-    heterogeneous streams for ``t["rounds"]`` rounds; gated on finite
+    heterogeneous streams (with a stub frontend's frames or patches
+    drawn for each client) for ``t["rounds"]`` rounds; gated on finite
     losses, x moved, κ decayed, the reference's dtype promotion after
     steps 1 and 2, and no hand kernel launched."""
     import dataclasses
@@ -4048,9 +4118,10 @@ def train_on_walker(device, t: dict, label: str) -> dict:
                         epsilon=t["epsilon"])
     step = make_train_step(model, hp, n_total=t["clients"])
     rng = np.random.default_rng(t["seed"])
-    batches = [torch.as_tensor(heterogeneous_stream(cfg.vocab, c, t["batch"],
-                                                    t["seq"], rng),
-                               device=device) for c in range(t["clients"])]
+    batches = [{"tokens": torch.as_tensor(heterogeneous_stream(
+        cfg.vocab, c, t["batch"], t["seq"], rng), device=device),
+        **stub_inputs(cfg, t["batch"], t["seed"] + c, device)}
+        for c in range(t["clients"])]
     states = [init_train_state(params, hp) for _ in range(t["clients"])]
     dyn = DynamicGraph(t["clients"], min_degree=2, regen_every=10, seed=0)
     walker = RandomWalkServer(seed=1)
@@ -4065,7 +4136,7 @@ def train_on_walker(device, t: dict, label: str) -> dict:
         i_k = walker.step(g) if r else walker.position
         st = TrainState(x=states[i_k].x, z=states[i_k].z, y=y, kappa=kappa)
         t1 = time.perf_counter()
-        st, loss = step(st, {"tokens": batches[i_k]})
+        st, loss = step(st, batches[i_k])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t1) * 1e3)
         states[i_k], y, kappa = st, st.y, st.kappa
@@ -4502,6 +4573,338 @@ def phase_moe(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# The frontends: whisper-large-v3's encoder-decoder over stub frames and
+# qwen2-vl-2b's patch span with M-RoPE, each served at full width and depth
+# and trained under RWSADMM.
+WHISPER_ARCH = "whisper-large-v3"
+VLM_ARCH = "qwen2-vl-2b"
+#: the fp32 passes: whisper's first 4 encoder and 4 decoder layers, and
+#: qwen2-vl's first 4 layers, with the same weights
+FRONTEND_FP32_LAYERS = 4
+#: RWSADMM at full width and depth in bf16: two clients on the walker, 4
+#: rows a step of 448 decoder tokens (whisper's text context) after 1500
+#: frames, or of 256 patches and 512 tokens; three rounds
+WHISPER_TRAIN = dict(TRAIN, arch=WHISPER_ARCH, clients=2, seq=448, rounds=3)
+VLM_TRAIN = dict(TRAIN, arch=VLM_ARCH, clients=2, seq=512, rounds=3)
+#: the card-vs-CPU fp32 step: whisper cut to 1 encoder and 1 decoder layer
+#: and 300 of its 1500 frames (the CPU's share of the phase's time);
+#: qwen2-vl to 2 layers with its 256 patches
+WHISPER_PARITY = dict(layers=1, cut=dict(encoder_layers=1, encoder_seq=300))
+VLM_PARITY = dict(layers=2)
+
+
+def encdec_decode(model, enc, ids, gen: int, max_len: int, *,
+                  project: bool, greedy: bool = True):
+    """``gen`` decode steps of an encoder-decoder from the encoder output
+    ``enc``: greedy from ``ids[:, :1]`` through ``launch/serve.py``'s
+    ``generate_encdec``, or teacher-forced on ``ids`` (B, ≥ gen). Returns
+    the ids fed and chosen (B, gen + 1) and the logits (B, gen, vocab)."""
+    import torch
+
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_serve_step
+
+    if greedy:
+        out = list(serve.generate_encdec(model, enc, ids[:, :1], gen,
+                                         max_len, project=project))
+        return (torch.cat([ids[:, :1]] + [t for t, _ in out], 1),
+                torch.stack([lg for _, lg in out], 1))
+    step = make_serve_step(model)
+    cache = model.init_cache(ids.shape[0], max_len, enc, project=project)
+    logits = []
+    for j in range(gen):
+        _, lg, cache = step(cache, ids[:, j:j + 1])
+        logits.append(lg)
+    return ids, torch.stack(logits, 1)
+
+
+def serve_encdec(model, label: str, *, project: bool,
+                 teacher_bound: float | None = None) -> dict:
+    """``SERVE``'s batch on an encoder-decoder: the stub frames encoded
+    once (no hand kernel), then ``SERVE["gen"]`` greedy decode steps from
+    each row's first token on one cross-attention path: exactly one
+    ``flash_decode`` launch a decoder layer and step on the recompute
+    path, two (self and cross) on the projected one, and no other kernel;
+    the decode logits against a teacher-forced ``apply`` at the dtype's
+    bound; encode ms, decode ms a step, tokens/s and peak memory."""
+    import torch
+
+    from repro_torch.models.registry import random_batch
+
+    cfg = model.cfg
+    bsz, gen = SERVE["batch"], SERVE["gen"]
+    max_len = SERVE["prompt"] + gen
+    batch = random_batch(cfg, bsz, SERVE["prompt"], seed=SERVE["seed"],
+                         device=model.device)
+    with torch.no_grad():    # warm-up, uncounted
+        encdec_decode(model, model.encode(batch["frames"]), batch["tokens"],
+                      2, max_len, project=project)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        enc = model.encode(batch["frames"])
+    torch.cuda.synchronize()
+    t_enc = time.perf_counter() - t0
+    after_encode = launch_counts()
+    ids, logits = encdec_decode(model, enc, batch["tokens"], gen, max_len,
+                                project=project)
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0 - t_enc
+    counts = launch_counts()
+    per_step = cfg.n_layers * (2 if project else 1)
+    want_encode = {n: 0 for n in _wrappers()}
+    want_total = want_encode | {"flash_decode": per_step * gen}
+    row = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+           "dtype": cfg.dtype, "project": project,
+           "encode_ms": t_enc * 1e3, "decode_ms_per_step": t_dec / gen * 1e3,
+           "tok_per_s": bsz * gen / t_dec,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": {"flash_decode": counts["flash_decode"]},
+           "flash_per_step": counts["flash_decode"] / gen,
+           "ids": ids.tolist(), "ids_row0": ids[0].tolist()}
+    log(f"{label}: {cfg.encoder_layers}+{cfg.n_layers} layers {cfg.dtype} "
+        f"{'projected' if project else 'recompute'} cross path: encode "
+        f"{bsz}x{cfg.encoder_seq} frames in {row['encode_ms']:.1f} ms, "
+        f"{gen} decode steps at {row['decode_ms_per_step']:.2f} ms a step, "
+        f"{row['tok_per_s']:.1f} tok/s over the decode, peak allocated "
+        f"{row['peak_gib']:.2f} GiB, launches {counts} "
+        f"({row['flash_per_step']:.0f} flash a step); ids row 0 "
+        f"{row['ids_row0']}")
+    if (after_encode != want_encode or counts != want_total
+            or tuple(ids.shape) != (bsz, gen + 1)
+            or not bool(logits.isfinite().all())):
+        raise AssertionError(f"{label}: launches after encode {after_encode} "
+                             f"(want {want_encode}), after decode {counts} "
+                             f"(want {want_total}), ids {tuple(ids.shape)}, "
+                             f"finite logits "
+                             f"{bool(logits.isfinite().all())}")
+    with torch.no_grad():
+        forced = model.apply({"frames": batch["frames"],
+                              "tokens": ids[:, :gen]})
+    row["teacher"] = logit_errors(logits, forced)
+    del forced
+    hold_teacher(row["teacher"], cfg.dtype, gen, teacher_bound)
+    row["logits"] = logits
+    return row
+
+
+def hold_cross_paths(recompute: dict, projected: dict, label: str) -> dict:
+    """The projected cross path's decode against the recompute path's:
+    the projected path's logits teacher-forced on the recompute path's ids
+    (so a greedy near-tie cannot part their inputs) at the dtype's
+    teacher bound, and the share of equal greedy ids."""
+    import torch
+
+    a, b = recompute["logits"], projected["logits"]
+    same = float((torch.tensor(recompute["ids"])
+                  == torch.tensor(projected["ids"])).float().mean())
+    row = logit_errors(b, a) | {"ids_equal_share": same}
+    log(f"{label}: projected vs recompute cross path over the recompute "
+        f"path's ids: relative RMS per position "
+        f"{' '.join(f'{e:.2e}' for e in row['rel_rms'])}, max abs "
+        f"{row['max_abs']:.4g}, greedy ids equal {same:.3f}")
+    return row
+
+
+def whisper_paths(model, label: str, bound: float | None = None) -> dict:
+    """Both cross paths on ``model`` (``serve_encdec``), then the projected
+    path teacher-forced on the recompute path's ids against it at the
+    dtype's teacher bound."""
+    import torch
+
+    from repro_torch.models.registry import random_batch
+
+    out = {"recompute": serve_encdec(model, f"{label} recompute",
+                                     project=False, teacher_bound=bound),
+           "projected": serve_encdec(model, f"{label} projected",
+                                     project=True, teacher_bound=bound)}
+    cfg = model.cfg
+    batch = random_batch(cfg, SERVE["batch"], SERVE["prompt"],
+                         seed=SERVE["seed"], device=model.device)
+    ids = torch.tensor(out["recompute"]["ids"], device=model.device)
+    with torch.no_grad():
+        _, forced = encdec_decode(model, model.encode(batch["frames"]), ids,
+                                  SERVE["gen"], SERVE["prompt"] + SERVE["gen"],
+                                  project=True, greedy=False)
+    out["projected"]["logits"] = forced
+    out["paths"] = hold_cross_paths(out["recompute"], out["projected"], label)
+    hold_teacher(out["paths"], cfg.dtype, SERVE["gen"], bound,
+                 "projected vs recompute cross path")
+    for path in ("recompute", "projected"):
+        del out[path]["logits"]
+    return out
+
+
+def phase_whisper(device) -> dict:
+    """whisper-large-v3 at full width and depth (32 encoder and 32 decoder
+    layers, d 1280, H = K = 20, hd 64), bf16, seeded random weights:
+    ``serve.main``'s encoder-decoder branch (the recompute cross path:
+    encode 4 × 1500 stub frames once, 16 greedy steps from each row's
+    first token; exactly 32 flash-decode launches a step and no other
+    kernel); the same generation on both cross paths with the same
+    weights, each held to a teacher-forced ``apply`` and the projected
+    path to the recompute path (64 launches a step: 32 self, 32 cross); a
+    profiled encode and decode step on each path; the first 4 + 4 layers
+    again in fp32; RWSADMM training at full width and depth
+    (``WHISPER_TRAIN``) and a card-vs-CPU fp32 step on a cut
+    (``WHISPER_PARITY``)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.registry import random_batch
+
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(label: str) -> None:   # the phase's seconds by part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[label] = round(now - last[0], 1)
+        last[0] = now
+
+    torch.cuda.empty_cache()
+    gen = SERVE["gen"]
+    zero_launch_counts()
+    ids = serve.main(["--arch", WHISPER_ARCH, "--batch", str(SERVE["batch"]),
+                      "--prompt-len", str(SERVE["prompt"]), "--gen", str(gen),
+                      "--seed", str(SERVE["seed"])])
+    counts = launch_counts()
+    torch.cuda.empty_cache()
+    out = {"serve_main": {"ids_row0": ids[0].tolist(), "launches": counts}}
+    log(f"whisper: serve.main --arch {WHISPER_ARCH}: ids {tuple(ids.shape)}, "
+        f"launches {counts}")
+    want = {n: 0 for n in _wrappers()} | {
+        "flash_decode": get_config(WHISPER_ARCH).n_layers * gen}
+    if counts != want or tuple(ids.shape) != (SERVE["batch"], gen + 1):
+        raise AssertionError(f"whisper serve.main: launches {counts} (want "
+                             f"{want}), ids {tuple(ids.shape)}")
+    mark("serve.main")
+    t0 = time.perf_counter()
+    model = serve.load_model(WHISPER_ARCH, device=device, seed=SERVE["seed"])
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    out |= {"params": n_params, "param_count": cfg.param_count(),
+            "init_s": time.perf_counter() - t0,
+            "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+    log(f"whisper: {WHISPER_ARCH} {cfg.encoder_layers} encoder and "
+        f"{cfg.n_layers} decoder layers, d {cfg.d_model}, H {cfg.n_heads} "
+        f"over K {cfg.n_kv_heads}, hd {cfg.hd}, {cfg.encoder_seq} frames, "
+        f"vocab {cfg.vocab}, {n_params:,} params ({cfg.param_count():,} by "
+        f"param_count), {cfg.dtype}, init {out['init_s']:.2f} s, "
+        f"{out['allocated_gib']:.2f} GiB")
+    mark("init")
+    out |= whisper_paths(model, WHISPER_ARCH)
+    if out["recompute"]["ids"] != ids.tolist():
+        raise AssertionError("whisper: the recompute path's ids differ from "
+                             "serve.main's")
+    mark("serve")
+    batch = random_batch(cfg, SERVE["batch"], SERVE["prompt"],
+                         seed=SERVE["seed"], device=device)
+    tok = batch["tokens"][:, :1]
+    with torch.no_grad():
+        out["encode_profile"] = profile_breakdown(
+            lambda: model.encode(batch["frames"]), 1, f"{WHISPER_ARCH} encode")
+        enc = model.encode(batch["frames"])
+        for project in (False, True):
+            cache = model.init_cache(SERVE["batch"], SERVE["prompt"] + gen,
+                                     enc, project=project)
+            _, cache = model.decode_step(cache, tok)
+            path = "projected" if project else "recompute"
+            out[path]["decode_step_profile"] = profile_breakdown(
+                lambda: model.decode_step(cache, tok), 3,
+                f"{WHISPER_ARCH} decode step, {path} cross path")
+            del cache
+    del enc
+    mark("profile")
+    model = as_float32(model, FRONTEND_FP32_LAYERS)
+    torch.cuda.empty_cache()
+    out["float32"] = whisper_paths(model, f"{WHISPER_ARCH} fp32")
+    del model
+    torch.cuda.empty_cache()
+    mark("fp32")
+    out["train"] = train_on_walker(device, WHISPER_TRAIN, "whisper train")
+    torch.cuda.empty_cache()
+    mark("train")
+    out["train"]["parity"] = lm_step_parity(
+        device, WHISPER_ARCH, WHISPER_PARITY["layers"],
+        cut=WHISPER_PARITY["cut"])
+    mark("train parity")
+    out["seconds"] = seconds
+    log(f"whisper phase seconds by part: {seconds}")
+    return out
+
+
+def phase_vlm(device) -> dict:
+    """qwen2-vl-2b at full width and depth (28 layers, d 1536, H 12 over K
+    2, hd 128, qkv bias drawn at ``QKV_BIAS_SCALE``, M-RoPE θ 1e6), bf16,
+    seeded random weights, through ``launch/serve.py``: 256 stub patches
+    through the projector ahead of the 2040-token prompt (2296 positions,
+    max_len 2312), 15 greedy decode steps, exactly 28 × 15 = 420
+    flash-decode launches and no other kernel, the teacher check over
+    patches, prompt and ids, a profiled prefill and decode step; its
+    first 4 layers again in fp32; RWSADMM training at full width and
+    depth (``VLM_TRAIN``) and a 2-layer fp32 step card vs CPU."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    seconds, last = {}, [time.perf_counter()]
+
+    def mark(label: str) -> None:   # the phase's seconds by part
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        seconds[label] = round(now - last[0], 1)
+        last[0] = now
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = serve.load_model(VLM_ARCH, device=device, seed=SERVE["seed"])
+    gen_b = torch.Generator().manual_seed(SERVE["seed"])
+    with torch.no_grad():
+        for blk in model.layers:
+            for b in (blk.mix.bq, blk.mix.bk, blk.mix.bv):
+                b.copy_(torch.randn(b.shape, generator=gen_b)
+                        * QKV_BIAS_SCALE)
+    torch.cuda.synchronize()
+    cfg = model.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"params": n_params, "param_count": cfg.param_count(),
+           "init_s": time.perf_counter() - t0,
+           "allocated_gib": torch.cuda.memory_allocated() / 2**30}
+    log(f"vlm: {VLM_ARCH} {cfg.n_layers} layers, d {cfg.d_model}, H "
+        f"{cfg.n_heads} over K {cfg.n_kv_heads}, hd {cfg.hd}, rope "
+        f"{cfg.rope} theta {cfg.rope_theta}, {cfg.n_patches} patches, vocab "
+        f"{cfg.vocab}, {n_params:,} params ({cfg.param_count():,} by "
+        f"param_count), {cfg.dtype}, init {out['init_s']:.2f} s, "
+        f"{out['allocated_gib']:.2f} GiB")
+    mark("init")
+    out |= serve_lm(model, VLM_ARCH)
+    if out["launches"]["flash_decode"] != cfg.n_layers * (SERVE["gen"] - 1):
+        raise AssertionError(f"vlm: flash launches {out['launches']}")
+    mark("serve")
+    out |= profile_serve(model, VLM_ARCH)
+    mark("profile")
+    model = as_float32(model, FRONTEND_FP32_LAYERS)
+    torch.cuda.empty_cache()
+    out["float32"] = serve_lm(model, f"{VLM_ARCH} fp32")
+    del model
+    torch.cuda.empty_cache()
+    mark("fp32")
+    out["train"] = train_on_walker(device, VLM_TRAIN, "vlm train")
+    torch.cuda.empty_cache()
+    mark("train")
+    out["train"]["parity"] = lm_step_parity(device, VLM_ARCH,
+                                            VLM_PARITY["layers"])
+    mark("train parity")
+    out["seconds"] = seconds
+    log(f"vlm phase seconds by part: {seconds}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 _RW_SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
 _TF_SOURCE = "src/repro_torch/kernels/threefry/csrc/threefry.cu"
 SOURCE = {"zone_update": _RW_SOURCE, "multizone_update": _RW_SOURCE,
@@ -4628,6 +5031,8 @@ def main() -> int:
     paths["train"] = run_phase("train", phase_train, device)
     paths["xlstm"] = run_phase("xlstm", phase_xlstm, device)
     paths["moe"] = run_phase("moe", phase_moe, device)
+    paths["whisper"] = run_phase("whisper", phase_whisper, device)
+    paths["vlm"] = run_phase("vlm", phase_vlm, device)
     # flash_decode on the zoo's serve paths, each driven with the counts at
     # 0: gemma3-12b bf16 at full depth, its fp32 pattern, the 2-layer cuts
     zoo = paths["zoo_serve"]
@@ -4642,6 +5047,16 @@ def main() -> int:
                         "flash_decode"],
                     f"{MOE_ARCH}-fp32": moe_run["float32"]["launches"][
                         "flash_decode"]}
+    # flash_decode on the frontends' paths, each driven with the counts at 0
+    wh, vl = paths["whisper"], paths["vlm"]
+    frontend_launches = {
+        f"{WHISPER_ARCH}-serve-main": wh["serve_main"]["launches"][
+            "flash_decode"],
+        **{f"{WHISPER_ARCH}-{path}{dt}": run[path]["launches"]["flash_decode"]
+           for dt, run in (("", wh), ("-fp32", wh["float32"]))
+           for path in ("recompute", "projected")},
+        VLM_ARCH: vl["launches"]["flash_decode"],
+        f"{VLM_ARCH}-fp32": vl["float32"]["launches"]["flash_decode"]}
 
     # Every kernel's "ms" is its device time per call with a cold L2.
     extra = ("ms_warm", "graph_ms", "graph_ms_warm", "library_ms_warm",
@@ -4677,7 +5092,12 @@ def main() -> int:
             q3 = next(r for r in checks if r.get("qwen3") and "ms" in r)
             row["launches_zoo"] = zoo_launches
             row["launches_moe"] = moe_launches
-            for key, timed_row in (("gemma3_shape", g3), ("qwen3_shape", q3)):
+            row["launches_frontends"] = frontend_launches
+            shapes = [("gemma3_shape", g3), ("qwen3_shape", q3)] + [
+                (f"{key}_shape", next(r for r in checks
+                                      if r.get(key) and "ms" in r))
+                for key in FRONTEND_FLASH]
+            for key, timed_row in shapes:
                 row[key] = {k: timed_row[k] for k in (
                     "shape", "ms", "ms_warm", "graph_ms", "library_ms",
                     "library_ms_warm", "plain_ms", "bound_ms", "bound_by",

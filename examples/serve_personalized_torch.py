@@ -51,7 +51,8 @@ def main(argv=None, params: dict | None = None) -> torch.Tensor:
         model.init(0)
     else:
         model.load_state_dict(params)
-    max_len = args.prompt_len + args.gen
+    max_len = args.prompt_len + args.gen + (
+        cfg.n_patches if cfg.frontend == "vision_stub" else 0)
 
     # Batched requests: each row is one request's prompt.
     batch = random_batch(cfg, args.batch, args.prompt_len, seed=7,

@@ -7,9 +7,11 @@ from . import (  # noqa: F401,E402
     gemma3_12b,
     kimi_k2_1t_a32b,
     qwen2_7b,
+    qwen2_vl_2b,
     qwen3_moe_30b_a3b,
     recurrentgemma_9b,
     tinyllama_1_1b,
+    whisper_large_v3,
     xlstm_350m,
     yi_34b,
 )

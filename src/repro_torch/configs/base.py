@@ -1,20 +1,23 @@
 """Architecture configs: the port's own copy of the JAX package's
 ``ModelConfig`` (``hd``, ``pattern_repeats``, ``param_count()``,
-``reduced()``) and its registry, holding only what the port's ``LM``
-runs: global and local attention with standard RoPE and an optional qkv
-bias, RG-LRU, the xLSTM's mLSTM and sLSTM, a Mixture-of-Experts FFN
-(``moe``, a ``MoESpec``; it takes the place of the dense FFN, and
-``d_ff`` is then the reference's per-expert hidden size, unused), a
-dense FFN or none (``d_ff = 0``), and a tied embedding or an untied
-head. ``rope="none"`` runs on a stack without attention (xLSTM): the
-reference adds a learned position table only to rope-less attention
-stacks. Fields of the rest of the model zoo (frontends, encoders,
-learned positions) come with the slice that runs them (ROADMAP Queue 1
-item 8); ``rope`` takes the reference's values, and the ``LM`` refuses
-``"mrope"`` and ``"none"`` with attention.
+``reduced()``) and its registry.
 
-Only architectures whose model the port runs are registered;
-``get_config`` of any other raises.
+A config describes what the port's models run: global and local
+attention with standard RoPE, M-RoPE (``rope="mrope"``, Qwen2-VL) or no
+rotation (``rope="none"``: an attention stack then adds a learned
+position table of ``max_pos`` rows, a recurrent stack takes none) and an
+optional qkv bias; RG-LRU, the xLSTM's mLSTM and sLSTM; a
+Mixture-of-Experts FFN (``moe``, a ``MoESpec``; it takes the place of the
+dense FFN, and ``d_ff`` is then the reference's per-expert hidden size,
+unused), a dense FFN or none (``d_ff = 0``); a tied embedding or an
+untied head; an encoder of ``encoder_layers`` layers over
+``encoder_seq`` stub frames (Whisper, ``models/whisper.py``); and the
+stub frontends (``frontend``: "audio_stub" feeds frame embeddings to
+the encoder, "vision_stub" puts ``n_patches`` projected patch
+embeddings ahead of the text).
+
+``param_count()`` keeps the reference's formula where it misses the
+parameters built (tests pin both numbers).
 """
 from __future__ import annotations
 
@@ -58,7 +61,18 @@ class ModelConfig:
     norm_eps: float = 1e-6
     act: str = "silu"            # mlp activation: silu (SwiGLU) | gelu
 
+    # Encoder-decoder (whisper): encoder layer count; 0 = decoder-only.
+    encoder_layers: int = 0
+    encoder_seq: int = 1500      # whisper: 30 s of audio → 1500 frames
+
+    # Stub frontends: precomputed embeddings stand in for the mel/conv and
+    # ViT stacks.
+    frontend: Optional[str] = None   # None | "audio_stub" | "vision_stub"
+    n_patches: int = 0               # VLM: stub patch embeddings per sample
+
     dtype: str = "bfloat16"
+    max_pos: int = 32768   # learned-position table length (rope="none"
+                           # attention archs only; recurrent archs skip it)
 
     # ------------------------------------------------------------------
     @property
@@ -109,9 +123,14 @@ class ModelConfig:
             n += v * d
         if self.rope == "none" and any(k in ("attn", "local")
                                        for k in self.layer_pattern):
-            raise NotImplementedError(
-                f"{self.arch_id}: learned positions (rope='none') are not "
-                f"in the port yet (ROADMAP Queue 1 item 8)")
+            n += self.max_pos * d     # the learned position table
+        if self.encoder_layers:
+            enc = self.encoder_layers * (
+                d * h * hd + 2 * d * kv * hd + h * hd * d
+                + (3 * d * ff if self.act == "silu" else 2 * d * ff) + 4 * d)
+            # and a cross-attention in every decoder layer
+            n += enc + self.n_layers * (d * h * hd + 2 * d * kv * hd
+                                        + h * hd * d + 2 * d)
         return int(n)
 
     def active_param_count(self) -> int:
@@ -127,7 +146,8 @@ class ModelConfig:
 
     # ------------------------------------------------------------------
     def reduced(self) -> "ModelConfig":
-        """Smoke-test variant: same pattern, tiny dims, fp32."""
+        """Smoke-test variant: same pattern, tiny dims, fp32. Note that it
+        turns an MHA config (whisper's H = K = 20) into GQA (4 over 2)."""
         g = len(self.layer_pattern)
         d = min(self.d_model, 256)
         h = max(2, min(self.n_heads, 4))
@@ -152,6 +172,9 @@ class ModelConfig:
             vocab=min(self.vocab, 512),
             window=min(self.window, 64),
             moe=moe,
+            encoder_layers=min(self.encoder_layers, 2),
+            encoder_seq=min(self.encoder_seq, 32),
+            n_patches=min(self.n_patches, 16),
             dtype="float32",
         )
 
@@ -169,9 +192,7 @@ def get_config(arch_id: str) -> ModelConfig:
         return _REGISTRY[arch_id]
     except KeyError as e:
         raise ValueError(
-            f"arch {arch_id!r} is not in the port (it runs "
-            f"{sorted(_REGISTRY)}); the rest of the JAX package's model zoo "
-            f"is ROADMAP Queue 1 item 8") from e
+            f"unknown arch {arch_id!r}; known: {sorted(_REGISTRY)}") from e
 
 
 def list_archs() -> list[str]:

@@ -120,11 +120,23 @@ def load_reference(module: torch.nn.Module, ref_params: Mapping) -> None:
 # ------------------------------------------------------------- LM ---------
 # The reference LM's params: {"embed", "final_norm": {"scale"}, "layers":
 # tuple over pattern index gi of dicts whose leaves stack the pattern's
-# repeats on a leading axis} and, untied, "head"; a qkv bias rides in
-# each attention layer's "mix" as "bq", "bk", "bv". The port's LM names layer
-# l = r·len(pattern) + gi as "layers.{l}.<path>". Leaves keep their own
-# dtypes: in a bf16 model RG-LRU's "lam" and the xLSTM's "w_if" and
-# "b_gates" stay fp32.
+# repeats on a leading axis} and, untied, "head"; a vision stub's
+# "projector" (d, d); a rope-less attention stack's "pos_embed" (max_pos,
+# d); a qkv bias rides in each attention layer's "mix" as "bq", "bk",
+# "bv". The port's LM names layer l = r·len(pattern) + gi as
+# "layers.{l}.<path>". Leaves keep their own dtypes: in a bf16 model
+# RG-LRU's "lam" and the xLSTM's "w_if" and "b_gates" stay fp32.
+#
+# The reference EncDecLM's params: {"embed", "dec_pos", "enc_norm",
+# "final_norm", "enc_layers", "dec_layers"}, each layer stack's leaves
+# with the layer on a leading axis; the port names them
+# "enc_layers.{l}.<path>" and "dec_layers.{l}.<path>".
+
+#: the reference's top-level leaves (and single-dict nodes) a model may
+#: hold, carried over by name
+_TOP = ("embed", "head", "projector", "pos_embed", "dec_pos", "final_norm",
+        "enc_norm")
+
 
 def _leaf_to_torch(leaf, device=None) -> torch.Tensor:
     """An array-like as a tensor of the same dtype (bfloat16 through fp32,
@@ -136,28 +148,54 @@ def _leaf_to_torch(leaf, device=None) -> torch.Tensor:
     return torch.as_tensor(np.array(arr), device=device)
 
 
+def _top_state(ref_params: Mapping, device=None) -> dict[str, torch.Tensor]:
+    state = {}
+    for key in _TOP:
+        if key not in ref_params:
+            continue
+        node = ref_params[key]
+        if isinstance(node, Mapping):
+            for path, leaf in _walk(node, key):
+                state[path] = _leaf_to_torch(leaf, device)
+        else:
+            state[key] = _leaf_to_torch(node, device)
+    return state
+
+
+def _unstack(prefix: str, stacks, layer_of, device=None) -> dict:
+    """Each stack (a dict of leaves with the repeat on a leading axis) of
+    ``stacks`` → ``{prefix.{layer_of(i, r)}.<path>: leaf[r]}``."""
+    state = {}
+    for i, group in enumerate(stacks):
+        for path, leaf in _walk(group):
+            stacked = _leaf_to_torch(leaf, device)
+            for r in range(stacked.shape[0]):
+                state[f"{prefix}.{layer_of(i, r)}.{path}"] = stacked[r].clone()
+    return state
+
+
 def lm_state_from_reference(ref_params: Mapping, cfg, device=None
                             ) -> dict[str, torch.Tensor]:
     """Reference ``LM`` params (nested dict, array-like leaves) → the
     port ``LM``'s ``state_dict``, each leaf in its own dtype."""
     g = len(cfg.layer_pattern)
-    state = {"embed": _leaf_to_torch(ref_params["embed"], device)}
-    if "head" in ref_params:     # an untied output head (d, vocab)
-        state["head"] = _leaf_to_torch(ref_params["head"], device)
-    for path, leaf in _walk(ref_params["final_norm"], "final_norm"):
-        state[path] = _leaf_to_torch(leaf, device)
-    for gi, group in enumerate(ref_params["layers"]):
-        for path, leaf in _walk(group):
-            stacked = _leaf_to_torch(leaf, device)
-            for r in range(cfg.pattern_repeats):
-                state[f"layers.{r * g + gi}.{path}"] = stacked[r].clone()
+    return _top_state(ref_params, device) | _unstack(
+        "layers", ref_params["layers"], lambda gi, r: r * g + gi, device)
+
+
+def encdec_state_from_reference(ref_params: Mapping, device=None
+                                ) -> dict[str, torch.Tensor]:
+    """Reference ``EncDecLM`` params → the port ``EncDecLM``'s
+    ``state_dict``, each leaf in its own dtype."""
+    state = _top_state(ref_params, device)
+    for stack in ("enc_layers", "dec_layers"):
+        state |= _unstack(stack, [ref_params[stack]], lambda _, r: r, device)
     return state
 
 
-def load_lm_reference(model: torch.nn.Module, ref_params: Mapping) -> None:
-    """Copy reference ``LM`` params into a port ``LM``, checking that both
-    hold the same names and shapes."""
-    state = lm_state_from_reference(ref_params, model.cfg)
+def _load_state(model: torch.nn.Module, state: dict) -> None:
+    """Copy ``state`` into the model's parameters, checking that both hold
+    the same names and shapes."""
     own = dict(model.named_parameters())
     if set(state) != set(own):
         raise ValueError(f"reference and module names differ: only in the "
@@ -170,3 +208,67 @@ def load_lm_reference(model: torch.nn.Module, ref_params: Mapping) -> None:
                                  f"{tuple(state[name].shape)}, module "
                                  f"{tuple(p.shape)}")
             p.copy_(state[name])
+
+
+def load_lm_reference(model: torch.nn.Module, ref_params: Mapping) -> None:
+    """Copy reference ``LM`` params into a port ``LM``, checking that both
+    hold the same names and shapes."""
+    _load_state(model, lm_state_from_reference(ref_params, model.cfg))
+
+
+def load_encdec_reference(model: torch.nn.Module,
+                          ref_params: Mapping) -> None:
+    """Copy reference ``EncDecLM`` params into a port ``EncDecLM``,
+    checking that both hold the same names and shapes."""
+    _load_state(model, encdec_state_from_reference(ref_params))
+
+
+def reference_tree(model: torch.nn.Module) -> dict:
+    """The model's parameters (detached) in the reference's param tree:
+    the inverse of ``lm_state_from_reference`` or
+    ``encdec_state_from_reference``, with each layer stack's leaves
+    stacked on a leading axis."""
+    state = {k: v.detach() for k, v in model.named_parameters()}
+    tree: dict = {}
+    for name, t in state.items():
+        if name.split(".")[0] in _TOP:
+            node = tree
+            *parents, leaf = name.split(".")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = t
+
+    def stacked(prefix: str, layers: list[int]) -> dict:
+        paths = [n.split(".", 2)[2] for n in state
+                 if n.startswith(f"{prefix}.{layers[0]}.")]
+        out: dict = {}
+        for path in paths:
+            node = out
+            *parents, leaf = path.split(".")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = torch.stack([state[f"{prefix}.{l}.{path}"]
+                                      for l in layers])
+        return out
+
+    if hasattr(model, "enc_layers"):
+        tree["enc_layers"] = stacked("enc_layers",
+                                     list(range(len(model.enc_layers))))
+        tree["dec_layers"] = stacked("dec_layers",
+                                     list(range(len(model.dec_layers))))
+    else:
+        g = len(model.cfg.layer_pattern)
+        reps = model.cfg.pattern_repeats
+        tree["layers"] = tuple(stacked("layers", [r * g + gi
+                                                  for r in range(reps)])
+                               for gi in range(g))
+    return tree
+
+
+def load_reference_tree(model: torch.nn.Module, tree: Mapping) -> None:
+    """Copy params in the reference's tree (``reference_tree``'s layout,
+    e.g. a checkpoint the reference wrote) into the model."""
+    if hasattr(model, "enc_layers"):
+        load_encdec_reference(model, tree)
+    else:
+        load_lm_reference(model, tree)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import inspect
+
 import torch
 from torch.func import functional_call
 
@@ -49,7 +51,8 @@ def make_train_step(model, hp: RWSADMMHparams, n_total: float = 20.0, *,
 
     n_total: the client population n (the y fold's 1/n, see
     ``core.rwsadmm.y_update``). ce_impl: the loss's cross-entropy form
-    (``LM.loss``).
+    (``LM.loss``); an ``EncDecLM``'s loss has one form and takes none,
+    as in the reference's step.
 
     Dtypes follow the reference's promotion: its κ is a strong fp32
     scalar, so against bf16 leaves z (and with it c_new and y) turn fp32
@@ -57,9 +60,13 @@ def make_train_step(model, hp: RWSADMMHparams, n_total: float = 20.0, *,
     the leaf's dtype, so κ enters the update as a (1,) tensor, which
     promotes as the reference's does."""
 
+    loss_kw = ({"ce_impl": ce_impl}
+               if "ce_impl" in inspect.signature(model.forward).parameters
+               else {})
+
     def train_step(state: TrainState, batch: dict):
         x = {k: v.detach().requires_grad_() for k, v in state.x.items()}
-        loss = functional_call(model, x, (batch,), {"ce_impl": ce_impl})
+        loss = functional_call(model, x, (batch,), loss_kw)
         grads = torch.autograd.grad(loss, list(x.values()))
         kappa = state.kappa.reshape(1)
         new_x, new_z, new_y = {}, {}, {}

@@ -1,9 +1,12 @@
 """GQA attention (the JAX package's ``models/attention.py``): prefill and
-training attention, query-chunked with fp32 scores, and single-token
-decode against a KV cache (the whole sequence for global layers, a ring
-buffer of ``window`` slots for local ones).
+training attention, query-chunked with fp32 scores, self-attention
+(causal, with the config's RoPE) or cross-attention over another
+sequence (``x_kv``: no RoPE, no mask); single-token decode against a KV
+cache (the whole sequence for global layers, a ring buffer of ``window``
+slots for local ones); and one query token against a layer's
+precomputed cross-attention K/V (Whisper's cached cross-attention).
 
-Decode contracts through the flash-decode kernel (``kernels/
+Both decodes contract through the flash-decode kernel (``kernels/
 flash_decode``): on a CUDA tensor it launches the kernel, on a CPU tensor
 it takes the plain masked softmax.
 """
@@ -16,8 +19,8 @@ import torch
 from torch import nn
 
 from ..kernels.flash_decode.ops import flash_decode
-from .layers import NormalDraws, apply_rope, dense_init, param, \
-    torch_dtype
+from .layers import NormalDraws, apply_mrope, apply_rope, dense_init, \
+    param, text_mrope_positions, torch_dtype
 
 NEG_INF = -1e30
 
@@ -51,19 +54,30 @@ class Attention(nn.Module):
                     b.zero_()
 
 
-def _project_qkv(p, x, cfg):
+def _project_qkv(p, x, x_kv, cfg):
     b, s, _ = x.shape
+    t = x_kv.shape[1]
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
+    q, k, v = x @ p.wq, x_kv @ p.wk, x_kv @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, kv, hd),
-            v.reshape(b, s, kv, hd))
+    return (q.reshape(b, s, h, hd), k.reshape(b, t, kv, hd),
+            v.reshape(b, t, kv, hd))
 
 
 def _rope_qk(q, k, positions, cfg):
-    return (apply_rope(q, positions, cfg.rope_theta),
-            apply_rope(k, positions, cfg.rope_theta))
+    """q and k rotated as ``cfg.rope`` says: "standard" by positions
+    (B, S), "mrope" by the three tracks (3, B, S), "none" not at all."""
+    if cfg.rope == "standard":
+        return (apply_rope(q, positions, cfg.rope_theta),
+                apply_rope(k, positions, cfg.rope_theta))
+    if cfg.rope == "mrope":
+        return (apply_mrope(q, positions, cfg.rope_theta),
+                apply_mrope(k, positions, cfg.rope_theta))
+    if cfg.rope != "none":
+        raise ValueError(f"rope must be standard, mrope or none, got "
+                         f"{cfg.rope!r}")
+    return q, k
 
 
 def _chunked_attention(q, k, v, *, causal: bool, window: int | None,
@@ -94,14 +108,18 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int | None,
     return torch.cat(outs, dim=1).reshape(b, s, h * hd)
 
 
-def attention(p, x, positions, cfg, *, kind: str = "attn",
-              chunk: int = 512):
-    """Training/prefill self-attention. kind: "attn" (global) | "local"."""
-    q, k, v = _project_qkv(p, x, cfg)
-    q, k = _rope_qk(q, k, positions, cfg)
+def attention(p, x, positions, cfg, *, kind: str = "attn", x_kv=None,
+              causal: bool = True, chunk: int = 512):
+    """Training/prefill attention. kind: "attn" (global) | "local". With
+    ``x_kv`` (B, T, d), cross-attention of x over it: no RoPE and no
+    causal mask, as the reference's."""
+    cross = x_kv is not None
+    q, k, v = _project_qkv(p, x, x_kv if cross else x, cfg)
+    if not cross:
+        q, k = _rope_qk(q, k, positions, cfg)
     window = cfg.window if kind == "local" else None
-    out = _chunked_attention(q, k, v, causal=True, window=window,
-                             chunk=chunk)
+    out = _chunked_attention(q, k, v, causal=causal and not cross,
+                             window=window, chunk=chunk)
     return out @ p.wo
 
 
@@ -131,7 +149,7 @@ def prefill_attention(p, x, positions, cache: KVCache, cfg, *,
     Global layers write positions [0, T); local layers keep the last
     ``window`` tokens at their ring slots (slot = pos % window)."""
     t = x.shape[1]
-    q, k, v = _project_qkv(p, x, cfg)
+    q, k, v = _project_qkv(p, x, x, cfg)
     q, k = _rope_qk(q, k, positions, cfg)
     window = cfg.window if kind == "local" else None
     out = _chunked_attention(q, k, v, causal=True, window=window,
@@ -160,8 +178,10 @@ def decode_attention(p, x, cache: KVCache, cfg, *, kind: str = "attn"):
     depend on the order of its keys), and pos + 1 for a global layer."""
     b = x.shape[0]
     pos = cache.length
-    q, k_new, v_new = _project_qkv(p, x, cfg)
+    q, k_new, v_new = _project_qkv(p, x, x, cfg)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
+    if cfg.rope == "mrope":     # a text token: its index on all tracks
+        positions = text_mrope_positions(positions)
     q, k_new = _rope_qk(q, k_new, positions, cfg)
 
     size = cache.k.shape[1]
@@ -173,3 +193,30 @@ def decode_attention(p, x, cache: KVCache, cfg, *, kind: str = "attn"):
     out = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, length)
     out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype)
     return out @ p.wo, KVCache(k=cache.k, v=cache.v, length=pos + 1)
+
+
+def cross_kv(p, enc: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
+    """A layer's cross-attention K and V (B, T, K, hd) of the encoder
+    output ``enc`` (B, T, d), made once for every decode step."""
+    b, t, _ = enc.shape
+    k, v = enc @ p.wk, enc @ p.wv
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    shape = (b, t, cfg.n_kv_heads, cfg.hd)
+    return k.reshape(shape), v.reshape(shape)
+
+
+def cross_decode_attention(p, x, k, v, cfg) -> torch.Tensor:
+    """One query token x (B, 1, d) against precomputed cross K/V (B, T, K,
+    hd) → (B, 1, d): fp32 scores, a softmax over all T keys (none is
+    masked) and P·V, as the reference's cached ``cross_attn``. The
+    contraction is the flash-decode kernel's with every row's length T."""
+    b = x.shape[0]
+    q = x @ p.wq
+    if cfg.qkv_bias:
+        q = q + p.bq
+    q = q.reshape(b, cfg.n_heads, cfg.hd)
+    length = torch.full((b,), k.shape[1], dtype=torch.int32,
+                        device=x.device)
+    out = flash_decode(q, k, v, length)
+    return out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype) @ p.wo

@@ -117,6 +117,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor,
+                theta: float) -> torch.Tensor:
+    """M-RoPE (Qwen2-VL): hd splits into (temporal, height, width)
+    sections of hd/2, hd/4 and hd/4, each rotated by its own position
+    track as a RoPE of its own width (so each section has its own
+    frequencies). x: (B, S, H, hd); positions_3d: (3, B, S)."""
+    hd = x.shape[-1]
+    sec = (hd // 2, hd // 4, hd - hd // 2 - hd // 4)
+    parts, off = [], 0
+    for i, s in enumerate(sec):
+        parts.append(apply_rope(x[..., off:off + s], positions_3d[i], theta))
+        off += s
+    return torch.cat(parts, dim=-1)
+
+
+def text_mrope_positions(positions: torch.Tensor) -> torch.Tensor:
+    """Text tokens take the same index on all three M-RoPE tracks."""
+    return torch.stack([positions] * 3, dim=0)
+
+
+def sinusoidal_positions(seq: int, d: int) -> torch.Tensor:
+    """The encoder's fixed (seq, d) table, [sin | cos] of pos / 10000^(2i/d),
+    computed in float64 and returned in fp32, as the reference's."""
+    pos = np.arange(seq)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / d)
+    emb = np.concatenate([np.sin(angle), np.cos(angle)], axis=-1)
+    return torch.from_numpy(emb.astype(np.float32))
+
+
 # ------------------------------------------------------------- MLP --------
 class MLP(nn.Module):
     """``w_in``/``w_out`` and, for SwiGLU (``act="silu"``), ``w_gate``."""

@@ -6,24 +6,42 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .layers import torch_dtype
 from .transformer import LM
+from .whisper import EncDecLM
 
 
-def build_model(cfg, *, device=None) -> LM:
+def build_model(cfg, *, device=None) -> LM | EncDecLM:
     """The config's model with uninitialised weights on ``device``
-    (``cuda`` unless given)."""
+    (``cuda`` unless given): an ``EncDecLM`` when it has an encoder, else
+    an ``LM``."""
+    if cfg.encoder_layers > 0:
+        return EncDecLM(cfg, device=device)
     return LM(cfg, device=device)
 
 
 def random_batch(cfg, batch: int, seq: int, seed: int = 0,
                  kind: str = "train", device=None) -> dict:
-    """Random token ids drawn as the reference draws them
-    (``np.random.default_rng(seed)``), so both packages see the same ids:
-    (batch, seq) for ``kind="train"``, (batch, 1) for ``kind="decode"``,
-    on ``device`` (``cuda`` unless given)."""
+    """Random inputs drawn as the reference draws them, from one
+    ``np.random.default_rng(seed)`` in the same order, so both packages
+    see the same arrays: token ids (batch, seq) for ``kind="train"``, then
+    a stub frontend's N(0, 1) ``patches`` (batch, n_patches, d) or
+    ``frames`` (batch, encoder_seq, d) in the config's dtype; (batch, 1)
+    token ids alone for ``kind="decode"``. On ``device`` (``cuda`` unless
+    given)."""
     if kind not in ("train", "decode"):
         raise ValueError(f"kind must be 'train' or 'decode', got {kind!r}")
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     shape = (batch, 1) if kind == "decode" else (batch, seq)
-    return {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, shape),
-                                      device=resolve_device(device))}
+    out = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, shape),
+                                     device=device)}
+    if kind == "decode":
+        return out
+    stubs = {"vision_stub": ("patches", cfg.n_patches),
+             "audio_stub": ("frames", cfg.encoder_seq)}
+    if cfg.frontend in stubs:
+        name, n = stubs[cfg.frontend]
+        draw = rng.normal(size=(batch, n, cfg.d_model))
+        out[name] = torch.as_tensor(draw, device=device).to(torch_dtype(cfg))
+    return out

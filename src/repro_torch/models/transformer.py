@@ -1,5 +1,7 @@
 """Decoder-only LM of the model zoo (the JAX package's
-``models/transformer.py``, without mesh or frontends).
+``models/transformer.py``, without the mesh), also the backbone of the
+vision stub (Qwen2-VL: projected patch embeddings ahead of the text,
+M-RoPE positions).
 
 A model is ``layer_pattern`` repeated ``pattern_repeats`` times; each
 layer is a mixer (global "attn", sliding-window "local", or recurrent
@@ -11,9 +13,15 @@ reference's ``params["layers"][gi][r]`` (the reference stacks the
 repeats of pattern index gi on a leading axis). Serving keeps one cache
 entry per layer: a ``KVCache`` for attention, an ``RGLRUState``,
 ``MLSTMState`` or ``SLSTMState`` for a recurrent layer.
+
+Positions: RoPE by index (``rope="standard"``); M-RoPE's three tracks
+(``"mrope"``: a patch at (0, row, col) on a g × g grid, g = ⌊√n_patches⌋,
+a text token at its global index on all three); or, for a rope-less
+attention stack, a learned table ``pos_embed`` added to the inputs.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -84,21 +92,27 @@ class Block(nn.Module):
         return self.ffn_residual(h + mixed)
 
 
-def _remat(block: Block, h: torch.Tensor, positions: torch.Tensor
-           ) -> torch.Tensor:
-    """``block(h, positions)`` that keeps only its input for backward and
-    runs again there (the reference's ``jax.checkpoint`` per pattern
-    group). The block's parameters go through ``checkpoint`` as inputs:
+def _remat(block: nn.Module, *inputs: torch.Tensor) -> torch.Tensor:
+    """``block(*inputs)`` that keeps only its inputs for backward and runs
+    again there (the reference's ``jax.checkpoint`` per pattern group or
+    layer). The block's parameters go through ``checkpoint`` as inputs:
     the recompute then reads the tensors this forward read (under
     ``functional_call``, the caller's), not whatever the module holds by
     the time backward runs."""
     names, tensors = zip(*block.named_parameters())
+    n = len(inputs)
 
-    def run(h, *tensors):
-        return functional_call(block, dict(zip(names, tensors)),
-                               (h, positions))
+    def run(*args):
+        return functional_call(block, dict(zip(names, args[n:])), args[:n])
 
-    return checkpoint(run, h, *tensors, use_reentrant=False)
+    return checkpoint(run, *inputs, *tensors, use_reentrant=False)
+
+
+def needs_pos_table(cfg) -> bool:
+    """Learned positions only for rope-less attention stacks; a recurrent
+    stack (xLSTM) is order-aware and takes none."""
+    return cfg.rope == "none" and any(k in ATTENTION
+                                      for k in cfg.layer_pattern)
 
 
 class LM(nn.Module):
@@ -112,22 +126,19 @@ class LM(nn.Module):
         super().__init__()
         device = resolve_device(device)
         if not set(cfg.layer_pattern) <= set(KINDS):
-            raise NotImplementedError(
-                f"{cfg.arch_id}: layer kinds other than {'/'.join(KINDS)} "
-                f"are not in the port yet (ROADMAP Queue 1 item 8)")
-        attention = any(k in ATTENTION for k in cfg.layer_pattern)
-        if cfg.rope == "mrope" or (cfg.rope == "none" and attention):
-            # rope="none" on attention layers needs the learned position
-            # table; a recurrent stack is order-aware and takes none.
-            raise NotImplementedError(
-                f"{cfg.arch_id}: rope={cfg.rope!r} with attention is not in "
-                f"the port yet (ROADMAP Queue 1 item 8)")
+            raise ValueError(f"{cfg.arch_id}: layer kinds must be among "
+                             f"{'/'.join(KINDS)}, got {cfg.layer_pattern}")
         self.cfg = cfg
-        self.embed = param(cfg.vocab, cfg.d_model, dtype=torch_dtype(cfg),
-                           device=device)
+        dt = torch_dtype(cfg)
+        self.embed = param(cfg.vocab, cfg.d_model, dtype=dt, device=device)
         if not cfg.tie_embeddings:
-            self.head = param(cfg.d_model, cfg.vocab, dtype=torch_dtype(cfg),
-                              device=device)
+            self.head = param(cfg.d_model, cfg.vocab, dtype=dt, device=device)
+        if cfg.frontend == "vision_stub":
+            self.projector = param(cfg.d_model, cfg.d_model, dtype=dt,
+                                   device=device)
+        if needs_pos_table(cfg):
+            self.pos_embed = param(cfg.max_pos, cfg.d_model, dtype=dt,
+                                   device=device)
         self.final_norm = RMSNorm(cfg.d_model, dtype=torch_dtype(cfg),
                                   device=device)
         self.layers = nn.ModuleList(
@@ -156,6 +167,10 @@ class LM(nn.Module):
                     m.reset_parameters(draws)
         if not self.cfg.tie_embeddings:
             dense_init(self.head, draws)
+        if hasattr(self, "projector"):
+            dense_init(self.projector, draws)
+        if hasattr(self, "pos_embed"):
+            draws.add(self.pos_embed, 0.02)
         draws.run()
         return self
 
@@ -175,16 +190,39 @@ class LM(nn.Module):
         return block.ffn_residual(h + mixed), new_cache
 
     def _assemble_inputs(self, batch: dict):
-        """Token embeddings (B, S, d) and positions (B, S)."""
+        """The inputs (B, S_total, d), their positions ((B, S_total), or
+        M-RoPE's (3, B, S_total)) and the text's offset: a vision stub's
+        projected patches (B, n_patches, d) come first, and S_total =
+        n_patches + S."""
+        cfg = self.cfg
         tokens = batch["tokens"]
-        b, s = tokens.shape
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        return self.embed[tokens], positions
+        h = self.embed[tokens]
+        offset = 0
+        if cfg.frontend == "vision_stub":
+            patches = batch["patches"].to(h.dtype) @ self.projector
+            h = torch.cat([patches, h], dim=1)
+            offset = patches.shape[1]
+        b, s_total = h.shape[:2]
+        pos = torch.arange(s_total, device=tokens.device).expand(b, s_total)
+        if cfg.rope == "mrope":
+            # patches at (t = 0, row, col); text at its global index on all
+            # three tracks, so decode positions carry on from it
+            g = max(1, int(np.sqrt(max(offset, 1))))
+            vision = pos < offset
+            positions = torch.stack([torch.where(vision, 0, pos),
+                                     torch.where(vision, pos // g, pos),
+                                     torch.where(vision, pos % g, pos)])
+        else:
+            positions = pos
+        if needs_pos_table(cfg):
+            h = h + self.pos_embed[:s_total][None].to(h.dtype)
+        return h, positions, offset
 
     def apply(self, batch: dict) -> torch.Tensor:
-        """Training/prefill forward → logits (B, S, vocab) fp32. With
-        autograd on, each block runs again in backward (:func:`_remat`)."""
-        h, positions = self._assemble_inputs(batch)
+        """Training/prefill forward → logits (B, S_total, vocab) fp32.
+        With autograd on, each block runs again in backward
+        (:func:`_remat`)."""
+        h, positions, _ = self._assemble_inputs(batch)
         remat = torch.is_grad_enabled()
         for block in self.layers:
             h = _remat(block, h, positions) if remat else block(h, positions)
@@ -197,11 +235,14 @@ class LM(nn.Module):
         return h.float() @ self.head.float()
 
     def loss(self, batch: dict, *, ce_impl: str = "gather") -> torch.Tensor:
-        """Next-token cross entropy, the mean over (B, S − 1) positions.
-        ``ce_impl``: "gather" (log-softmax, then the targets' entries) or
-        "onehot" (logsumexp − Σ logits·onehot(targets)), the reference's
-        two forms."""
-        logits = self.apply(batch)[:, :-1]
+        """Next-token cross entropy over the text span, the mean over
+        (B, S − 1) positions (a vision stub's patches are dropped by their
+        offset). ``ce_impl``: "gather" (log-softmax, then the targets'
+        entries) or "onehot" (logsumexp − Σ logits·onehot(targets)), the
+        reference's two forms."""
+        logits = self.apply(batch)
+        offset = logits.shape[1] - batch["tokens"].shape[1]
+        logits = logits[:, offset:-1]
         targets = batch["tokens"][:, 1:].long()
         if ce_impl == "onehot":
             lse = torch.logsumexp(logits, dim=-1)
@@ -235,10 +276,10 @@ class LM(nn.Module):
     @torch.no_grad()
     def prefill(self, batch: dict, max_len: int):
         """Serving prefill: full forward that also fills the caches.
-        Returns (logits (B, S, vocab) fp32, cache ready for
-        ``decode_step``)."""
+        Returns (logits (B, S_total, vocab) fp32, cache ready for
+        ``decode_step`` at step S_total)."""
         cfg = self.cfg
-        h, positions = self._assemble_inputs(batch)
+        h, positions, _ = self._assemble_inputs(batch)
         cache = self.init_cache(h.shape[0], max_len)
         new_layers = []
         for block, layer_cache in zip(self.layers, cache["layers"]):
@@ -259,6 +300,8 @@ class LM(nn.Module):
         """tokens: (B, 1) → (logits (B, vocab) fp32, cache). Attention
         layers write their KV caches in place."""
         h = self.embed[tokens]
+        if needs_pos_table(self.cfg):
+            h = h + self.pos_embed[cache["step"]].to(h.dtype)
         new_layers = []
         for block, layer_cache in zip(self.layers, cache["layers"]):
             h, nc = self._decode_block(block, h, layer_cache)

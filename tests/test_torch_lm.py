@@ -222,10 +222,19 @@ def test_registry_and_batches():
         got = random_batch(cfg, 3, seq, seed=9, kind=kind,
                            device="cpu")["tokens"]
         assert np.array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(ValueError, match="Queue 1 item 8"):
-        get_config("whisper-large-v3")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        build_model(dataclasses.replace(cfg, rope="mrope"), device="cpu")
+    # the stub frontends' inputs come after the tokens, from the same rng
+    for arch, stub in (("whisper-large-v3", "frames"),
+                       ("qwen2-vl-2b", "patches")):
+        rc, c = ref_config(arch).reduced(), get_config(arch).reduced()
+        want = ref_batch(rc, 3, 12, seed=9)
+        got = random_batch(c, 3, 12, seed=9, device="cpu")
+        assert set(got) == set(want) == {"tokens", stub}
+        for k in want:
+            assert np.array_equal(got[k].numpy(), np.asarray(want[k]))
+    mrope = build_model(dataclasses.replace(cfg, rope="mrope"), device="cpu")
+    assert mrope.cfg.rope == "mrope"
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("whisper-large-v4")
 
 
 def test_serve_entry_points_without_device_need_a_gpu(monkeypatch):

@@ -174,12 +174,26 @@ def test_lm_init_is_independent_of_threads(monkeypatch):
 
 
 def test_only_standard_rope_runs():
-    cfg = get_config("tinyllama-1.1b").reduced()
+    """Every rope mode runs on an attention stack: "mrope" (text tokens on
+    all three tracks) and "none" (the learned position table) build, hold
+    the reference's params and give its logits, and count as it does."""
     for rope in ("mrope", "none"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            build_model(dataclasses.replace(cfg, rope=rope), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        dataclasses.replace(cfg, rope="none").param_count()
+        rcfg = dataclasses.replace(ref_config("tinyllama-1.1b").reduced(),
+                                   rope=rope)
+        cfg = dataclasses.replace(get_config("tinyllama-1.1b").reduced(),
+                                  rope=rope)
+        assert cfg.param_count() == rcfg.param_count()
+        ref = ref_build(rcfg)
+        params = jax.tree_util.tree_map(np.asarray,
+                                        ref.init(jax.random.PRNGKey(1)))
+        port = build_model(cfg, device="cpu")
+        convert.load_lm_reference(port, params)
+        assert hasattr(port, "pos_embed") == (rope == "none")
+        batch = ref_batch(rcfg, 2, 24, seed=2)
+        with torch.no_grad():
+            got = port.apply(random_batch(cfg, 2, 24, seed=2, device="cpu"))
+        np.testing.assert_allclose(_np(got), _np(ref.apply(params, batch)),
+                                   **TOL)
 
 
 def _load_example(name):
