@@ -7,14 +7,17 @@ Phases (each prints its own lines; any failure exits non-zero):
 1. device — needs CUDA; prints the card's name and power limit
    (``nvidia-smi``) and turns TF32 off for matmuls and convolutions.
 2. build — builds the kernels from ``src/repro_torch`` with ``nvcc``, one
-   process per source, all at once (four sources, seven kernels), and
+   process per source, all at once (four sources, eight kernels), and
    prints ptxas's registers, spills and static shared memory per entry.
 3. kernels — holds each kernel against its plain PyTorch version on the
    card at the paths' shapes and at odd ones, and times the first row of
    each beside its bound: ``zone_update``, ``multizone_update`` and
    ``fused_update`` (padded slots and an idle walker included; bit for
    bit; the zone kernel also at every width, β and live count the Table
-   1 grid gives it), ``rglru_scan`` (bit for bit, on both its paths) and
+   1 grid gives it), ``rglru_scan`` (bit for bit, on both its paths),
+   its backward ``rglru_scan_bwd`` (bit for bit at the training step's
+   shape, the serve shape and odd ones; the ``autograd.Function``'s
+   gradient against autograd through the plain loop) and
    ``flash_decode`` (fp32 at 1e-5, bf16 at atol 1e-3 + rtol 1e-2 against
    the plain softmax and the split reference; lengths below S, a window,
    a row with no valid key, every hd remainder of the tensor-core
@@ -175,7 +178,7 @@ Phases (each prints its own lines; any failure exits non-zero):
    profiled prefill and decode step, one mLSTM and one sLSTM layer
    profiled alone over the prompt; its first pattern (6 layers) in fp32
    with the same weights at the fp32 bound; RWSADMM training at full
-   width and depth (three clients, 4 × 512 tokens a step, three rounds;
+   width and depth (three clients, 4 × 512 tokens a step, two rounds;
    the same gates as 8b) and one step of the first pattern in fp32, card
    against CPU.
 8d. MoE — qwen3-moe-30b-a3b at full width and depth (48 layers; H 32
@@ -192,6 +195,16 @@ Phases (each prints its own lines; any failure exits non-zero):
    sets are compared (a flip above a 1e-5 margin fails). The kernel
    phase holds flash decode at qwen3's decode shape (G = 8, hd 64, 2056
    keys; bf16 timed beside SDPA and its bound, fp32, lengths below S).
+8e. frontends — whisper-large-v3 and qwen2-vl-2b at full width and
+   depth (``phase_whisper``, ``phase_vlm``).
+8f. RecurrentGemma training — RWSADMM on recurrentgemma-9b at full
+   width cut to one (rglru, rglru, local) group (1,554,071,552 by
+   ``param_count``), bf16, two clients, 2 × 2048 tokens a step, three
+   rounds: the gates of 8b, with exactly 4 forward (all staged) and 2
+   backward scan launches a step and no flash decode; one fp32 step of
+   that cut card against CPU on 1 × 128 tokens; ``python -m
+   repro_torch.launch.train --arch recurrentgemma-9b --reduced`` (its
+   ``main``) on the card, its scan launches gated exactly.
 
 Ends with a ``{"kernels": [...]}`` line, the paths' summaries, each
 phase's seconds, the ``nvidia-smi`` line and, last, ``{"ok": true,
@@ -377,14 +390,15 @@ def ptxas_entries(lib: Path) -> dict:
 
 def _wrappers():
     from repro_torch.kernels.flash_decode.ops import flash_decode
-    from repro_torch.kernels.rglru_scan.ops import rglru_scan
+    from repro_torch.kernels.rglru_scan.ops import rglru_scan, rglru_scan_bwd
     from repro_torch.kernels.rwsadmm_update import ops
     from repro_torch.kernels.threefry import ops as tf
 
     return {"zone_update": ops.zone_fused_update,
             "multizone_update": ops.multizone_fused_update,
             "fused_update": ops.fused_update,
-            "rglru_scan": rglru_scan, "flash_decode": flash_decode,
+            "rglru_scan": rglru_scan, "rglru_scan_bwd": rglru_scan_bwd,
+            "flash_decode": flash_decode,
             "threefry_bits": tf.threefry_bits,
             "threefry_draws": tf.threefry_draws}
 
@@ -445,7 +459,7 @@ def phase_build() -> dict:
         entries.update(ptxas_entries(lib))
         for entry, info in ptxas_entries(lib).items():
             log(f"ptxas {lib.name.split('-')[0]}: {entry} {info}")
-    log(f"build: 7 kernels from 4 sources in {seconds:.2f} s "
+    log(f"build: 8 kernels from 4 sources in {seconds:.2f} s "
         f"({', '.join(l.name for l in libs)}); ptxas reports "
         f"{len(entries)} entries")
     return entries
@@ -1312,9 +1326,13 @@ def phase_scenarios(device, model, data, hp, static: dict) -> dict:
                                scenario=SCENARIOS["fleet"])})
     out["fedavg"] = cohort_under_churn(device, model, data)
     t0 = time.perf_counter()
+    # Speedups are the best of 2 timed repetitions (the twin's default is
+    # 6): printed, not gated; cut to keep the smoke near its time (PERF.md
+    # §4).
     rows = scenario_sweep_torch.run(
         n_clients=20, rounds=30, speedup_rounds=150, smoke=True,
-        out_dir=os.path.join(HERE, "results", "bench"), device=device)
+        out_dir=os.path.join(HERE, "results", "bench"), device=device,
+        reps=2)
     drop = [r["scan_vs_eager"] for r in rows if r["link_dropout"]]
     pure = [r["scan_vs_eager"] for r in rows if not r["link_dropout"]]
     ratio = (sum(drop) / len(drop)) / (sum(pure) / len(pure))
@@ -1821,12 +1839,12 @@ def phase_twins(device) -> dict:
 # ---------------------------------------------------------------------------
 # The paper's result scripts on the card, at the reference's sizes, and
 # the full-length quickstart. Rounds cut to keep the smoke near its time
-# (PERF.md §4): convergence 100 → 30, Fig. 3/4 80 → 20, the comparison
-# 200 → 60, Table 2's rounds a client 8 → 2. The quickstart keeps its 300
+# (PERF.md §4): convergence 100 → 15, Fig. 3/4 80 → 20, the comparison
+# 200 → 30, Table 2's rounds a client 8 → 1. The quickstart keeps its 300
 # rounds (its hitting time and MB a round are held to the reference's).
-PAPER = dict(convergence_rounds=30, hyperparam_rounds=20,
-             ablation_rounds=80, comparison_rounds=60,
-             table2_clients=(20, 50, 100), table2_rounds_per_client=2,
+PAPER = dict(convergence_rounds=15, hyperparam_rounds=20,
+             ablation_rounds=80, comparison_rounds=30,
+             table2_clients=(20, 50, 100), table2_rounds_per_client=1,
              quickstart_rounds=300)
 # The reference's quickstart on the CPU (ROADMAP Queue 1 item 9): its
 # hitting time and MB a round (the port's CPU run gives the same), and
@@ -1964,11 +1982,11 @@ GATES = dict(n_samples=1200, n_clients=10, clients_per_round=5, rounds=60,
                                       "pfedme": 0.6, "ditto": 0.6,
                                       "apfl": 0.6, "walkman": 0.35})
 # benchmarks/table1.py's grid through its port twin; 120 rounds as there
-# for the kernel's shapes and the plain hold, the grid itself cut to 40
-# (it took 144 s of the smoke at 120; the 120-round grid's reading is
-# the twin's own run, PERF.md §6).
+# for the kernel's shapes and the plain hold, the grid itself cut to 20
+# (it took 144 s of the smoke at 120, ~67 s at 40; the 120-round grid's
+# reading is the twin's own run, PERF.md §6).
 TABLE1_ROUNDS = 120
-TABLE1_GRID_ROUNDS = 40
+TABLE1_GRID_ROUNDS = 20
 #: clients of each Table 1 dataset (``benchmarks/table1_torch.datasets``)
 TABLE1_CLIENTS = {"mnist_like": 10, "synthetic": 20}
 TABLE1_PERSONALIZED = ("perfedavg", "pfedme", "ditto", "apfl", "rwsadmm")
@@ -2617,7 +2635,7 @@ def compare_lockstep(make, steps: int, leaves, unit: str, hp,
 LAZY = dict(capacity=40, window=4, rounds=80, fleet_capacity=50,
             fleet_window=2, fleet_steps=30, timed_windows=5,
             fedavg_rounds=3, fedavg_capacity=12, dp_rounds=8, dp_window=4,
-            ckpt_rounds=40, check_clients=100_000, check_window=4,
+            ckpt_rounds=40, check_clients=100_000, check_window=2,
             overhead_clients=2000, overhead_repeats=30, overhead_rounds=32,
             overhead_pct=5.0)
 
@@ -2834,7 +2852,7 @@ def fedavg_lazy(device, model, data, factory) -> dict:
 
 def lazy_check_subprocess(device) -> dict:
     """``benchmarks/scan_scaling_torch.py --lazy-check`` at n = 100,000 in
-    its own process (its peak RSS is its own): windows of 4 rounds of
+    its own process (its peak RSS is its own): windows of 2 rounds of
     ``scan_fused`` with prefetch off and on (bit for bit equal) and of
     ``scan``, every window's host columns against the CPU's
     ``schedule()``."""
@@ -3279,6 +3297,99 @@ def check_rglru_scan(shape, device, card: str, time_it: bool) -> dict:
     return row
 
 
+#: the backward's gradient through the Function against autograd through
+#: the plain forward loop on the card: the same multiplies and adds, so
+#: they agree to float rounding (fp32)
+SCAN_GRAD_TOL = dict(atol=1e-6, rtol=1e-5)
+
+
+def check_rglru_scan_bwd(shape, device, card: str, time_it: bool) -> dict:
+    """The scan's backward kernel against its plain reverse loop, bit for
+    bit; with ``time_it`` also timed cold and warm beside its bound and
+    the plain loop, and the Function's gradient (the forward kernel, then
+    the backward kernel) held against autograd through the plain forward
+    loop at ``SCAN_GRAD_TOL``."""
+    import torch
+
+    from repro_torch.kernels.rglru_scan import ops
+    from repro_torch.kernels.rglru_scan.ref import (rglru_scan_bwd_ref,
+                                                    rglru_scan_ref)
+
+    gen = torch.Generator(device=device).manual_seed(sum(shape) + 1)
+
+    def inputs():
+        a = torch.sigmoid(torch.randn(shape, generator=gen, device=device))
+        b, dh = (torch.randn(shape, generator=gen, device=device)
+                 for _ in range(2))
+        with torch.no_grad():
+            return a, b, ops.rglru_scan(a, b), dh
+    a, b, h, dh = inputs()
+    before = ops.rglru_scan_bwd.launches
+    da, db = ops.rglru_scan_bwd(a, h, dh)
+    torch.cuda.synchronize()
+    launched = ops.rglru_scan_bwd.launches - before
+    want = rglru_scan_bwd_ref(a, h, dh)
+    row = {"shape": "B={} S={} D={}".format(*shape),
+           "max_abs_err": max(float((g - w).abs().max())
+                              for g, w in zip((da, db), want)),
+           "bitwise": bool(torch.equal(da, want[0])
+                           and torch.equal(db, want[1])),
+           "launched": launched}
+    del want
+    if time_it:
+        bsz, s, d = shape
+        # Two input sets (each 335 MB at the training shape, well over the
+        # L2) in turn: cold; one set again and again: warm.
+        a2, _, h2, dh2 = inputs()
+        sets = [(a, h, dh), (a2, h2, dh2)]
+        cold = device_time_ms([lambda t=t: ops.rglru_scan_bwd(*t)
+                               for t in sets], 10)
+        warm = device_time_ms([lambda: ops.rglru_scan_bwd(a, h, dh)], 10)
+        plain = device_time_ms([lambda: rglru_scan_bwd_ref(a, h, dh)], 2,
+                               graph=False)
+        row.update(ms=cold["profiler"], ms_warm=warm["profiler"],
+                   graph_ms=cold["graph"], graph_ms_warm=warm["graph"],
+                   plain_ms=plain["profiler"],
+                   plain_wall_ms=cuda_time_ms(
+                       lambda: rglru_scan_bwd_ref(a, h, dh), 2, warmup=1),
+                   library_ms=None)
+        # Read a, h and dh, write da and db, fp32; a multiply and an add
+        # for g and a multiply for da per element.
+        row.update(lm_kernel_bound(5 * bsz * s * d * 4, 3 * bsz * s * d,
+                                   card))
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        # The Function's gradient against autograd through the plain loop.
+        ta, tb = (t.clone().requires_grad_() for t in (a, b))
+        ops.rglru_scan(ta, tb).backward(dh)
+        pa, pb = (t.clone().requires_grad_() for t in (a, b))
+        rglru_scan_ref(pa, pb).backward(dh)
+        torch.cuda.synchronize()
+        row["function_vs_autograd"] = {
+            "max_abs_err": max(float((g.grad - w.grad).abs().max())
+                               for g, w in ((ta, pa), (tb, pb))),
+            "ok": all(torch.allclose(g.grad, w.grad, **SCAN_GRAD_TOL)
+                      for g, w in ((ta, pa), (tb, pb))),
+            **SCAN_GRAD_TOL}
+        del ta, tb, pa, pb, sets, a2, h2, dh2
+    log(f"kernel rglru_scan_bwd {row['shape']}: max_abs_err "
+        f"{row['max_abs_err']} bitwise {row['bitwise']} launches "
+        f"{launched}"
+        + (f" device ms cold {row['ms']:.4f} warm {row['ms_warm']:.4f} "
+           f"graph cold {row['graph_ms']:.4f} warm "
+           f"{row['graph_ms_warm']:.4f} plain device ms "
+           f"{row['plain_ms']:.3f} (wall {row['plain_wall_ms']:.3f}) "
+           f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
+           f"{row['bound_rate']}) share {row['share_of_bound']:.3f} "
+           f"library none; Function vs autograd "
+           f"through the plain loop {row['function_vs_autograd']}"
+           if time_it else ""))
+    if not row["bitwise"] or launched != 1 or not row.get(
+            "function_vs_autograd", {"ok": True})["ok"]:
+        raise AssertionError(f"rglru_scan_bwd differs from its plain loop "
+                             f"or launched otherwise than once: {row}")
+    return row
+
+
 FLASH_COLD_SETS = 10   # serving-shape (q, k, v) sets: 84 MB, over the L2
 
 
@@ -3397,8 +3508,9 @@ def check_flash_decode(b, h, kv, hd, s, lengths, window, dtype: str, device,
 
 
 def phase_lm_kernels(device, card: str) -> dict:
-    """Both model-zoo kernels at the serving path's shapes (timed first
-    rows) and at odd ones: S and D tails, the scan's register-loop path,
+    """The model-zoo kernels at the serving path's shapes (the scan's
+    backward at the training step's; timed first rows) and at odd ones:
+    S and D tails, the scan's register-loop path,
     G < 16, short head dims (every remainder of hd mod 32 after the
     tensor-core steps: 0, 8, 16, 24), lengths below S, a row with no
     valid key, windows that leave whole chunks masked."""
@@ -3408,6 +3520,16 @@ def phase_lm_kernels(device, card: str) -> dict:
             check_rglru_scan((4, 2040, 4096), device, card, time_it=True),
             check_rglru_scan((2, 1000, 130), device, card, time_it=False),
             check_rglru_scan((3, 129, 100), device, card, time_it=False)],
+        # the training step's shape first (timed), then the serve shape
+        # and odd ones: D not a multiple of 4 or 32, S of 1 and not a
+        # multiple of the unroll, B = 1
+        "rglru_scan_bwd": [
+            check_rglru_scan_bwd(RG_TRAIN_SCAN, device, card, time_it=True),
+            check_rglru_scan_bwd((4, 2040, 4096), device, card, False),
+            check_rglru_scan_bwd((2, 1000, 130), device, card, False),
+            check_rglru_scan_bwd((3, 129, 100), device, card, False),
+            check_rglru_scan_bwd((1, 1, 36), device, card, False),
+            check_rglru_scan_bwd((1, 77, 7), device, card, False)],
         "flash_decode": [
             check_flash_decode(4, 16, 1, 256, 2048, full_len, None,
                                "bfloat16", device, card, time_it=True),
@@ -3973,7 +4095,8 @@ def stub_inputs(cfg, batch: int, seed: int, device) -> dict:
 
 def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
                    deep_tie: float = 0.0, check=None,
-                   cut: dict | None = None) -> dict:
+                   cut: dict | None = None,
+                   shape: tuple[int, int] | None = None) -> dict:
     """One RWSADMM step of ``arch`` at full width, cut to its first
     ``layers`` layers, fp32, from the same weights and tokens on the card
     and on the CPU: x, z and y at ``PARITY_STEP``'s tolerance, its atol
@@ -3982,8 +4105,9 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
     ``deep_tie`` of the tie are not counted against ``max_flip_share``.
     ``check(cpu, card, tokens)``, when given, runs before the step and its
     result is kept under "check". ``cut`` replaces more config fields
-    (an encoder's layers and frames); a stub frontend's inputs come from
-    ``stub_inputs``."""
+    (an encoder's layers and frames, a layer pattern); a stub frontend's
+    inputs come from ``stub_inputs``. ``shape``: the step's (batch, seq)
+    tokens, ``PARITY_STEP``'s unless given."""
     import dataclasses
 
     import numpy as np
@@ -3996,6 +4120,7 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
     from repro_torch.models.registry import build_model
 
     p = PARITY_STEP
+    bsz, seq = shape or (p["batch"], p["seq"])
     cfg = dataclasses.replace(get_config(arch), n_layers=layers,
                               dtype="float32", **(cut or {}))
     hp = RWSADMMHparams(beta=TRAIN["beta"], kappa=TRAIN["kappa"],
@@ -4003,9 +4128,9 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
     cpu = build_model(cfg, device="cpu").init(TRAIN["seed"])
     card = build_model(cfg, device=device)
     card.load_state_dict(cpu.state_dict())
-    tokens = heterogeneous_stream(cfg.vocab, 1, p["batch"], p["seq"],
+    tokens = heterogeneous_stream(cfg.vocab, 1, bsz, seq,
                                   np.random.default_rng(TRAIN["seed"]))
-    stubs = stub_inputs(cfg, p["batch"], TRAIN["seed"], "cpu")
+    stubs = stub_inputs(cfg, bsz, TRAIN["seed"], "cpu")
     checked = check(cpu, card, tokens) if check is not None else None
     results = []
     for model in (cpu, card):
@@ -4066,10 +4191,10 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
            "y_sign_flips_counted": counted,
            "beyond_plain_tolerance": beyond_plain,
            "step_s": {"cpu": cpu_s, "card": card_s},
-           "tokens": p["batch"] * p["seq"], "check": checked,
+           "tokens": bsz * seq, "check": checked,
            "cut": dict(cut or {}, n_layers=layers)}
     log(f"train parity: {arch} {layers} layers fp32 (cut {row['cut']}), one "
-        f"step on {p['batch']}x{p['seq']} tokens and "
+        f"step on {bsz}x{seq} tokens and "
         f"{ {k: tuple(v.shape) for k, v in stubs.items()} } stub inputs "
         f"(CPU {cpu_s:.1f} s, card "
         f"{card_s:.2f} s), card vs CPU: loss {got_loss} vs {want_loss} (rel "
@@ -4084,12 +4209,15 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
 
 def train_on_walker(device, t: dict, label: str) -> dict:
     """RWSADMM training of ``t["arch"]`` at full width and depth (cut to
-    ``t["layers"]`` layers when given) through ``launch/steps.py``'s
-    ``make_train_step``: a random walk over ``t["clients"]`` clients'
-    heterogeneous streams (with a stub frontend's frames or patches
-    drawn for each client) for ``t["rounds"]`` rounds; gated on finite
-    losses, x moved, κ decayed, the reference's dtype promotion after
-    steps 1 and 2, and no hand kernel launched."""
+    ``t["layers"]`` layers, or by ``t["cut"]``'s config fields, a
+    ``layer_pattern`` among them, when given) through
+    ``launch/steps.py``'s ``make_train_step``: a random walk over
+    ``t["clients"]`` clients' heterogeneous streams (with a stub
+    frontend's frames or patches drawn for each client) for
+    ``t["rounds"]`` rounds; gated on finite losses, x moved, κ decayed,
+    the reference's dtype promotion after steps 1 and 2, and each hand
+    kernel's launches: exactly ``t["launches"]`` a step (none of any
+    kernel unless given)."""
     import dataclasses
 
     import numpy as np
@@ -4105,9 +4233,10 @@ def train_on_walker(device, t: dict, label: str) -> dict:
     from repro_torch.models.registry import build_model
 
     t0 = time.perf_counter()
-    cfg = get_config(t["arch"])
+    cut = dict(t.get("cut", {}))
     if "layers" in t:
-        cfg = dataclasses.replace(cfg, n_layers=t["layers"])
+        cut["n_layers"] = t["layers"]
+    cfg = dataclasses.replace(get_config(t["arch"]), **cut)
     model = build_model(cfg, device=device).init(t["seed"])
     torch.cuda.synchronize()
     params = {k: v.detach() for k, v in model.named_parameters()}
@@ -4149,6 +4278,9 @@ def train_on_walker(device, t: dict, label: str) -> dict:
                          for n in ("x", "z", "y")} == promoted_dtypes(
                              params, r + 1)
     counts = launch_counts()
+    want_counts = {n: 0 for n in counts} | {
+        n: per_step * t["rounds"]
+        for n, per_step in t.get("launches", {}).items()}
     peak = torch.cuda.max_memory_allocated()
     moved = any(not torch.equal(states[c].x[k].float(), params[k].float())
                 for c in set(visits) for k in params)
@@ -4161,7 +4293,8 @@ def train_on_walker(device, t: dict, label: str) -> dict:
     row = {"visits": visits, "losses": losses, "step_ms": step_ms,
            "steady_step_ms": steady, "tok_per_s": tokens / steady * 1e3,
            "peak_gib": peak / 2**30, "kappa": float(kappa),
-           "dtypes_after_steps_1_2": dtypes[:2], "launches": counts}
+           "dtypes_after_steps_1_2": dtypes[:2], "launches": counts,
+           "launches_by_path": path_counts()}
     log(f"{label}: {t['rounds']} rounds over clients {visits}: losses "
         f"{losses}, ms a step {[round(m, 1) for m in step_ms]} (steady "
         f"median {steady:.1f} ms, {row['tok_per_s']:.0f} tokens/s on "
@@ -4171,12 +4304,12 @@ def train_on_walker(device, t: dict, label: str) -> dict:
     if not (all(np.isfinite(losses)) and moved
             and abs(float(kappa) - float(want_kappa)) <= 1e-6 * want_kappa
             and promoted
-            and not any(counts.values())):
+            and counts == want_counts):
         raise AssertionError(f"{label}: finite {all(np.isfinite(losses))}, x "
                              f"moved {moved}, kappa {float(kappa)} (want "
                              f"{want_kappa}), dtypes {dtypes[:2]} (the "
                              f"reference's promotion {promoted}), launches "
-                             f"{counts}")
+                             f"{counts} (want {want_counts})")
     return row
 
 
@@ -4219,8 +4352,9 @@ XLSTM_ARCH = "xlstm-350m"
 #: 5 mLSTM layers and 1 sLSTM
 XLSTM_FP32_LAYERS = 6
 #: RWSADMM on xlstm-350m in its bf16: three clients on the walker, 4 × 512
-#: tokens a step, three rounds, at the reference example's hyperparameters
-XLSTM_TRAIN = dict(TRAIN, arch=XLSTM_ARCH, seq=512, rounds=3)
+#: tokens a step, two rounds (three until the smoke's time was cut, PERF.md
+#: §4), at the reference example's hyperparameters
+XLSTM_TRAIN = dict(TRAIN, arch=XLSTM_ARCH, seq=512, rounds=2)
 #: the bf16 teacher check's bound for xlstm-350m (``TEACHER_REL_RMS``
 #: stays as it is for every other arch). In bf16 the xLSTM's decode and
 #: its teacher-forced ``apply`` part step by step: the reference itself,
@@ -4905,11 +5039,90 @@ def phase_vlm(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# RecurrentGemma-9B trained under RWSADMM: the scan's forward and backward
+# kernels in every RG-LRU layer of the step.
+#: one (rglru, rglru, local) group at full width, bf16 (1,554,071,552
+#: parameters by ``param_count``): 2 clients, 2 × 2048 tokens a step (the
+#: local window), 3 rounds. A step launches the forward kernel twice an
+#: RG-LRU layer (the forward, and its recompute in backward under
+#: ``transformer._remat``) and the backward kernel once; no flash decode.
+RG_CUT = dict(layer_pattern=("rglru", "rglru", "local"), n_layers=3)
+RG_TRAIN = dict(TRAIN, arch=LM_ARCH, cut=RG_CUT, clients=2, batch=2,
+                seq=2048, rounds=3,
+                launches={"rglru_scan": 4, "rglru_scan_bwd": 2})
+#: the backward kernel's shape in that step
+RG_TRAIN_SCAN = (RG_TRAIN["batch"], RG_TRAIN["seq"], 4096)
+#: the card-vs-CPU fp32 step of the same cut on 1 × 128 tokens: the CPU's
+#: time goes to the 256,000-wide logits and the update of 1.55 B params
+RG_PARITY_SHAPE = (1, 128)
+#: the training driver on the card, on the reduced config (19 layers, 13
+#: of them RG-LRU)
+RG_DRIVER = dict(clients=4, rounds=4, batch=2, seq=64)
+
+
+def phase_recurrentgemma_train(device) -> dict:
+    """RecurrentGemma-9B's (rglru, rglru, local) cut trained at full width
+    (``train_on_walker`` at ``RG_TRAIN``, the scan's launches gated
+    exactly, every forward on the staged path), a fp32 step of the same
+    cut card vs CPU, and ``python -m repro_torch.launch.train --arch
+    recurrentgemma-9b --reduced`` (its ``main``) on the card, with its
+    launches gated exactly too."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as driver
+
+    seconds, t0 = {}, time.perf_counter()
+    row = train_on_walker(device, RG_TRAIN, "recurrentgemma train")
+    by_path = row["launches_by_path"]["rglru_scan"]
+    if by_path["staged"] != row["launches"]["rglru_scan"]:
+        raise AssertionError(f"recurrentgemma train: scan paths {by_path}")
+    seconds["train"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    row["parity"] = lm_step_parity(
+        device, LM_ARCH, RG_CUT["n_layers"],
+        cut={"layer_pattern": RG_CUT["layer_pattern"]},
+        shape=RG_PARITY_SHAPE)
+    seconds["train parity"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    d = RG_DRIVER
+    argv = ["--arch", LM_ARCH, "--reduced"] + [
+        a for k, v in d.items() for a in (f"--{k}", str(v))]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    visits, losses = driver.main(argv)
+    torch.cuda.synchronize()
+    seconds["driver"] = time.perf_counter() - t0
+    n_rglru = get_config(LM_ARCH).reduced().layer_pattern.count("rglru")
+    counts = launch_counts()
+    want = {n: 0 for n in counts} | {
+        "rglru_scan": 2 * n_rglru * d["rounds"],
+        "rglru_scan_bwd": n_rglru * d["rounds"]}
+    row["driver"] = {"argv": argv, "visits": visits, "losses": losses,
+                     "seconds": seconds["driver"], "launches": counts}
+    log(f"recurrentgemma train: python -m repro_torch.launch.train "
+        f"{' '.join(argv)}: visits {visits}, losses {losses}, "
+        f"{seconds['driver']:.2f} s, launches {counts} (want {want})")
+    if counts != want or not all(np.isfinite(losses)) or \
+            len(visits) != d["rounds"]:
+        raise AssertionError(f"train driver: {row['driver']} (want "
+                             f"launches {want})")
+    row["seconds"] = seconds
+    log(f"recurrentgemma train phase seconds by part: {seconds}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 _RW_SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
 _TF_SOURCE = "src/repro_torch/kernels/threefry/csrc/threefry.cu"
 SOURCE = {"zone_update": _RW_SOURCE, "multizone_update": _RW_SOURCE,
           "fused_update": _RW_SOURCE,
           "rglru_scan": "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
+          "rglru_scan_bwd":
+              "src/repro_torch/kernels/rglru_scan/csrc/rglru_scan.cu",
           "flash_decode":
               "src/repro_torch/kernels/flash_decode/csrc/flash_decode.cu",
           "threefry_draws": _TF_SOURCE, "threefry_bits": _TF_SOURCE}
@@ -4918,6 +5131,9 @@ REPLACES = {"zone_update": "src/repro/kernels/rwsadmm_update/kernel.py:176",
                 "src/repro/kernels/rwsadmm_update/kernel.py:147",
             "fused_update": "src/repro/kernels/rwsadmm_update/kernel.py:51",
             "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:49",
+            # No pl.pallas_call: XLA's transpose of the reference's
+            # associative scan, linear_scan, under jax.grad.
+            "rglru_scan_bwd": "src/repro/models/recurrent.py:91",
             "flash_decode": "src/repro/kernels/flash_decode/kernel.py:82",
             # No pl.pallas_call: jax.random, which XLA fuses into the
             # reference's round; the draws replace sample_batch's randint
@@ -5033,6 +5249,12 @@ def main() -> int:
     paths["moe"] = run_phase("moe", phase_moe, device)
     paths["whisper"] = run_phase("whisper", phase_whisper, device)
     paths["vlm"] = run_phase("vlm", phase_vlm, device)
+    paths["recurrentgemma_train"] = run_phase(
+        "recurrentgemma train", phase_recurrentgemma_train, device)
+    # the scan's backward on its main path: the full-width training run,
+    # driven with the counts at 0 (the forward's: the serve path's)
+    rg_train = paths["recurrentgemma_train"]
+    launches["rglru_scan_bwd"] = rg_train["launches"]["rglru_scan_bwd"]
     # flash_decode on the zoo's serve paths, each driven with the counts at
     # 0: gemma3-12b bf16 at full depth, its fp32 pattern, the 2-layer cuts
     zoo = paths["zoo_serve"]
@@ -5082,9 +5304,17 @@ def main() -> int:
                "share_of_bound": timed["share_of_bound"],
                "shape": timed["shape"]}
         row.update({k: timed[k] for k in extra if k in timed})
-        if kernel in ("rglru_scan", "flash_decode", *THREEFRY):
+        if kernel in ("rglru_scan", "rglru_scan_bwd", "flash_decode",
+                      *THREEFRY):
             row["ptxas"] = {e: v for e, v in ptxas.items()
-                            if e.startswith(kernel)}
+                            if e.startswith(kernel) and (
+                                kernel != "rglru_scan" or "_bwd" not in e)}
+        if kernel in ("rglru_scan", "rglru_scan_bwd"):
+            row["launches_train"] = rg_train["launches"][kernel]
+            row["launches_train_driver"] = rg_train["driver"]["launches"][
+                kernel]
+        if kernel == "rglru_scan_bwd":
+            row["function_vs_autograd"] = timed["function_vs_autograd"]
         if "sign_flips" in timed:
             row["sign_flips"] = sum(r["sign_flips"] for r in checks)
         if kernel == "flash_decode":

@@ -223,12 +223,15 @@ def load_encdec_reference(model: torch.nn.Module,
     _load_state(model, encdec_state_from_reference(ref_params))
 
 
-def reference_tree(model: torch.nn.Module) -> dict:
-    """The model's parameters (detached) in the reference's param tree:
-    the inverse of ``lm_state_from_reference`` or
+def reference_tree(model: torch.nn.Module,
+                   params: Mapping[str, torch.Tensor] | None = None) -> dict:
+    """The model's parameters (detached), or ``params`` keyed by its
+    parameter names (a train state's x, z or y), in the reference's param
+    tree: the inverse of ``lm_state_from_reference`` or
     ``encdec_state_from_reference``, with each layer stack's leaves
     stacked on a leading axis."""
-    state = {k: v.detach() for k, v in model.named_parameters()}
+    state = {k: v.detach() for k, v in (
+        model.named_parameters() if params is None else params.items())}
     tree: dict = {}
     for name, t in state.items():
         if name.split(".")[0] in _TOP:

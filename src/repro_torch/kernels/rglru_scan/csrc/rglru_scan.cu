@@ -1,5 +1,5 @@
 // RG-LRU linear recurrence h_t = a_t * h_{t-1} + b_t over (B, S, D), fp32,
-// carry 0 at t = 0.
+// carry 0 at t = 0, and its backward.
 //
 // Replaces src/repro/kernels/rglru_scan/kernel.py :: rglru_scan_blocked
 // (pallas_call at kernel.py:49, body _kernel). The TPU kernel tiles D into
@@ -15,10 +15,10 @@
 // flight: one thread per channel, each with a few dependent loads ahead,
 // holds ~1 MB over the card, where the card needs ~2.3 MB.
 //
-// Both kernels build with -fmad=false so that a*h + b rounds after the
-// multiply and after the add, as the plain PyTorch loop does: each agrees
-// with it bit for bit. No chunked two-pass scan: it would change the
-// rounding.
+// The file builds with -fmad=false so that a*h + b (and the backward's
+// dh + a*g) rounds after the multiply and after the add, as the plain
+// PyTorch loops do: each kernel agrees with its loop bit for bit. No
+// chunked two-pass scan: it would change the rounding.
 //
 // rglru_scan_staged (D % 4 == 0, 16-byte aligned tensors): a block owns
 // 32 channels of one batch row (each timestep's slice is one 128-byte
@@ -39,6 +39,20 @@
 // over t, neighbouring threads on neighbouring d so every step's loads and
 // store are coalesced, unrolled by kUnroll with the loads ahead of the
 // multiply-adds.
+//
+// rglru_scan_bwd_loop, the backward (any D): no Pallas counterpart; it
+// stands for XLA's transpose of the reference's associative scan
+// (src/repro/models/recurrent.py :: linear_scan), the same gradient by
+// another order of operations. It runs the adjoint recurrence in reverse
+// time, fused with the products: g = dh[t] + a[t+1] * g (from g =
+// dh[S-1]), db[t] = g, da[t] = g * h[t-1] (h[-1] = 0), each product and
+// sum rounded, as the plain loop in ../ref.py. It reads a, h and dh once
+// each and writes da and db once each, 5·B·S·D·4 bytes: at a training
+// step's (2, 2048, 4096) 335.5 MB, 0.100 ms at 3.35 TB/s. One thread per
+// (b, d) channel walks t from S-1 down to 0, neighbouring threads on
+// neighbouring d; blocks of one warp spread the channels over every SM,
+// and kBwdUnroll steps of loads are issued ahead of their adds. The S
+// tail runs step by step; idle threads of the D tail return at once.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -52,6 +66,9 @@ constexpr int kSmemBytes = kStages * kStageFloats * 4;
 
 constexpr int kThreads = 128;   // register-loop kernel
 constexpr int kUnroll = 8;
+
+constexpr int kBwdThreads = 32;  // backward: one warp a block
+constexpr int kBwdUnroll = 16;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -204,6 +221,48 @@ rglru_scan_loop(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+__global__ void __launch_bounds__(kBwdThreads)
+rglru_scan_bwd_loop(const float* __restrict__ a, const float* __restrict__ h,
+                    const float* __restrict__ dh, float* __restrict__ da,
+                    float* __restrict__ db, long long channels,
+                    long long seq, long long width) {
+  const long long ch = (long long)blockIdx.x * kBwdThreads + threadIdx.x;
+  if (ch >= channels) return;
+  const long long base = (ch / width) * seq * width + ch % width;
+  const float* ap = a + base;
+  const float* hp = h + base;
+  const float* dhp = dh + base;
+  float* dap = da + base;
+  float* dbp = db + base;
+  long long t = seq - 1;
+  float g = dhp[t * width];
+  dbp[t * width] = g;
+  dap[t * width] = g * (t > 0 ? hp[(t - 1) * width] : 0.0f);
+  --t;
+  // Whole groups of steps t, t-1, ..., t-kBwdUnroll+1, all >= 1, so each
+  // reads h[t-1].
+  for (; t >= kBwdUnroll; t -= kBwdUnroll) {
+    float av[kBwdUnroll], dv[kBwdUnroll], hv[kBwdUnroll];
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      av[u] = ap[(t - u + 1) * width];
+      dv[u] = dhp[(t - u) * width];
+      hv[u] = hp[(t - u - 1) * width];
+    }
+#pragma unroll
+    for (int u = 0; u < kBwdUnroll; ++u) {
+      g = dv[u] + av[u] * g;
+      dbp[(t - u) * width] = g;
+      dap[(t - u) * width] = g * hv[u];
+    }
+  }
+  for (; t >= 0; --t) {
+    g = dhp[t * width] + ap[(t + 1) * width] * g;
+    dbp[t * width] = g;
+    dap[t * width] = g * (t > 0 ? hp[(t - 1) * width] : 0.0f);
+  }
+}
+
 }  // namespace
 
 // a, b, h: (batch, seq, width) fp32, contiguous, on the device; width % 4
@@ -237,6 +296,22 @@ extern "C" int rglru_scan_loop_launch(const void* a, const void* b, void* h,
   const unsigned grid = (unsigned)((channels + kThreads - 1) / kThreads);
   rglru_scan_loop<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)a, (const float*)b, (float*)h, channels, seq, width);
+  return (int)cudaGetLastError();
+}
+
+// a, h, dh, da, db: (batch, seq, width) fp32, contiguous, on the device,
+// any width. Launches the backward kernel on `stream` and returns
+// cudaGetLastError().
+extern "C" int rglru_scan_bwd_launch(const void* a, const void* h,
+                                     const void* dh, void* da, void* db,
+                                     int batch, long long seq,
+                                     long long width, void* stream) {
+  const long long channels = (long long)batch * width;
+  const unsigned grid = (unsigned)((channels + kBwdThreads - 1) /
+                                   kBwdThreads);
+  rglru_scan_bwd_loop<<<grid, kBwdThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (const float*)h, (const float*)dh, (float*)da,
+      (float*)db, channels, seq, width);
   return (int)cudaGetLastError();
 }
 

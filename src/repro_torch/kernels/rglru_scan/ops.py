@@ -1,16 +1,19 @@
-"""Wrapper of the RG-LRU scan kernels (``csrc/rglru_scan.cu``).
+"""Wrappers of the RG-LRU scan kernels (``csrc/rglru_scan.cu``).
 
 ``rglru_scan(a, b)`` computes h_t = a_t ⊙ h_{t−1} + b_t over (B, S, D)
-fp32 tensors. A CUDA tensor launches a kernel or raises; only tensors on
-the CPU take the plain version in :mod:`.ref`. The source holds two
-kernels, both bit for bit equal to the plain loop, and :func:`plan`
-picks one by shape: ``staged`` (shared-memory ring fed by bulk copies)
-where D % 4 == 0 and the tensors are 16-byte aligned, as bulk copies
-need, else ``loop`` (one thread per channel). ``rglru_scan.launches``
-counts every launch and ``rglru_scan.launches_by_path`` each path's. The
-kernels are built at first use by :func:`..._build.build`; the staged
-kernel's geometry is the source's, read through
-:func:`staged_geometry`.
+fp32 tensors and carries its gradient: it is the front of a
+``torch.autograd.Function`` whose backward is :func:`rglru_scan_bwd`
+(the adjoint recurrence in reverse time, its own kernel). A CUDA tensor
+launches a kernel or raises; only tensors on the CPU take the plain
+versions in :mod:`.ref`. The source holds two forward kernels, both bit
+for bit equal to the plain loop, and :func:`plan` picks one by shape:
+``staged`` (shared-memory ring fed by bulk copies) where D % 4 == 0 and
+the tensors are 16-byte aligned, as bulk copies need, else ``loop`` (one
+thread per channel). ``rglru_scan.launches`` counts every forward launch
+and ``rglru_scan.launches_by_path`` each path's;
+``rglru_scan_bwd.launches`` counts the backward's. The kernels are built
+at first use by :func:`..._build.build`; the staged kernel's geometry is
+the source's, read through :func:`staged_geometry`.
 """
 from __future__ import annotations
 
@@ -19,11 +22,12 @@ from pathlib import Path
 
 import torch
 
-from .. import _build, refuse_grad
-from .ref import rglru_scan_ref
+from .. import _build
+from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 _SOURCE = Path(__file__).parent / "csrc" / "rglru_scan.cu"
-# -fmad=false: a*h + b rounds as the plain loop's multiply then add.
+# -fmad=false: a*h + b (and dh + a*g) round as the plain loops' multiply
+# then add.
 NVCC_FLAGS = (*_build.BASE_FLAGS, "-fmad=false", "-Xptxas", "-v",
               *_build.LIBRARY_FLAGS)
 PATHS = ("staged", "loop")
@@ -52,6 +56,12 @@ def _library():
                            + [ctypes.c_int, ctypes.c_longlong,
                               ctypes.c_longlong, ctypes.c_void_p])
             fn.restype = ctypes.c_int
+        # a, h, dh, da, db; batch, seq, width; stream.
+        lib.rglru_scan_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 5
+            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+               ctypes.c_void_p])
+        lib.rglru_scan_bwd_launch.restype = ctypes.c_int
         lib.rglru_scan_staged_geometry.argtypes = [
             ctypes.POINTER(ctypes.c_int)]
         lib.rglru_scan_staged_geometry.restype = None
@@ -68,30 +78,47 @@ def staged_geometry() -> tuple[int, int, int, int]:
     return tuple(out)
 
 
-def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: (B, S, D) fp32, contiguous, on one device → h (B, S, D) with
-    h_t = a_t h_{t−1} + b_t and h_{−1} = 0."""
-    if a.dim() != 3 or min(a.shape) < 1:
-        raise ValueError(f"a must be (B, S, D) with B, S, D ≥ 1, "
-                         f"got {tuple(a.shape)}")
-    if b.shape != a.shape:
-        raise ValueError(f"b has shape {tuple(b.shape)}, a "
-                         f"{tuple(a.shape)}")
-    for name, t in (("a", a), ("b", b)):
+def _check(**tensors: torch.Tensor) -> None:
+    """Raise unless each tensor is (B, S, D) fp32, contiguous, of one
+    shape, on one device that the kernels or their plain versions take."""
+    (first, t0), *rest = tensors.items()
+    if t0.dim() != 3 or min(t0.shape) < 1:
+        raise ValueError(f"{first} must be (B, S, D) with B, S, D ≥ 1, "
+                         f"got {tuple(t0.shape)}")
+    for name, t in rest:
+        if t.shape != t0.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, {first} "
+                             f"{tuple(t0.shape)}")
+    for name, t in tensors.items():
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b.device != a.device:
-        raise ValueError(f"b is on {b.device}, a on {a.device}")
+    for name, t in rest:
+        if t.device != t0.device:
+            raise ValueError(f"{name} is on {t.device}, {first} on "
+                             f"{t0.device}")
+    if t0.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"the RG-LRU scan runs on cuda or cpu, not "
+                         f"{t0.device}")
+    if t0.device.type == "cuda" and t0.shape[0] > 65535:
+        raise ValueError(f"B = {t0.shape[0]} exceeds the grid's 65535 rows")
+
+
+def _launched(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"rglru_scan runs on cuda or cpu, not {a.device}")
-    refuse_grad("rglru_scan", a=a, b=b)
     batch, seq, width = a.shape
-    if batch > 65535:
-        raise ValueError(f"B = {batch} exceeds the grid's 65535 rows")
     h = torch.empty_like(a)
     path = plan(a.shape, aligned=a.data_ptr() % 16 == 0
                 and b.data_ptr() % 16 == 0)
@@ -99,16 +126,58 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     kernel = (lib.rglru_scan_staged_launch if path == "staged"
               else lib.rglru_scan_loop_launch)
     with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
         err = kernel(a.data_ptr(), b.data_ptr(), h.data_ptr(), batch, seq,
-                     width, stream)
-    if err != 0:
-        raise RuntimeError(f"rglru_scan {path} kernel launch failed: CUDA "
-                           f"error {err}")
+                     width, _stream(a))
+    _launched(err, f"rglru_scan {path}")
     rglru_scan.launches += 1
     rglru_scan.launches_by_path[path] += 1
     return h
 
 
+def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """a, h = ``rglru_scan(a, b)``, dh: (B, S, D) fp32, contiguous, on one
+    device → (da, db), the gradients of Σ dh ⊙ h: g_t = dh_t +
+    a_{t+1} g_{t+1} from g_{S−1} = dh_{S−1}, db = g, da_t = g_t h_{t−1}
+    (da_0 = 0)."""
+    _check(a=a, h=h, dh=dh)
+    if a.device.type == "cpu":
+        return rglru_scan_bwd_ref(a, h, dh)
+    batch, seq, width = a.shape
+    da, db = torch.empty_like(a), torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        err = _library().rglru_scan_bwd_launch(
+            a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
+            db.data_ptr(), batch, seq, width, _stream(a))
+    _launched(err, "rglru_scan_bwd")
+    rglru_scan_bwd.launches += 1
+    return da, db
+
+
+class _Scan(torch.autograd.Function):
+    """The scan with its backward kernel. Saves a and the output h; a
+    recompute under ``torch.utils.checkpoint`` runs the forward kernel
+    again and saves its own."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _forward(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        a, h = ctx.saved_tensors
+        return rglru_scan_bwd(a, h, dh.contiguous())
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a, b: (B, S, D) fp32, contiguous, on one device → h (B, S, D) with
+    h_t = a_t h_{t−1} + b_t and h_{−1} = 0; differentiable in a and b."""
+    _check(a=a, b=b)
+    return _Scan.apply(a, b)
+
+
 rglru_scan.launches = 0
 rglru_scan.launches_by_path = dict.fromkeys(PATHS, 0)
+rglru_scan_bwd.launches = 0

@@ -4,7 +4,8 @@ xLSTM's mLSTM and sLSTM.
 
 RG-LRU: h_t = a_t ⊙ h_{t−1} + b_t runs through the RG-LRU scan kernel
 (``kernels/rglru_scan``): on a CUDA tensor it launches the kernel, on a
-CPU tensor it takes the plain sequential loop. The recurrence and its
+CPU tensor it takes the plain sequential loop; in backward the scan's
+own backward kernel (or its plain loop) gives the gradients of a and b. The recurrence and its
 gates are fp32; the conv history is kept in the config's dtype.
 
 mLSTM: a matrix memory C (B, H, hd, hd) with hd = 2·d_model / n_heads,

@@ -1,9 +1,12 @@
-"""The LM kernels have no backward yet, so on the card they refuse to run
-where autograd would need one (grad mode on and an input requiring grad)
-instead of cutting the graph; on the CPU their plain versions carry the
-gradient. The plain scan's gradient is held to a recurrence written out
-here, the plain decode attention's to a softmax written out here
-(atol 1e-5 / rtol 1e-4, fp32 sums in other orders)."""
+"""Flash decode has no backward (no training path runs it), so on the
+card it refuses to run where autograd would need one (grad mode on and
+an input requiring grad) instead of cutting the graph; the RG-LRU scan
+has a backward kernel, so on the card it carries the gradient as its
+plain version does. On the CPU the plain versions carry the gradient.
+The plain scan's gradient (through the scan's ``autograd.Function``) is
+held to a recurrence written out here, the plain decode attention's to a
+softmax written out here (atol 1e-5 / rtol 1e-4, fp32 sums in other
+orders)."""
 import math
 
 import numpy as np
@@ -12,6 +15,7 @@ import torch
 
 from repro_torch.kernels.flash_decode.ops import flash_decode
 from repro_torch.kernels.rglru_scan.ops import rglru_scan
+from repro_torch.kernels.rglru_scan.ref import rglru_scan_ref
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
@@ -72,16 +76,23 @@ def test_plain_decode_attention_carries_gradients():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the kernels refuse there)")
+        pytest.skip("needs a CUDA device (the kernels run there)")
     return torch.device("cuda")
 
 
 @pytest.mark.cuda
 def test_kernels_refuse_grad_on_card(cuda_device):
-    a = torch.rand(1, 8, 32, device=cuda_device, requires_grad=True)
-    b = torch.rand(1, 8, 32, device=cuda_device)
-    with pytest.raises(RuntimeError, match="rglru_scan has no backward"):
-        rglru_scan(a, b)
+    """Flash decode refuses; the scan carries its gradient through its
+    backward kernel, the same as its plain version's on the card."""
+    rng = np.random.default_rng(2)
+    a = _leaf(rng, (1, 8, 32)).to(cuda_device).detach().requires_grad_()
+    b = _leaf(rng, (1, 8, 32)).to(cuda_device).detach().requires_grad_()
+    weight = torch.tensor(rng.standard_normal((1, 8, 32)).astype(
+        np.float32), device=cuda_device)
+    got = _grads(rglru_scan, (a, b), weight)
+    assert got[0].abs().max() > 0 and got[1].abs().max() > 0
+    for g, want in zip(got, _grads(rglru_scan_ref, (a, b), weight)):
+        torch.testing.assert_close(g, want, **TOL)
     with torch.no_grad():
         rglru_scan(a, b)                       # inference is untouched
     q = torch.rand(1, 2, 64, device=cuda_device, requires_grad=True)

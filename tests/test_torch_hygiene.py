@@ -94,6 +94,7 @@ def test_imports_with_jax_and_reference_blocked():
         "import benchmarks.telemetry_overhead_torch\n"
         "import repro_torch.launch.steps, examples.federated_lm_torch\n"
         "import repro_torch.models.moe\n"
+        "import repro_torch.launch.train, repro_torch.optim\n"
         "import examples.serve_personalized_torch\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
