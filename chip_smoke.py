@@ -14,9 +14,11 @@ Phases (each prints its own lines; any failure exits non-zero):
    each beside its bound: ``zone_update``, ``multizone_update`` and
    ``fused_update`` (padded slots and an idle walker included; bit for
    bit; the zone kernel also at every width, β and live count the Table
-   1 grid gives it), ``rglru_scan`` (bit for bit, on both its paths),
-   its backward ``rglru_scan_bwd`` (bit for bit at the training step's
-   shape, the serve shape and odd ones; the ``autograd.Function``'s
+   1 grid gives it), ``rglru_scan`` (bit for bit, on both its paths;
+   timed at the serve shape and at the training step's), its backward
+   ``rglru_scan_bwd`` (bit for bit on both its paths, the ``loop`` taken
+   by a one float off, at the training step's shape, timed there on
+   both, the serve shape and odd ones; the ``autograd.Function``'s
    gradient against autograd through the plain loop) and
    ``flash_decode`` (fp32 at 1e-5, bf16 at atol 1e-3 + rtol 1e-2 against
    the plain softmax and the split reference; lengths below S, a window,
@@ -32,6 +34,17 @@ Phases (each prints its own lines; any failure exits non-zero):
    ``threefry_bits`` at split, fold-in and raw-bits shapes; one round's
    draws timed cold and warm beside their bound on the integer pipe (the
    SM clock read from ``nvidia-smi``), and a cohort's key split.
+3a. lm init — every registered config's ``reduced()`` (fp32)
+   ``init(seed)`` drawn on the card (along the reference's key tree, a
+   ``threefry_bits`` launch for every split, fold-in and block of bits)
+   against the same on the CPU, leaf by leaf within ``NORMAL_ULP``
+   (constant leaves exactly); ``threefry_bits`` timed at the init's
+   block of ``prng.NORMAL_BLOCK`` draws beside its bound. Every later LM
+   phase draws its weights on the card (the card-vs-CPU steps copy
+   them to the CPU), and a run that draws its own model (``serve.main``,
+   the training driver, the federated example) counts its launches from
+   after the draw (``counts_from_after_init``); each model's init
+   seconds are printed at the end.
 4. single-walker path — RWSADMM through ``run_simulation`` on the
    paper's CIFAR-10 CNN at full width (P = 1,068,266), n = 100 clients,
    zone 8, batch 20, ``closed_form`` + ``engine="scan_fused"``: the
@@ -200,18 +213,20 @@ Phases (each prints its own lines; any failure exits non-zero):
 8f. RecurrentGemma training — RWSADMM on recurrentgemma-9b at full
    width cut to one (rglru, rglru, local) group (1,554,071,552 by
    ``param_count``), bf16, two clients, 2 × 2048 tokens a step, three
-   rounds: the gates of 8b, with exactly 4 forward (all staged) and 2
-   backward scan launches a step and no flash decode; one fp32 step of
+   rounds: the gates of 8b, with exactly 4 forward and 2 backward scan
+   launches a step, all staged, and no flash decode; one fp32 step of
    that cut card against CPU on 1 × 128 tokens; ``python -m
    repro_torch.launch.train --arch recurrentgemma-9b --reduced`` (its
    ``main``) on the card, its scan launches gated exactly.
 
 Ends with a ``{"kernels": [...]}`` line, the paths' summaries, each
-phase's seconds, the ``nvidia-smi`` line and, last, ``{"ok": true,
-"device": {...}}``. Imports nothing of JAX or ``repro``.
+model's init seconds, each phase's seconds, the ``nvidia-smi`` line and,
+last, ``{"ok": true, "device": {...}}``. Imports nothing of JAX or
+``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
@@ -227,11 +242,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # H100 data-sheet peaks (dense): memory bandwidth by part, fp32 non-tensor.
 HBM_BYTES_PER_S = {"pcie": 2.0e12, "sxm": 3.35e12}
 FP32_FLOP_PER_S = 67e12
-# 32-bit integer add, bitwise, shift and funnel-shift results a clock per
-# SM on compute capability 9.0 (CUDA C++ programming guide, throughput of
-# arithmetic instructions), and the H100's SMs: times the SM clock that
-# nvidia-smi reads, the integer pipe's peak.
-INT32_OPS_PER_CLOCK_PER_SM = 64
+# Instructions a clock per SM: four schedulers, each issuing one warp
+# instruction (32 results) a clock. No mix of 32-bit integer
+# instructions exceeds it (the ALU pipe takes IADD3, LOP3 and SHF, the
+# FMA pipe the IMAD forms ptxas gives some adds), so with the H100's SMs
+# and the SM clock that nvidia-smi reads it is the peak for the hash.
+INT32_OPS_PER_CLOCK_PER_SM = 128
 H100_SMS = 132
 
 ENGINES = ("eager", "scan", "scan_fused")
@@ -281,8 +297,8 @@ def int32_rate() -> tuple[float, str]:
         check=True, timeout=60)
     mhz = float(out.stdout.strip().splitlines()[0])
     rate = INT32_OPS_PER_CLOCK_PER_SM * H100_SMS * mhz * 1e6
-    return rate, (f"{INT32_OPS_PER_CLOCK_PER_SM} int32 results a clock per "
-                  f"SM × {H100_SMS} SMs × {mhz:.0f} MHz (nvidia-smi "
+    return rate, (f"{INT32_OPS_PER_CLOCK_PER_SM} int32 instructions a clock"
+                  f" per SM × {H100_SMS} SMs × {mhz:.0f} MHz (nvidia-smi "
                   f"clocks.max.sm) = {rate / 1e12:.2f} T/s")
 
 
@@ -301,34 +317,70 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_time_ms(fns, reps: int, graph: bool = True) -> dict:
+#: profiles ``device_time_ms`` takes before a wrong kernel count fails
+PROFILE_TRIES = 3
+
+
+def device_time_ms(fns, reps: int, graph: bool = True,
+                   kernels: int | None = None) -> dict:
     """Device time of one call, each of ``fns`` being one call on its own
     inputs, run in turn ``reps`` times (distinct inputs larger than the
     50 MB L2 between them read it cold). ``profiler``: the kernels' own
     device time per call, summed from ``torch.profiler`` (no host gaps);
     ``graph``: one CUDA graph of all the calls replayed, elapsed CUDA-event
-    time per call (back-to-back launches with the graph's own gaps)."""
+    time per call (back-to-back launches with the graph's own gaps).
+    ``kernels``: the kernels one call launches. The profiler can lose a
+    kernel's record (the staged backward's cold rows lose one in 20), and
+    a sum over the calls then reads low by the lost share, so where
+    ``kernels`` is given the time a call is the recorded kernels' mean
+    times ``kernels``, and ``records_lost`` says how many were lost. A
+    profile that recorded none, or more than the calls launch, is taken
+    again, at most ``PROFILE_TRIES`` times in all, and the last one
+    raises."""
     import torch
 
     for fn in fns:                   # warm: builds, attributes, plans
         fn()
     calls = len(fns) * reps
-    torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            for fn in fns:
-                fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    rows = [e for e in prof.key_averages()
-            if e.device_type == cuda and e.self_device_time_total > 0]
-    out = {"profiler": sum(e.self_device_time_total for e in rows)
-           / calls / 1e3,
-           "kernels_per_call": sum(e.count for e in rows) / calls,
-           "by_kernel": {e.key[:80]: e.self_device_time_total / calls / 1e3
-                         for e in rows}}
+    for attempt in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                for fn in fns:
+                    fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == cuda and e.self_device_time_total > 0]
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        recorded = sum(e.count for e in rows)
+        out = {"profiler": total / calls,
+               "kernels_per_call": recorded / calls,
+               "by_kernel": {e.key[:80]: e.self_device_time_total / calls
+                             / 1e3 for e in rows},
+               "profiles": attempt + 1}
+        if kernels is None:
+            break
+        expected = kernels * calls
+        out["records_lost"] = expected - recorded
+        if 0 < recorded <= expected:
+            out["profiler"] = total / recorded * kernels
+            if recorded < expected:
+                log(f"device_time_ms: the profile recorded {recorded} of "
+                    f"the {expected} kernels launched; the time a call is "
+                    f"the recorded ones' mean × {kernels} "
+                    f"({out['profiler']:.5f} ms, the sum over the calls "
+                    f"{total / calls:.5f})")
+            break
+        log(f"device_time_ms: the profile recorded {recorded} kernels for "
+            f"{expected} launched (by kernel {out['by_kernel']}); "
+            f"profiling again")
+    else:
+        raise AssertionError(f"device_time_ms: {PROFILE_TRIES} profiles "
+                             f"recorded "
+                             f"{recorded} kernels for {expected} launched")
     if graph:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -434,8 +486,50 @@ def zero_launch_counts() -> None:
 
 
 def path_counts() -> dict:
-    """Launches of the scan by path: its ``staged`` or ``loop`` kernel."""
-    return {"rglru_scan": dict(_wrappers()["rglru_scan"].launches_by_path)}
+    """Launches of the scan and of its backward by path: the ``staged`` or
+    the ``loop`` kernel."""
+    w = _wrappers()
+    return {k: dict(w[k].launches_by_path)
+            for k in ("rglru_scan", "rglru_scan_bwd")}
+
+
+#: each model's seconds of ``init(seed)`` on the card (build and draw),
+#: printed at the end
+INIT_SECONDS: dict = {}
+
+
+def note_init(label: str, seconds: float) -> float:
+    INIT_SECONDS[label] = round(seconds, 2)
+    return seconds
+
+
+@contextlib.contextmanager
+def counts_from_after_init():
+    """Inside, each ``LM.init`` and ``EncDecLM.init`` sets the wrappers'
+    counts to 0 as it returns: a run that builds and draws its own model
+    (``serve.main``, the training driver, the federated example) counts
+    its launches from after the draw, whose every split, fold-in and block
+    of bits is a ``threefry_bits`` launch. Yields the list of each init's
+    ``threefry_bits`` launches."""
+    from repro_torch.models.transformer import LM
+    from repro_torch.models.whisper import EncDecLM
+
+    seen, originals = [], {cls: cls.init for cls in (LM, EncDecLM)}
+
+    def counted(init):
+        def run(self, seed=0):
+            out = init(self, seed)
+            seen.append(launch_counts()["threefry_bits"])
+            zero_launch_counts()
+            return out
+        return run
+    try:
+        for cls, init in originals.items():
+            cls.init = counted(init)
+        yield seen
+    finally:
+        for cls, init in originals.items():
+            cls.init = init
 
 
 # ---------------------------------------------------------------------------
@@ -558,8 +652,9 @@ def time_update_kernel(kernel: str, plain, sets, kw: dict) -> dict:
     and again), CUDA-graph replay beside both."""
     launch = _wrappers()[kernel]
     reps = 60 // len(sets)
-    cold = device_time_ms([lambda a=a: launch(*a, **kw) for a in sets], reps)
-    warm = device_time_ms([lambda: launch(*sets[0], **kw)], 60)
+    cold = device_time_ms([lambda a=a: launch(*a, **kw) for a in sets], reps,
+                          kernels=1)
+    warm = device_time_ms([lambda: launch(*sets[0], **kw)], 60, kernels=1)
     plain_cold = device_time_ms([lambda a=a: plain(*a, **kw) for a in sets],
                                 2, graph=False)
     plain_warm = device_time_ms([lambda: plain(*sets[0], **kw)], 4,
@@ -692,11 +787,14 @@ def phase_kernels(hp, device, card: str) -> dict:
 # ---------------------------------------------------------------------------
 # threefry: the port of jax.random's sampler (no TPU kernel; XLA fuses the
 # reference's draws into its compiled round).
-#: 32-bit integer operations of one 32-bit threefry2x32 draw: 20 rounds of
-#: add, rotate and xor (60), 2 + 5 × 2 key additions (a key's sums with
-#: the injection numbers are made once per key) and the xor of the two
-#: output words (1)
-HASH_OPS = 73
+#: 32-bit integer instructions of one threefry2x32 draw on sm_90a, as
+#: ``scripts/threefry_sass.py`` counts them in the SASS: ``threefry_bits``
+#: (a 64-bit counter's two words) 68: 20 rotates (SHF), 21 xors (LOP3) and
+#: 27 adds (IADD3 on the ALU pipe, IMAD.IADD on the FMA pipe; a 3-input
+#: IADD3 takes a key injection with the next round's add); ``draw`` in
+#: ``threefry_draws`` (high word 0) 69 in the probe, of which the key's
+#: k0 ^ k1 ^ C is made once for a thread's run of draws
+HASH_OPS, DRAW_OPS = 68, 68
 #: more integer operations a keep byte (the top 23 bits as a float in
 #: [1, 2): shift, or, subtract, compare) and a batch index (two
 #: remainders of its words, the multiply-add, the last remainder, ~10)
@@ -718,14 +816,14 @@ def draws_work(leaves: int, batch: int, masks, fan: bool) -> tuple:
     parents = 1 if fan else leaves
     bytes_moved = 16 * parents + 16 * leaves + 8 * n_idx + n_mask
     key_hashes = leaves * (int(fan) + 2 + len(masks))
-    ops = (n_mask * (HASH_OPS + KEEP_OPS) + n_idx * (2 * HASH_OPS + INDEX_OPS)
-           + key_hashes * HASH_OPS)
+    ops = (n_mask * (DRAW_OPS + KEEP_OPS) + n_idx * (2 * DRAW_OPS + INDEX_OPS)
+           + key_hashes * DRAW_OPS)
     return bytes_moved, ops, n_mask, n_idx
 
 
 def bound(bytes_moved: int, ops: int, card: str) -> dict:
     """The least time for the work: bytes at the memory rate, 32-bit
-    integer operations at the integer pipe's."""
+    integer instructions at the SM's issue rate."""
     rate, rate_src = hbm_rate(card)
     irate, irate_src = int32_rate()
     bytes_ms, ops_ms = bytes_moved / rate * 1e3, ops / irate * 1e3
@@ -797,8 +895,8 @@ def time_draws(key, kw: dict, leaves: int, card: str, plain: bool) -> dict:
         def fn():
             held[i] = tf.threefry_draws(key, **kw)
         return fn
-    cold = device_time_ms([call(i) for i in range(sets)], 4)
-    warm = device_time_ms([call(0)], 50)
+    cold = device_time_ms([call(i) for i in range(sets)], 4, kernels=1)
+    warm = device_time_ms([call(0)], 50, kernels=1)
     out = {"ms": cold["profiler"], "ms_warm": warm["profiler"],
            "graph_ms": cold["graph"], "graph_ms_warm": warm["graph"],
            "kernels_per_call": warm["kernels_per_call"], "cold_sets": sets,
@@ -875,7 +973,7 @@ def phase_threefry(device, model, data, card: str) -> dict:
     cohort = prng.split(key[0], 10)
     n_pairs = 10 * 10
     timed = device_time_ms([lambda: tf.threefry_bits(cohort, 10, pair=True)],
-                           50)
+                           50, kernels=1)
     plain = device_time_ms([lambda: ref.bits_ref(cohort, 10, 0, True)], 3,
                            graph=False)
     bits = {"shape": "10 keys × 10 counters, word pairs (a cohort's split "
@@ -891,6 +989,127 @@ def phase_threefry(device, model, data, card: str) -> dict:
         f"{bits['bound_ms']:.6f} ({bits['bound_by']}) share "
         f"{bits['share_of_bound']:.3f}")
     return {"threefry_draws": draws, "threefry_bits": [bits]}
+
+
+# ---------------------------------------------------------------------------
+# LM weights at a seed: ``init(seed)`` walks the reference's key tree with
+# ``core/prng.py`` on the model's device (every split, fold-in and block of
+# bits a ``threefry_bits`` launch on the card, the plain integer ops on the
+# CPU).
+#: the largest gap, in fp32 ulp, between two draws of one normal: the
+#: bits are exact, erf⁻¹'s log1p and sqrt may round otherwise on the card
+#: (``tests/test_torch_privacy.py``)
+NORMAL_ULP = 4
+#: the family each reduced config holds the init of
+INIT_FAMILIES = {"gemma3-12b": "attention (local, tied)",
+                 "kimi-k2-1t-a32b": "MoE with a shared expert",
+                 "qwen2-7b": "attention (qkv bias)",
+                 "qwen2-vl-2b": "attention, vision projector",
+                 "qwen3-moe-30b-a3b": "MoE",
+                 "recurrentgemma-9b": "RG-LRU and local attention",
+                 "tinyllama-1.1b": "attention", "whisper-large-v3":
+                     "encoder-decoder", "xlstm-350m": "mLSTM and sLSTM",
+                 "yi-34b": "attention"}
+
+
+def ulp_gap(got, want) -> int:
+    """The largest gap of two fp32 tensors in units in the last place."""
+    import torch
+
+    ia, ib = (t.detach().cpu().float().contiguous().view(torch.int32)
+              .to(torch.int64) for t in (got, want))
+    return int((ia - ib).abs().max()) if ia.numel() else 0
+
+
+def phase_lm_init(device, card: str) -> dict:
+    """Each registered config's ``reduced()`` (fp32) ``init(seed)`` on the
+    card against the same on the CPU, leaf by leaf: within ``NORMAL_ULP``,
+    and constant leaves (norms, biases, λ) exactly; the init's launches
+    (``threefry_bits`` only). Then ``threefry_bits`` timed at the init's
+    block, ``prng.NORMAL_BLOCK`` draws under one key, cold and warm beside
+    its bound and the plain integer ops."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import prng
+    from repro_torch.kernels.threefry import ops as tf
+    from repro_torch.kernels.threefry import ref
+    from repro_torch.models.registry import build_model
+
+    rows = {}
+    for arch, family in INIT_FAMILIES.items():
+        cfg = get_config(arch).reduced()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        card_model = build_model(cfg, device=device).init(SERVE["seed"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        counts = launch_counts()
+        t0 = time.perf_counter()
+        want = build_model(cfg, device="cpu").init(SERVE["seed"]).state_dict()
+        cpu_s = time.perf_counter() - t0
+        got = card_model.state_dict()
+        gaps = {k: ulp_gap(got[k], w) for k, w in want.items()}
+        const = [k for k, w in want.items()
+                 if bool((w == w.reshape(-1)[0]).all())]
+        row = {"family": family, "values": sum(w.numel()
+                                               for w in want.values()),
+               "leaves": len(want), "max_ulp": max(gaps.values()),
+               "constant_leaves": len(const),
+               "constant_exact": all(torch.equal(got[k].cpu(), want[k])
+                                     for k in const),
+               "card_s": card_s, "cpu_s": cpu_s, "launches": counts}
+        rows[arch] = row
+        log(f"lm init: {arch} ({family}) reduced, {row['values']:,} values "
+            f"in {row['leaves']} leaves at seed {SERVE['seed']}: card vs CPU "
+            f"max {row['max_ulp']} ulp (bound {NORMAL_ULP}), "
+            f"{len(const)} constant leaves exact {row['constant_exact']}; "
+            f"card {card_s:.3f} s in {counts['threefry_bits']} threefry_bits "
+            f"launches, CPU {cpu_s:.2f} s")
+        others = {k: v for k, v in counts.items() if k != "threefry_bits"}
+        if (set(got) != set(want) or row["max_ulp"] > NORMAL_ULP
+                or not row["constant_exact"] or any(others.values())
+                or not counts["threefry_bits"]):
+            raise AssertionError(f"lm init {arch}: card vs CPU {row}")
+        del card_model, want, got
+
+    # threefry_bits at the init's block: NORMAL_BLOCK draws (8 bytes each
+    # written) under one key, HASH_OPS integer instructions a draw
+    n = prng.NORMAL_BLOCK
+    key = prng.prng_key(SERVE["seed"], device)[None]
+    sets = math.ceil(COLD_BYTES / (8 * n))
+    held = [None] * sets
+
+    def call(i):
+        def fn():
+            held[i] = tf.threefry_bits(key, n, offset=i * n)
+        return fn
+    got = tf.threefry_bits(key, n, offset=n)
+    torch.cuda.synchronize()
+    err = float((got - ref.bits_ref(key, n, n)).abs().max())
+    cold = device_time_ms([call(i) for i in range(sets)], 5, kernels=1)
+    warm = device_time_ms([call(0)], 20, kernels=1)
+    plain = device_time_ms([lambda: ref.bits_ref(key, n, n)], 2, graph=False)
+    block = {"shape": f"1 key × {n:,} counters, 32-bit draws (the init's "
+                      f"block)",
+             "ms": cold["profiler"], "ms_warm": warm["profiler"],
+             "graph_ms": cold["graph"], "graph_ms_warm": warm["graph"],
+             "plain_ms": plain["profiler"], "library_ms": None,
+             "max_abs_err": err, "cold_sets": sets,
+             **bound(16 + 8 * n, n * HASH_OPS, card)}
+    block["share_of_bound"] = block["bound_ms"] / block["ms"]
+    log(f"kernel threefry_bits, {block['shape']}: max_abs_err {err}; device "
+        f"ms {block['ms']:.5f} cold ({sets} output sets), "
+        f"{block['ms_warm']:.5f} warm; graph {block['graph_ms']:.5f} cold, "
+        f"{block['graph_ms_warm']:.5f} warm; plain {block['plain_ms']:.3f}; "
+        f"bound_ms {block['bound_ms']:.5f} ({block['bound_by']}: "
+        f"{block['bytes']:,} bytes, {block['ops']:,} operations; "
+        f"{block['bound_rate']}) share {block['share_of_bound']:.3f}")
+    if err != 0.0:
+        raise AssertionError(f"threefry_bits at the init's block differs "
+                             f"from its plain version: {err}")
+    del held, got
+    return {"inits": rows, "threefry_bits_init_block": block}
 
 
 # ---------------------------------------------------------------------------
@@ -3266,17 +3485,19 @@ def check_rglru_scan(shape, device, card: str, time_it: bool) -> dict:
         # one set again and again: warm.
         sets = [(a, b), inputs()]
         cold = device_time_ms([lambda a=a, b=b: ops.rglru_scan(a, b)
-                               for a, b in sets], 10)
-        warm = device_time_ms([lambda: ops.rglru_scan(a, b)], 10)
-        plain = device_time_ms([lambda: rglru_scan_ref(a, b)], 2,
+                               for a, b in sets], 10, kernels=1)
+        warm = device_time_ms([lambda: ops.rglru_scan(a, b)], 10, kernels=1)
+        plain = device_time_ms([lambda: rglru_scan_ref(a, b)], 1,
                                graph=False)
         row.update(ms=cold["profiler"], ms_warm=warm["profiler"],
                    graph_ms=cold["graph"], graph_ms_warm=warm["graph"],
+                   records_lost=[cold["records_lost"], warm["records_lost"]],
                    plain_ms=plain["profiler"],
                    plain_wall_ms=cuda_time_ms(lambda: rglru_scan_ref(a, b),
                                               2, warmup=1),
                    config=dict(zip(("lanes", "steps", "stages",
-                                    "smem_bytes"), ops.staged_geometry())))
+                                    "smem_bytes", "bwd_smem_bytes"),
+                                   ops.staged_geometry())))
         # Read a and b, write h, fp32; a multiply and an add per element.
         row.update(lm_kernel_bound(3 * bsz * s * d * 4, 2 * bsz * s * d,
                                    card))
@@ -3286,7 +3507,8 @@ def check_rglru_scan(shape, device, card: str, time_it: bool) -> dict:
         f"{row['bitwise']}"
         + (f" device ms cold {row['ms']:.4f} warm {row['ms_warm']:.4f} "
            f"graph cold {row['graph_ms']:.4f} warm "
-           f"{row['graph_ms_warm']:.4f} plain device ms "
+           f"{row['graph_ms_warm']:.4f} (profiler records lost cold, warm "
+           f"{row['records_lost']}) plain device ms "
            f"{row['plain_ms']:.3f} (wall {row['plain_wall_ms']:.3f}) "
            f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
            f"{row['bound_rate']}) share {row['share_of_bound']:.3f} "
@@ -3303,12 +3525,29 @@ def check_rglru_scan(shape, device, card: str, time_it: bool) -> dict:
 SCAN_GRAD_TOL = dict(atol=1e-6, rtol=1e-5)
 
 
-def check_rglru_scan_bwd(shape, device, card: str, time_it: bool) -> dict:
-    """The scan's backward kernel against its plain reverse loop, bit for
-    bit; with ``time_it`` also timed cold and warm beside its bound and
-    the plain loop, and the Function's gradient (the forward kernel, then
-    the backward kernel) held against autograd through the plain forward
-    loop at ``SCAN_GRAD_TOL``."""
+def offset_view(t):
+    """``t``'s values in a view one float past an aligned start, which bulk
+    copies cannot take."""
+    import torch
+
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = out[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def check_rglru_scan_bwd(shape, device, card: str, time_it: bool,
+                         misaligned: bool = False,
+                         plain_of: dict | None = None) -> dict:
+    """The scan's backward against its plain reverse loop, bit for bit, on
+    the path it plans (``staged`` where D % 4 == 0), or with
+    ``misaligned`` on a's view one float off, which must take ``loop``;
+    with ``time_it`` also timed cold and warm beside its bound and the
+    plain loop (``plain_of``: the plain loop's times of a row at the same
+    shape in this run, taken over), and (on the aligned path) the
+    Function's gradient (the forward kernel, then the backward kernel)
+    held against autograd through the plain forward loop at
+    ``SCAN_GRAD_TOL``."""
     import torch
 
     from repro_torch.kernels.rglru_scan import ops
@@ -3322,19 +3561,25 @@ def check_rglru_scan_bwd(shape, device, card: str, time_it: bool) -> dict:
         b, dh = (torch.randn(shape, generator=gen, device=device)
                  for _ in range(2))
         with torch.no_grad():
-            return a, b, ops.rglru_scan(a, b), dh
+            h = ops.rglru_scan(a, b)
+        return (offset_view(a) if misaligned else a), b, h, dh
     a, b, h, dh = inputs()
-    before = ops.rglru_scan_bwd.launches
+    planned = "loop" if misaligned else ops.plan(shape)
+    before = dict(ops.rglru_scan_bwd.launches_by_path)
     da, db = ops.rglru_scan_bwd(a, h, dh)
     torch.cuda.synchronize()
-    launched = ops.rglru_scan_bwd.launches - before
+    launched = {p: n - before[p]
+                for p, n in ops.rglru_scan_bwd.launches_by_path.items()}
+    path = [p for p, n in launched.items() if n]
     want = rglru_scan_bwd_ref(a, h, dh)
-    row = {"shape": "B={} S={} D={}".format(*shape),
+    row = {"shape": "B={} S={} D={}".format(*shape)
+           + (", a one float off" if misaligned else ""),
+           "path": path[0] if len(path) == 1 else path, "planned": planned,
            "max_abs_err": max(float((g - w).abs().max())
                               for g, w in zip((da, db), want)),
            "bitwise": bool(torch.equal(da, want[0])
                            and torch.equal(db, want[1])),
-           "launched": launched}
+           "launched": sum(launched.values())}
     del want
     if time_it:
         bsz, s, d = shape
@@ -3343,21 +3588,29 @@ def check_rglru_scan_bwd(shape, device, card: str, time_it: bool) -> dict:
         a2, _, h2, dh2 = inputs()
         sets = [(a, h, dh), (a2, h2, dh2)]
         cold = device_time_ms([lambda t=t: ops.rglru_scan_bwd(*t)
-                               for t in sets], 10)
-        warm = device_time_ms([lambda: ops.rglru_scan_bwd(a, h, dh)], 10)
-        plain = device_time_ms([lambda: rglru_scan_bwd_ref(a, h, dh)], 2,
-                               graph=False)
+                               for t in sets], 10, kernels=1)
+        warm = device_time_ms([lambda: ops.rglru_scan_bwd(a, h, dh)], 10,
+                              kernels=1)
+        if plain_of is None:
+            plain_of = {
+                "plain_ms": device_time_ms(
+                    [lambda: rglru_scan_bwd_ref(a, h, dh)], 1,
+                    graph=False)["profiler"],
+                "plain_wall_ms": cuda_time_ms(
+                    lambda: rglru_scan_bwd_ref(a, h, dh), 2, warmup=1)}
         row.update(ms=cold["profiler"], ms_warm=warm["profiler"],
                    graph_ms=cold["graph"], graph_ms_warm=warm["graph"],
-                   plain_ms=plain["profiler"],
-                   plain_wall_ms=cuda_time_ms(
-                       lambda: rglru_scan_bwd_ref(a, h, dh), 2, warmup=1),
+                   records_lost=[cold["records_lost"], warm["records_lost"]],
+                   plain_ms=plain_of["plain_ms"],
+                   plain_wall_ms=plain_of["plain_wall_ms"],
                    library_ms=None)
         # Read a, h and dh, write da and db, fp32; a multiply and an add
         # for g and a multiply for da per element.
         row.update(lm_kernel_bound(5 * bsz * s * d * 4, 3 * bsz * s * d,
                                    card))
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        del sets, a2, h2, dh2
+    if time_it and not misaligned:
         # The Function's gradient against autograd through the plain loop.
         ta, tb = (t.clone().requires_grad_() for t in (a, b))
         ops.rglru_scan(ta, tb).backward(dh)
@@ -3370,23 +3623,29 @@ def check_rglru_scan_bwd(shape, device, card: str, time_it: bool) -> dict:
             "ok": all(torch.allclose(g.grad, w.grad, **SCAN_GRAD_TOL)
                       for g, w in ((ta, pa), (tb, pb))),
             **SCAN_GRAD_TOL}
-        del ta, tb, pa, pb, sets, a2, h2, dh2
-    log(f"kernel rglru_scan_bwd {row['shape']}: max_abs_err "
-        f"{row['max_abs_err']} bitwise {row['bitwise']} launches "
-        f"{launched}"
+        row["config"] = dict(zip(("lanes", "steps", "stages", "smem_bytes",
+                                  "bwd_smem_bytes"), ops.staged_geometry()))
+        del ta, tb, pa, pb
+    log(f"kernel rglru_scan_bwd {row['shape']}: path {row['path']} "
+        f"(planned {row['planned']}) max_abs_err {row['max_abs_err']} "
+        f"bitwise {row['bitwise']} launches {row['launched']}"
         + (f" device ms cold {row['ms']:.4f} warm {row['ms_warm']:.4f} "
            f"graph cold {row['graph_ms']:.4f} warm "
-           f"{row['graph_ms_warm']:.4f} plain device ms "
+           f"{row['graph_ms_warm']:.4f} (profiler records lost cold, warm "
+           f"{row['records_lost']}) plain device ms "
            f"{row['plain_ms']:.3f} (wall {row['plain_wall_ms']:.3f}) "
            f"bound_ms {row['bound_ms']:.4f} ({row['bound_by']}, "
            f"{row['bound_rate']}) share {row['share_of_bound']:.3f} "
-           f"library none; Function vs autograd "
-           f"through the plain loop {row['function_vs_autograd']}"
-           if time_it else ""))
-    if not row["bitwise"] or launched != 1 or not row.get(
-            "function_vs_autograd", {"ok": True})["ok"]:
-        raise AssertionError(f"rglru_scan_bwd differs from its plain loop "
-                             f"or launched otherwise than once: {row}")
+           f"library none" if time_it else "")
+        + (f"; config {row['config']}; Function vs autograd through the "
+           f"plain loop {row['function_vs_autograd']}"
+           if "function_vs_autograd" in row else ""))
+    if not row["bitwise"] or row["launched"] != 1 or \
+            row["path"] != planned or not row.get(
+                "function_vs_autograd", {"ok": True})["ok"]:
+        raise AssertionError(f"rglru_scan_bwd differs from its plain loop, "
+                             f"took another path than planned or launched "
+                             f"otherwise than once: {row}")
     return row
 
 
@@ -3515,21 +3774,37 @@ def phase_lm_kernels(device, card: str) -> dict:
     tensor-core steps: 0, 8, 16, 24), lengths below S, a row with no
     valid key, windows that leave whole chunks masked."""
     full_len = [2048] * 4
-    return {
-        "rglru_scan": [
-            check_rglru_scan((4, 2040, 4096), device, card, time_it=True),
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(part):
+        nonlocal t0
+        seconds[part] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+    # the serve shape (timed), the training step's (timed), odd ones
+    scan = [check_rglru_scan((4, 2040, 4096), device, card, time_it=True),
+            check_rglru_scan(RG_TRAIN_SCAN, device, card, time_it=True),
             check_rglru_scan((2, 1000, 130), device, card, time_it=False),
-            check_rglru_scan((3, 129, 100), device, card, time_it=False)],
-        # the training step's shape first (timed), then the serve shape
-        # and odd ones: D not a multiple of 4 or 32, S of 1 and not a
-        # multiple of the unroll, B = 1
-        "rglru_scan_bwd": [
-            check_rglru_scan_bwd(RG_TRAIN_SCAN, device, card, time_it=True),
-            check_rglru_scan_bwd((4, 2040, 4096), device, card, False),
-            check_rglru_scan_bwd((2, 1000, 130), device, card, False),
-            check_rglru_scan_bwd((3, 129, 100), device, card, False),
-            check_rglru_scan_bwd((1, 1, 36), device, card, False),
-            check_rglru_scan_bwd((1, 77, 7), device, card, False)],
+            check_rglru_scan((3, 129, 100), device, card, time_it=False)]
+    lap("rglru_scan")
+    # the training step's shape first (timed on both paths: staged, then
+    # the loop on a one float off beside the same plain timing), then the
+    # serve shape and odd ones: D not a multiple of 4 or 32, S of 1 and 77
+    # (the ring's short last stage), B = 1; each D % 4 == 0 shape on both
+    # paths
+    staged = check_rglru_scan_bwd(RG_TRAIN_SCAN, device, card, time_it=True)
+    bwd = [staged,
+           check_rglru_scan_bwd(RG_TRAIN_SCAN, device, card, time_it=True,
+                                misaligned=True, plain_of=staged),
+           *(check_rglru_scan_bwd(shape, device, card, False, off)
+             for shape in ((4, 2040, 4096), (3, 129, 100), (1, 1, 36),
+                           (2, 77, 36))
+             for off in (False, True)),
+           check_rglru_scan_bwd((2, 1000, 130), device, card, False),
+           check_rglru_scan_bwd((1, 77, 7), device, card, False)]
+    lap("rglru_scan_bwd")
+    out = {
+        "rglru_scan": scan,
+        "rglru_scan_bwd": bwd,
         "flash_decode": [
             check_flash_decode(4, 16, 1, 256, 2048, full_len, None,
                                "bfloat16", device, card, time_it=True),
@@ -3557,6 +3832,9 @@ def phase_lm_kernels(device, card: str) -> dict:
             *qwen3_flash_checks(device, card),
             *frontend_flash_checks(device, card)],
     }
+    lap("flash_decode")
+    log(f"lm kernels phase seconds by part: {seconds}")
+    return out
 
 
 #: gemma3-12b's attention at the serve shape: H 16 over K 8 (G = 2),
@@ -3664,12 +3942,14 @@ def phase_serve(device) -> dict:
                         device=device).init(SERVE["seed"])
     torch.cuda.synchronize()
     cfg = model.cfg
+    init_s = note_init(f"{LM_ARCH} {cfg.n_layers} layers",
+                       time.perf_counter() - t0)
     n_params = sum(p.numel() for p in model.parameters())
     kinds = [blk.kind for blk in model.layers]
     log(f"serve: {LM_ARCH} {cfg.n_layers} layers ({kinds.count('rglru')} "
         f"rglru, {kinds.count('local')} local), d {cfg.d_model}, vocab "
         f"{cfg.vocab}, {n_params:,} params ({cfg.param_count():,} by "
-        f"param_count), {cfg.dtype}, init {time.perf_counter() - t0:.2f} s, "
+        f"param_count), {cfg.dtype}, init {init_s:.2f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     bsz, prompt, gen = SERVE["batch"], SERVE["prompt"], SERVE["gen"]
     max_len = prompt + gen
@@ -3698,7 +3978,8 @@ def phase_serve(device) -> dict:
     want_prefill = {n: 0 for n in _wrappers()} | {"rglru_scan": n_rglru}
     want_total = want_prefill | {"flash_decode": n_local * (gen - 1)}
     # Every scan on the staged path (D % 4 == 0).
-    want_paths = {"rglru_scan": {"staged": n_rglru, "loop": 0}}
+    want_paths = {"rglru_scan": {"staged": n_rglru, "loop": 0},
+                  "rglru_scan_bwd": {"staged": 0, "loop": 0}}
     log(f"serve: prefill {bsz}x{prompt} in {t_prefill * 1e3:.1f} ms, "
         f"{gen - 1} decode steps in {(t_total - t_prefill) * 1e3:.1f} ms "
         f"({(t_total - t_prefill) / (gen - 1) * 1e3:.2f} ms per step), "
@@ -4018,7 +4299,8 @@ def phase_zoo_serve(device) -> dict:
     kinds = [blk.kind for blk in model.layers]
     n_params = sum(p.numel() for p in model.parameters())
     out = {ZOO_ARCH: {"params": n_params, "param_count": cfg.param_count(),
-                      "init_s": time.perf_counter() - t0}}
+                      "init_s": note_init(ZOO_ARCH,
+                                          time.perf_counter() - t0)}}
     log(f"zoo: {ZOO_ARCH} {cfg.n_layers} layers ({kinds.count('local')} "
         f"local, window {cfg.window}, {kinds.count('attn')} global), d "
         f"{cfg.d_model}, hd {cfg.hd}, H {cfg.n_heads} over K "
@@ -4046,12 +4328,14 @@ def phase_zoo_serve(device) -> dict:
                         b.copy_(torch.randn(b.shape, generator=gen_b)
                                 * QKV_BIAS_SCALE)
         torch.cuda.synchronize()
+        init_s = note_init(f"{arch} {cfg.n_layers} layers",
+                           time.perf_counter() - t0)
         log(f"zoo: {arch} cut to {cfg.n_layers} layers, d {cfg.d_model}, "
             f"hd {cfg.hd}, H {cfg.n_heads} over K {cfg.n_kv_heads}, vocab "
             f"{cfg.vocab}, qkv bias {cfg.qkv_bias}, tied "
             f"{cfg.tie_embeddings}, "
             f"{sum(p.numel() for p in model.parameters()):,} params, init "
-            f"{time.perf_counter() - t0:.2f} s")
+            f"{init_s:.2f} s")
         out[arch] = serve_lm(model, arch)
         del model
         torch.cuda.empty_cache()
@@ -4125,9 +4409,15 @@ def lm_step_parity(device, arch: str, layers: int, grad_share: float = 0.0,
                               dtype="float32", **(cut or {}))
     hp = RWSADMMHparams(beta=TRAIN["beta"], kappa=TRAIN["kappa"],
                         epsilon=TRAIN["epsilon"])
-    cpu = build_model(cfg, device="cpu").init(TRAIN["seed"])
-    card = build_model(cfg, device=device)
-    card.load_state_dict(cpu.state_dict())
+    # drawn on the card (on the host's plain threefry a billion fp32
+    # leaves take minutes), then copied: both sides hold the same bits
+    t0 = time.perf_counter()
+    card = build_model(cfg, device=device).init(TRAIN["seed"])
+    torch.cuda.synchronize()
+    note_init(f"{arch} fp32 {layers} layers (card-vs-CPU step)",
+              time.perf_counter() - t0)
+    cpu = build_model(cfg, device="cpu")
+    cpu.load_state_dict(card.state_dict())
     tokens = heterogeneous_stream(cfg.vocab, 1, bsz, seq,
                                   np.random.default_rng(TRAIN["seed"]))
     stubs = stub_inputs(cfg, bsz, TRAIN["seed"], "cpu")
@@ -4239,10 +4529,12 @@ def train_on_walker(device, t: dict, label: str) -> dict:
     cfg = dataclasses.replace(get_config(t["arch"]), **cut)
     model = build_model(cfg, device=device).init(t["seed"])
     torch.cuda.synchronize()
+    init_s = note_init(f"{label}: {t['arch']} {cfg.n_layers} layers",
+                       time.perf_counter() - t0)
     params = {k: v.detach() for k, v in model.named_parameters()}
     log(f"{label}: {t['arch']} {cfg.n_layers} layers, d {cfg.d_model}, vocab "
         f"{cfg.vocab}, {sum(v.numel() for v in params.values()):,} params "
-        f"{cfg.dtype}, init {time.perf_counter() - t0:.2f} s")
+        f"{cfg.dtype}, init {init_s:.2f} s")
     hp = RWSADMMHparams(beta=t["beta"], kappa=t["kappa"],
                         epsilon=t["epsilon"])
     step = make_train_step(model, hp, n_total=t["clients"])
@@ -4328,8 +4620,9 @@ def phase_train(device) -> dict:
                                    PARITY_STEP["layers"])
     zero_launch_counts()
     t0 = time.perf_counter()
-    visits, ex_losses = federated_lm(["--device", str(device)])
-    torch.cuda.synchronize()
+    with counts_from_after_init():
+        visits, ex_losses = federated_lm(["--device", str(device)])
+        torch.cuda.synchronize()
     ex = {"seconds": time.perf_counter() - t0, "rounds": len(visits),
           "launches": launch_counts(),
           "first_last": {c: (v[0], v[-1]) for c, v in ex_losses.items()}}
@@ -4435,7 +4728,7 @@ def phase_xlstm(device) -> dict:
     kinds = [blk.kind for blk in model.layers]
     n_params = sum(p.numel() for p in model.parameters())
     out = {"params": n_params, "param_count": cfg.param_count(),
-           "init_s": time.perf_counter() - t0}
+           "init_s": note_init(XLSTM_ARCH, time.perf_counter() - t0)}
     log(f"xlstm: {XLSTM_ARCH} {cfg.n_layers} layers ({kinds.count('mlstm')} "
         f"mLSTM, {kinds.count('slstm')} sLSTM), d {cfg.d_model}, "
         f"{cfg.n_heads} heads of mLSTM width {2 * cfg.d_model // cfg.n_heads}"
@@ -4662,7 +4955,7 @@ def phase_moe(device) -> dict:
     n_params = sum(p.numel() for p in model.parameters())
     out = {"params": n_params, "param_count": cfg.param_count(),
            "active_param_count": cfg.active_param_count(),
-           "init_s": time.perf_counter() - t0,
+           "init_s": note_init(MOE_ARCH, time.perf_counter() - t0),
            "allocated_gib": torch.cuda.memory_allocated() / 2**30}
     log(f"moe: {MOE_ARCH} {cfg.n_layers} layers, d {cfg.d_model}, H "
         f"{cfg.n_heads} over K {cfg.n_kv_heads}, hd {cfg.hd}, {e.n_experts} "
@@ -4901,17 +5194,21 @@ def phase_whisper(device) -> dict:
     torch.cuda.empty_cache()
     gen = SERVE["gen"]
     zero_launch_counts()
-    ids = serve.main(["--arch", WHISPER_ARCH, "--batch", str(SERVE["batch"]),
-                      "--prompt-len", str(SERVE["prompt"]), "--gen", str(gen),
-                      "--seed", str(SERVE["seed"])])
+    with counts_from_after_init() as inits:
+        ids = serve.main(["--arch", WHISPER_ARCH, "--batch",
+                          str(SERVE["batch"]), "--prompt-len",
+                          str(SERVE["prompt"]), "--gen", str(gen), "--seed",
+                          str(SERVE["seed"])])
     counts = launch_counts()
     torch.cuda.empty_cache()
     out = {"serve_main": {"ids_row0": ids[0].tolist(), "launches": counts}}
     log(f"whisper: serve.main --arch {WHISPER_ARCH}: ids {tuple(ids.shape)}, "
-        f"launches {counts}")
+        f"launches after its init {counts} (the init's threefry_bits "
+        f"{inits})")
     want = {n: 0 for n in _wrappers()} | {
         "flash_decode": get_config(WHISPER_ARCH).n_layers * gen}
-    if counts != want or tuple(ids.shape) != (SERVE["batch"], gen + 1):
+    if counts != want or tuple(ids.shape) != (SERVE["batch"], gen + 1) \
+            or len(inits) != 1:
         raise AssertionError(f"whisper serve.main: launches {counts} (want "
                              f"{want}), ids {tuple(ids.shape)}")
     mark("serve.main")
@@ -4921,7 +5218,7 @@ def phase_whisper(device) -> dict:
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     out |= {"params": n_params, "param_count": cfg.param_count(),
-            "init_s": time.perf_counter() - t0,
+            "init_s": note_init(WHISPER_ARCH, time.perf_counter() - t0),
             "allocated_gib": torch.cuda.memory_allocated() / 2**30}
     log(f"whisper: {WHISPER_ARCH} {cfg.encoder_layers} encoder and "
         f"{cfg.n_layers} decoder layers, d {cfg.d_model}, H {cfg.n_heads} "
@@ -5006,7 +5303,7 @@ def phase_vlm(device) -> dict:
     cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     out = {"params": n_params, "param_count": cfg.param_count(),
-           "init_s": time.perf_counter() - t0,
+           "init_s": note_init(VLM_ARCH, time.perf_counter() - t0),
            "allocated_gib": torch.cuda.memory_allocated() / 2**30}
     log(f"vlm: {VLM_ARCH} {cfg.n_layers} layers, d {cfg.d_model}, H "
         f"{cfg.n_heads} over K {cfg.n_kv_heads}, hd {cfg.hd}, rope "
@@ -5075,8 +5372,9 @@ def phase_recurrentgemma_train(device) -> dict:
 
     seconds, t0 = {}, time.perf_counter()
     row = train_on_walker(device, RG_TRAIN, "recurrentgemma train")
-    by_path = row["launches_by_path"]["rglru_scan"]
-    if by_path["staged"] != row["launches"]["rglru_scan"]:
+    by_path = row["launches_by_path"]
+    if any(by_path[k]["staged"] != row["launches"][k]
+           for k in ("rglru_scan", "rglru_scan_bwd")):
         raise AssertionError(f"recurrentgemma train: scan paths {by_path}")
     seconds["train"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -5093,21 +5391,27 @@ def phase_recurrentgemma_train(device) -> dict:
         a for k, v in d.items() for a in (f"--{k}", str(v))]
     zero_launch_counts()
     t0 = time.perf_counter()
-    visits, losses = driver.main(argv)
-    torch.cuda.synchronize()
+    with counts_from_after_init() as inits:
+        visits, losses = driver.main(argv)
+        torch.cuda.synchronize()
     seconds["driver"] = time.perf_counter() - t0
     n_rglru = get_config(LM_ARCH).reduced().layer_pattern.count("rglru")
-    counts = launch_counts()
+    counts, by_path = launch_counts(), path_counts()
     want = {n: 0 for n in counts} | {
         "rglru_scan": 2 * n_rglru * d["rounds"],
         "rglru_scan_bwd": n_rglru * d["rounds"]}
+    want_paths = {k: {"staged": want[k], "loop": 0} for k in by_path}
     row["driver"] = {"argv": argv, "visits": visits, "losses": losses,
-                     "seconds": seconds["driver"], "launches": counts}
+                     "seconds": seconds["driver"], "launches": counts,
+                     "launches_by_path": by_path,
+                     "init_threefry_bits": inits}
     log(f"recurrentgemma train: python -m repro_torch.launch.train "
         f"{' '.join(argv)}: visits {visits}, losses {losses}, "
-        f"{seconds['driver']:.2f} s, launches {counts} (want {want})")
-    if counts != want or not all(np.isfinite(losses)) or \
-            len(visits) != d["rounds"]:
+        f"{seconds['driver']:.2f} s, launches after its init {counts} "
+        f"(want {want}), by path {by_path}; the init's threefry_bits "
+        f"launches {inits}")
+    if counts != want or by_path != want_paths or len(inits) != 1 or \
+            not all(np.isfinite(losses)) or len(visits) != d["rounds"]:
         raise AssertionError(f"train driver: {row['driver']} (want "
                              f"launches {want})")
     row["seconds"] = seconds
@@ -5179,6 +5483,8 @@ def main() -> int:
     rows = run_phase("kernels", phase_kernels, hp, device, name)
     rows.update(run_phase("lm kernels", phase_lm_kernels, device, name))
     rows.update(run_phase("threefry", phase_threefry, device, model, data, name))
+    lm_init = run_phase("lm init", phase_lm_init, device, name)
+    rows["threefry_bits"].append(lm_init["threefry_bits_init_block"])
     paths = {"main_path": run_phase("main path", phase_main_path, device, model,
                                 data, hp),
              "fleet_path": run_phase("fleet path", phase_fleet, device, model,
@@ -5315,6 +5621,20 @@ def main() -> int:
                 kernel]
         if kernel == "rglru_scan_bwd":
             row["function_vs_autograd"] = timed["function_vs_autograd"]
+            row["launches_by_path_train"] = rg_train["launches_by_path"][
+                kernel]
+        if kernel in ("rglru_scan", "rglru_scan_bwd"):
+            # the other timed row: the forward at the training step's
+            # shape; the backward's loop path there (a one float off)
+            key = "train_shape" if kernel == "rglru_scan" else "loop_path"
+            other = next(r for r in checks[1:] if "ms" in r)
+            row[key] = {k: other[k] for k in (
+                "shape", "path", "ms", "ms_warm", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "share_of_bound")}
+        if kernel == "threefry_bits":
+            row["init_block_shape"] = {k: checks[-1][k] for k in (
+                "shape", "ms", "ms_warm", "graph_ms", "plain_ms",
+                "bound_ms", "bound_by", "share_of_bound")}
         if "sign_flips" in timed:
             row["sign_flips"] = sum(r["sign_flips"] for r in checks)
         if kernel == "flash_decode":
@@ -5334,8 +5654,10 @@ def main() -> int:
                     "share_of_bound", "config")}
         kernels.append(row)
     log(json.dumps({"kernels": kernels}))
+    paths["lm_init"] = lm_init["inits"]
     for label, summary in paths.items():
         log(json.dumps({label: summary}, default=str))
+    log(f"init seconds on the card (build and draw): {INIT_SECONDS}")
     log(f"phase seconds: {PHASE_SECONDS}")
     log(smi)
     log(json.dumps({"ok": True, "device": {

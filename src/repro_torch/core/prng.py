@@ -92,14 +92,47 @@ _NORMAL_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
 _NORMAL_SPAN = float(np.float32(1.0) - np.float32(_NORMAL_LO))
 
 
+def _normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
+    f = uniform_from_bits(bits)
+    u = torch.clamp(f * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
+    return float(np.float32(math.sqrt(2.0))) * erf_inv(u)
+
+
 def normal(key: torch.Tensor, shape) -> torch.Tensor:
     """``jax.random.normal(key, shape)`` in float32: √2·erf⁻¹(u), u uniform
     on [nextafter(−1, 0), 1) from the key's bits with the reference's
     scale, shift and clamp. The bits are exact; :func:`erf_inv` leaves a
     few ulp against XLA's."""
-    f = uniform(key, shape)
-    u = torch.clamp(f * _NORMAL_SPAN + _NORMAL_LO, min=_NORMAL_LO)
-    return float(np.float32(math.sqrt(2.0))) * erf_inv(u)
+    return _normal_from_bits(random_bits(key, shape))
+
+
+#: values a block of :func:`normal_blocks` holds at most (its int64 bits
+#: take 32 MiB), unless a single row is longer
+NORMAL_BLOCK = 1 << 22
+
+
+def normal_blocks(key: torch.Tensor, shape, block: int = NORMAL_BLOCK):
+    """``normal(key, shape)`` for one key ``(2,)``, a block of rows at a
+    time: yields ``(r0, r1, rows)``, ``rows`` the draw's rows ``r0:r1``
+    along its last axis (``(r1 − r0, shape[-1])``; a 0- or 1-D shape is
+    one row), at most ``block`` values unless one row holds more. Element
+    i of a draw hashes the counter i, its row-major index, so rows r0:r1
+    are the counters from r0·row on, and no block makes the whole
+    draw's bits."""
+    shape = tuple(shape)
+    if key.shape != (2,):
+        raise ValueError(f"one key (2,), got {tuple(key.shape)}")
+    total, row = math.prod(shape), (shape[-1] if shape else 1)
+    if total >= 2**32:
+        raise ValueError(f"a draw of {total} values passes the 32-bit "
+                         f"counters")
+    rows = total // row if row else 0
+    step = max(1, block // max(row, 1))
+    for r0 in range(0, rows, step):
+        r1 = min(rows, r0 + step)
+        bits = ops.threefry_bits(key.reshape(1, 2), (r1 - r0) * row,
+                                 offset=r0 * row)
+        yield r0, r1, _normal_from_bits(bits.reshape(r1 - r0, row))
 
 
 def bernoulli(key: torch.Tensor, p: float, shape) -> torch.Tensor:

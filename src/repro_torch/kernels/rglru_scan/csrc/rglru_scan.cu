@@ -40,19 +40,43 @@
 // store are coalesced, unrolled by kUnroll with the loads ahead of the
 // multiply-adds.
 //
-// rglru_scan_bwd_loop, the backward (any D): no Pallas counterpart; it
-// stands for XLA's transpose of the reference's associative scan
-// (src/repro/models/recurrent.py :: linear_scan), the same gradient by
-// another order of operations. It runs the adjoint recurrence in reverse
-// time, fused with the products: g = dh[t] + a[t+1] * g (from g =
-// dh[S-1]), db[t] = g, da[t] = g * h[t-1] (h[-1] = 0), each product and
-// sum rounded, as the plain loop in ../ref.py. It reads a, h and dh once
-// each and writes da and db once each, 5·B·S·D·4 bytes: at a training
-// step's (2, 2048, 4096) 335.5 MB, 0.100 ms at 3.35 TB/s. One thread per
-// (b, d) channel walks t from S-1 down to 0, neighbouring threads on
-// neighbouring d; blocks of one warp spread the channels over every SM,
-// and kBwdUnroll steps of loads are issued ahead of their adds. The S
-// tail runs step by step; idle threads of the D tail return at once.
+// The backward has no Pallas counterpart; it stands for XLA's transpose of
+// the reference's associative scan (src/repro/models/recurrent.py ::
+// linear_scan), the same gradient by another order of operations. It runs
+// the adjoint recurrence in reverse time, fused with the products: g =
+// dh[t] + a[t+1] * g (from g = dh[S-1]), db[t] = g, da[t] = g * h[t-1]
+// (h[-1] = 0), each product and sum rounded, as the plain loop in
+// ../ref.py. It reads a, h and dh once each and writes da and db once
+// each, 5·B·S·D·4 bytes: at a training step's (2, 2048, 4096) 335.5 MB,
+// 0.100 ms at 3.35 TB/s, with only 256 blocks of 32 channels to carry
+// them. Two kernels, each bit for bit equal to the plain loop:
+//
+// rglru_scan_bwd_staged (D % 4 == 0, 16-byte aligned tensors): the
+// forward's staged ring run in reverse, fed by the Tensor Memory
+// Accelerator's 2-D boxes. A block owns 32 channels of one batch row,
+// grid (ceil(D/32), B). Stage st holds the kSteps timesteps ending at t =
+// S-1-st·kSteps, three boxes of kSteps × 32 floats: dh[t], a[t+1] and
+// h[t-1], each box one tensor-map copy (cp.async.bulk.tensor) onto the
+// slot's full mbarrier, one row apart in the (B·S, D) view of its
+// tensor. The hardware bounds the boxes: the D tail's columns and rows
+// before the tensor's first or after its last arrive as zeros, so no
+// copy reads out of bounds; the rows a box takes from a neighbouring
+// batch row (a[S] at t = S-1, h[-1] at t = 0, and the last stage's rows
+// before t = 0) are never used (g starts from dh[S-1]; da[0] = g·0).
+// The producer lane refills a slot once the consumer warp releases it on
+// empty; the consumer runs g from shared memory and stores db and da,
+// 128 bytes each a warp a step. 24 KB a stage, 72 KB of ring, three
+// blocks an SM: all 256 blocks of the training shape resident, ~48 KB in
+// flight each. Three copies a stage, not one a 128-byte row (192 a
+// stage): at two blocks an SM the row copies' own cost, not the bytes,
+// held that form to ~55 % of the bound on the H100.
+//
+// rglru_scan_bwd_loop (any other D): one thread per (b, d) channel walks
+// t from S-1 down to 0, neighbouring threads on neighbouring d; blocks of
+// one warp spread the channels over every SM, and kBwdUnroll steps of
+// loads are issued ahead of their adds. The S tail runs step by step;
+// idle threads of the D tail return at once.
+#include <cuda.h>   // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,8 +91,11 @@ constexpr int kSmemBytes = kStages * kStageFloats * 4;
 constexpr int kThreads = 128;   // register-loop kernel
 constexpr int kUnroll = 8;
 
-constexpr int kBwdThreads = 32;  // backward: one warp a block
+constexpr int kBwdThreads = 32;  // backward loop: one warp a block
 constexpr int kBwdUnroll = 16;
+// backward staged ring: dh, then a[t+1], then h[t-1] a stage
+constexpr int kBwdStageFloats = 3 * kSteps * kLanes;
+constexpr int kBwdSmemBytes = kStages * kBwdStageFloats * 4;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -107,6 +134,20 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// A 2-D box of the tensor map `map` at (column c0, row c1) into shared
+// memory; parts of the box outside the tensor arrive as zeros, and the
+// whole box's bytes count on the barrier.
+__device__ __forceinline__ void tensor_copy(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -221,6 +262,89 @@ rglru_scan_loop(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+// Warp 1 (its lane 0) produces, warp 0 consumes. Stage st ends at t = hi
+// = S-1-st·kSteps and its box starts at row hi-kSteps+1 of the batch row
+// (rows before t = 0, in the previous batch row or before the tensor,
+// are loaded and never used): row r of each array holds t = hi-kSteps+1
+// +r, read as dh[t], a[t+1] and h[t-1] through boxes one row apart.
+__global__ void __launch_bounds__(2 * kLanes)
+rglru_scan_bwd_staged(const __grid_constant__ CUtensorMap a_map,
+                      const __grid_constant__ CUtensorMap h_map,
+                      const __grid_constant__ CUtensorMap dh_map,
+                      float* __restrict__ da, float* __restrict__ db,
+                      long long seq, long long width) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  const int warp = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int d0 = blockIdx.x * kLanes;
+  const int cols = (int)min((long long)kLanes, width - d0);
+  const long long base = (long long)blockIdx.y * seq * width + d0;
+  const long long n_stages = (seq + kSteps - 1) / kSteps;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 1) {
+    if (lane == 0) {
+      for (long long st = 0; st < n_stages; ++st) {
+        const int slot = (int)(st % kStages);
+        if (st >= kStages)
+          mbar_wait(&empty[slot], (uint32_t)((st / kStages - 1) & 1));
+        const int row0 = (int)(blockIdx.y * seq + seq - st * kSteps
+                               - kSteps);
+        float* sdh = ring + slot * kBwdStageFloats;
+        mbar_expect_tx(&full[slot], kBwdStageFloats * 4);
+        tensor_copy(sdh, &dh_map, d0, row0, &full[slot]);
+        tensor_copy(sdh + kSteps * kLanes, &a_map, d0, row0 + 1,
+                    &full[slot]);
+        tensor_copy(sdh + 2 * kSteps * kLanes, &h_map, d0, row0 - 1,
+                    &full[slot]);
+      }
+    }
+    return;
+  }
+
+  float g = 0.0f;
+  for (long long st = 0; st < n_stages; ++st) {
+    const int slot = (int)(st % kStages);
+    mbar_wait(&full[slot], (uint32_t)((st / kStages) & 1));
+    const float* sdh = ring + slot * kBwdStageFloats + lane;
+    const float* sa = sdh + kSteps * kLanes;
+    const float* sh = sa + kSteps * kLanes;
+    const long long t0 = seq - (st + 1) * kSteps;   // row 0's t (may be < 0)
+    if (st > 0 && t0 > 0) {   // every row has both shifts
+      float* dat = da + base + lane + t0 * width;
+      float* dbt = db + base + lane + t0 * width;
+#pragma unroll 8
+      for (int r = kSteps - 1; r >= 0; --r) {
+        g = sdh[r * kLanes] + sa[r * kLanes] * g;
+        if (lane < cols) {
+          dbt[r * width] = g;
+          dat[r * width] = g * sh[r * kLanes];
+        }
+      }
+    } else {
+      for (int r = kSteps - 1; r >= 0 && t0 + r >= 0; --r) {
+        const long long t = t0 + r;
+        g = t == seq - 1 ? sdh[r * kLanes]
+                         : sdh[r * kLanes] + sa[r * kLanes] * g;
+        if (lane < cols) {
+          db[base + lane + t * width] = g;
+          da[base + lane + t * width] = g * (t > 0 ? sh[r * kLanes] : 0.0f);
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+}
+
 __global__ void __launch_bounds__(kBwdThreads)
 rglru_scan_bwd_loop(const float* __restrict__ a, const float* __restrict__ h,
                     const float* __restrict__ dh, float* __restrict__ da,
@@ -299,10 +423,93 @@ extern "C" int rglru_scan_loop_launch(const void* a, const void* b, void* h,
   return (int)cudaGetLastError();
 }
 
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, through the runtime's entry-point
+// query (nothing links libcuda); null if the driver has none.
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (rows, width) fp32 at `ptr` as a tensor map of kSteps × kLanes boxes,
+// out-of-bounds elements read as zeros. Returns the driver's result.
+static CUresult box_map(CUtensorMap* map, EncodeTiled encode, const void* ptr,
+                        long long rows, long long width) {
+  const cuuint64_t dims[2] = {(cuuint64_t)width, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)width * 4};
+  const cuuint32_t box[2] = {kLanes, kSteps};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_NONE,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// a, h, dh, da, db: (batch, seq, width) fp32, contiguous, on the device;
+// width % 4 == 0, all five 16-byte aligned, batch · seq + kSteps < 2^31.
+// Encodes a, h and dh as tensor maps, launches the staged backward on
+// `stream` and returns cudaGetLastError(), or 100000 + the driver's
+// result if a map cannot be made.
+extern "C" int rglru_scan_bwd_staged_launch(const void* a, const void* h,
+                                            const void* dh, void* da,
+                                            void* db, int batch,
+                                            long long seq, long long width,
+                                            void* stream) {
+  static bool allowed = false;
+  if (!allowed) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        rglru_scan_bwd_staged, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kBwdSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    allowed = true;
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  // The encoder needs a current context, which a thread that has made no
+  // runtime call yet (autograd's, a new one) may lack: setting the device
+  // makes its primary context current.
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap maps[3];
+  const void* srcs[3] = {a, h, dh};
+  for (int i = 0; i < 3; ++i) {
+    const CUresult res = box_map(&maps[i], encode, srcs[i],
+                                 (long long)batch * seq, width);
+    if (res != CUDA_SUCCESS) return 100000 + (int)res;
+  }
+  const dim3 grid((unsigned)((width + kLanes - 1) / kLanes), (unsigned)batch);
+  rglru_scan_bwd_staged<<<grid, 2 * kLanes, kBwdSmemBytes,
+                          (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], (float*)da, (float*)db, seq, width);
+  return (int)cudaGetLastError();
+}
+
 // a, h, dh, da, db: (batch, seq, width) fp32, contiguous, on the device,
-// any width. Launches the backward kernel on `stream` and returns
+// any width. Launches the register-loop backward on `stream` and returns
 // cudaGetLastError().
-extern "C" int rglru_scan_bwd_launch(const void* a, const void* h,
+extern "C" int rglru_scan_bwd_loop_launch(const void* a, const void* h,
                                      const void* dh, void* da, void* db,
                                      int batch, long long seq,
                                      long long width, void* stream) {
@@ -315,11 +522,13 @@ extern "C" int rglru_scan_bwd_launch(const void* a, const void* h,
   return (int)cudaGetLastError();
 }
 
-// The staged kernel's geometry: {channels per block, timesteps per stage,
-// stages in the ring, dynamic shared-memory bytes}.
+// The staged kernels' geometry: {channels per block, timesteps per stage,
+// stages in the ring, dynamic shared-memory bytes of the forward, of the
+// backward}.
 extern "C" void rglru_scan_staged_geometry(int* out) {
   out[0] = kLanes;
   out[1] = kSteps;
   out[2] = kStages;
   out[3] = kSmemBytes;
+  out[4] = kBwdSmemBytes;
 }

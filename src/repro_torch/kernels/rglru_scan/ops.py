@@ -3,17 +3,17 @@
 ``rglru_scan(a, b)`` computes h_t = a_t ⊙ h_{t−1} + b_t over (B, S, D)
 fp32 tensors and carries its gradient: it is the front of a
 ``torch.autograd.Function`` whose backward is :func:`rglru_scan_bwd`
-(the adjoint recurrence in reverse time, its own kernel). A CUDA tensor
+(the adjoint recurrence in reverse time, its own kernels). A CUDA tensor
 launches a kernel or raises; only tensors on the CPU take the plain
-versions in :mod:`.ref`. The source holds two forward kernels, both bit
-for bit equal to the plain loop, and :func:`plan` picks one by shape:
-``staged`` (shared-memory ring fed by bulk copies) where D % 4 == 0 and
-the tensors are 16-byte aligned, as bulk copies need, else ``loop`` (one
-thread per channel). ``rglru_scan.launches`` counts every forward launch
-and ``rglru_scan.launches_by_path`` each path's;
-``rglru_scan_bwd.launches`` counts the backward's. The kernels are built
-at first use by :func:`..._build.build`; the staged kernel's geometry is
-the source's, read through :func:`staged_geometry`.
+versions in :mod:`.ref`. The forward and the backward each have two
+kernels, all bit for bit equal to their plain loops, and :func:`plan`
+picks one by shape: ``staged`` (shared-memory ring fed by bulk copies)
+where D % 4 == 0 and the tensors are 16-byte aligned, as bulk copies
+need, else ``loop`` (one thread per channel). ``rglru_scan.launches``
+and ``rglru_scan_bwd.launches`` count every launch, and each one's
+``launches_by_path`` each path's. The kernels are built at first use by
+:func:`..._build.build`; the staged kernels' geometry is the source's,
+read through :func:`staged_geometry`.
 """
 from __future__ import annotations
 
@@ -35,10 +35,16 @@ PATHS = ("staged", "loop")
 _lib = None
 
 
+#: the staged backward's tensor maps address rows by 32-bit coordinates
+MAX_ROWS = 2**31 - 128
+
+
 def plan(shape, aligned: bool = True) -> str:
-    """The kernel that runs (B, S, D): ``staged`` where D % 4 == 0 and a,
-    b are 16-byte aligned (``aligned``), else ``loop``."""
-    return "staged" if shape[-1] % 4 == 0 and aligned else "loop"
+    """The kernel that runs (B, S, D): ``staged`` where D % 4 == 0, the
+    tensors are 16-byte aligned (``aligned``) and B·S < ``MAX_ROWS``,
+    else ``loop``."""
+    staged = shape[-1] % 4 == 0 and shape[0] * shape[1] < MAX_ROWS
+    return "staged" if staged and aligned else "loop"
 
 
 def build() -> Path:
@@ -57,11 +63,12 @@ def _library():
                               ctypes.c_longlong, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         # a, h, dh, da, db; batch, seq, width; stream.
-        lib.rglru_scan_bwd_launch.argtypes = (
-            [ctypes.c_void_p] * 5
-            + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-               ctypes.c_void_p])
-        lib.rglru_scan_bwd_launch.restype = ctypes.c_int
+        for fn in (lib.rglru_scan_bwd_staged_launch,
+                   lib.rglru_scan_bwd_loop_launch):
+            fn.argtypes = ([ctypes.c_void_p] * 5
+                           + [ctypes.c_int, ctypes.c_longlong,
+                              ctypes.c_longlong, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.rglru_scan_staged_geometry.argtypes = [
             ctypes.POINTER(ctypes.c_int)]
         lib.rglru_scan_staged_geometry.restype = None
@@ -69,11 +76,11 @@ def _library():
     return _lib
 
 
-def staged_geometry() -> tuple[int, int, int, int]:
-    """The staged kernel's (channels per block, timesteps per stage,
-    stages in the ring, dynamic shared-memory bytes), as the built source
-    has them."""
-    out = (ctypes.c_int * 4)()
+def staged_geometry() -> tuple[int, int, int, int, int]:
+    """The staged kernels' (channels per block, timesteps per stage,
+    stages in the ring, dynamic shared-memory bytes of the forward, of the
+    backward), as the built source has them."""
+    out = (ctypes.c_int * 5)()
     _library().rglru_scan_staged_geometry(out)
     return tuple(out)
 
@@ -115,13 +122,17 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _path(*tensors: torch.Tensor) -> str:
+    return plan(tensors[0].shape,
+                aligned=all(t.data_ptr() % 16 == 0 for t in tensors))
+
+
 def _forward(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b)
     batch, seq, width = a.shape
     h = torch.empty_like(a)
-    path = plan(a.shape, aligned=a.data_ptr() % 16 == 0
-                and b.data_ptr() % 16 == 0)
+    path = _path(a, b, h)
     lib = _library()
     kernel = (lib.rglru_scan_staged_launch if path == "staged"
               else lib.rglru_scan_loop_launch)
@@ -145,12 +156,17 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
         return rglru_scan_bwd_ref(a, h, dh)
     batch, seq, width = a.shape
     da, db = torch.empty_like(a), torch.empty_like(a)
+    path = _path(a, h, dh, da, db)
+    lib = _library()
+    kernel = (lib.rglru_scan_bwd_staged_launch if path == "staged"
+              else lib.rglru_scan_bwd_loop_launch)
     with torch.cuda.device(a.device):
-        err = _library().rglru_scan_bwd_launch(
-            a.data_ptr(), h.data_ptr(), dh.data_ptr(), da.data_ptr(),
-            db.data_ptr(), batch, seq, width, _stream(a))
-    _launched(err, "rglru_scan_bwd")
+        err = kernel(a.data_ptr(), h.data_ptr(), dh.data_ptr(),
+                     da.data_ptr(), db.data_ptr(), batch, seq, width,
+                     _stream(a))
+    _launched(err, f"rglru_scan_bwd {path}")
     rglru_scan_bwd.launches += 1
+    rglru_scan_bwd.launches_by_path[path] += 1
     return da, db
 
 
@@ -181,3 +197,4 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 rglru_scan.launches = 0
 rglru_scan.launches_by_path = dict.fromkeys(PATHS, 0)
 rglru_scan_bwd.launches = 0
+rglru_scan_bwd.launches_by_path = dict.fromkeys(PATHS, 0)

@@ -31,12 +31,15 @@
 // 1, below float32(p).
 //
 // Bound of threefry_draws at one CNN zone round (8 leaves, 160 indices,
-// 655,360 + 81,920 keep bytes): ~57 M 32-bit integer operations (73 a
-// 32-bit draw, HASH_OPS in chip_smoke.py, and 4 more a keep byte) against
-// 0.74 MB written. At 64 integer results per clock per SM (CUDA
-// programming guide, compute capability 9.0) × 132 SMs × 1,980 MHz, 16.7
-// T/s, that is ~3.4 µs; the bytes take 0.22 µs at 3.35 TB/s. So the work
-// is on the integer pipe, and the design keeps every other cost off it:
+// 655,360 + 81,920 keep bytes): ~53 M 32-bit integer instructions (68 a
+// 32-bit draw in the SASS besides the key's own, DRAW_OPS in
+// chip_smoke.py as scripts/threefry_sass.py counts it, and 4 more a keep
+// byte) against
+// 0.74 MB written. At the SM's issue rate, 128 instructions a clock (the
+// ALU pipe's 64 and the FMA pipe's 64, which takes ptxas's IMAD adds) ×
+// 132 SMs × 1,980 MHz, 33.5 T/s, that is ~1.6 µs; the bytes take 0.22 µs
+// at 3.35 TB/s. So the work is on the integer pipes, and the design keeps
+// every other cost off them:
 //
 //   * one launch a round for what took six (split, randint, two fold_ins,
 //     two bernoullis) and the spans' gather: each of those cost ~2 µs, most

@@ -18,9 +18,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core import prng
 from ..kernels.flash_decode.ops import flash_decode
-from .layers import NormalDraws, apply_mrope, apply_rope, dense_init, \
-    param, text_mrope_positions, torch_dtype
+from .layers import apply_mrope, apply_rope, dense_init, param, \
+    text_mrope_positions, torch_dtype
 
 NEG_INF = -1e30
 
@@ -43,11 +44,14 @@ class Attention(nn.Module):
             self.bk = param(kv * hd, **kw)
             self.bv = param(kv * hd, **kw)
 
-    def reset_parameters(self, draws: NormalDraws) -> None:
-        dense_init(self.wq, draws)
-        dense_init(self.wk, draws)
-        dense_init(self.wv, draws)
-        dense_init(self.wo, draws, 1.0 / np.sqrt(self.wo.shape[0]))
+    def reset_parameters(self, key: torch.Tensor) -> None:
+        """The reference's ``attn_init``: ``split(key, 4)`` for wq, wk, wv
+        and wo (wo at 1/√(H·hd))."""
+        ks = prng.split(key, 4)
+        dense_init(self.wq, ks[0])
+        dense_init(self.wk, ks[1])
+        dense_init(self.wv, ks[2])
+        dense_init(self.wo, ks[3], 1.0 / np.sqrt(self.wo.shape[0]))
         if self.qkv_bias:   # zeros, as the reference's
             with torch.no_grad():
                 for b in (self.bq, self.bk, self.bv):

@@ -3,77 +3,47 @@
 Parameters follow the reference's shapes: a dense weight is (n_in, n_out)
 and applies as ``x @ w``. Parameters and activations are in the config's
 dtype (bf16 at full width); normalisation statistics and RoPE angles are
-fp32. Inits draw fp32 normals on CPU ``torch.Generator``s (so a seed
-gives the same weights on every device) and cast, as the reference draws
-fp32 and casts: the layers ask :class:`NormalDraws` for their weights,
-and ``LM.init`` draws them all at once, in blocks on threads.
+fp32. Inits walk the reference's key tree: a module's
+``reset_parameters(key)`` splits its threefry key (``core/prng.py``) as
+the reference's ``*_init`` does, and each weight is ``jax.random.normal``
+under its key in fp32, times its scale (one fp32 product), cast to the
+weight's dtype, drawn in blocks of rows on the key's device.
 """
 from __future__ import annotations
-
-import os
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import prng
+
 
 def torch_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-class NormalDraws:
-    """The seeded N(0, scale²) draws of a model's weights. Layers
-    :meth:`add` their requests; :meth:`run` cuts each into blocks of at
-    most ``BLOCK`` values along its first axis, draws every block in fp32
-    on its own CPU generator, seeded by (seed, request, block), on a pool
-    of threads, scales it and copies it into its rows (cast to the
-    weight's dtype). The weights depend on the seed and the order of the
-    requests only, not on the device or the number of threads."""
-
-    BLOCK = 1 << 22
-
-    def __init__(self, seed: int):
-        self.seed = seed
-        self.requests: list[tuple[torch.Tensor, float]] = []
-
-    def add(self, p: torch.Tensor, scale: float) -> None:
-        """Ask for ``p`` (at least 1-D) filled with N(0, scale²)."""
-        self.requests.append((p, float(scale)))
-
-    def _blocks(self):
-        for i, (p, scale) in enumerate(self.requests):
-            step = max(1, self.BLOCK // max(1, p[0].numel()))
-            for j, r0 in enumerate(range(0, p.shape[0], step)):
-                yield p, scale, slice(r0, r0 + step), (self.seed, i, j)
-
-    @staticmethod
-    def _draw(p, scale, rows, words) -> None:
-        gen = torch.Generator().manual_seed(int(
-            np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
-            >> np.uint64(1)))
-        with torch.no_grad():     # grad mode is per thread
-            draw = torch.randn(p[rows].shape, generator=gen,
-                               dtype=torch.float32)
-            p[rows].copy_(draw.to(p.device) * scale)
-
-    def run(self) -> None:
-        with ThreadPoolExecutor(min(16, os.cpu_count() or 1)) as pool:
-            for done in [pool.submit(self._draw, *b) for b in self._blocks()]:
-                done.result()
-        self.requests.clear()
+def normal_init(p: torch.Tensor, key: torch.Tensor, scale: float) -> None:
+    """Fill ``p`` with the reference's ``(jax.random.normal(key, p.shape,
+    float32) * scale).astype(p.dtype)``: the scale rounded to fp32, one
+    fp32 product, then the cast. ``key`` lies on ``p``'s device."""
+    s = float(np.float32(scale))
+    rows = p.detach().view(-1, p.shape[-1])
+    with torch.no_grad():
+        for r0, r1, draw in prng.normal_blocks(key, p.shape):
+            rows[r0:r1].copy_(draw * s)
 
 
-def dense_init(p: torch.Tensor, draws: NormalDraws,
+def dense_init(p: torch.Tensor, key: torch.Tensor,
                scale: float | None = None) -> None:
     """A (n_in, n_out) weight at scale 1/√n_in unless given."""
-    draws.add(p, scale if scale is not None else 1.0 / np.sqrt(p.shape[0]))
+    normal_init(p, key, scale if scale is not None
+                else 1.0 / np.sqrt(p.shape[0]))
 
 
-def embedding_init(p: torch.Tensor, draws: NormalDraws) -> None:
+def embedding_init(p: torch.Tensor, key: torch.Tensor) -> None:
     """A (vocab, d) table at scale 1/√d."""
-    draws.add(p, 1.0 / np.sqrt(p.shape[1]))
+    normal_init(p, key, 1.0 / np.sqrt(p.shape[1]))
 
 
 def param(*shape, dtype, device) -> nn.Parameter:
@@ -86,7 +56,7 @@ class RMSNorm(nn.Module):
         super().__init__()
         self.scale = param(d, dtype=dtype, device=device)
 
-    def reset_parameters(self, draws=None) -> None:
+    def reset_parameters(self) -> None:
         with torch.no_grad():
             self.scale.fill_(1.0)
 
@@ -159,11 +129,14 @@ class MLP(nn.Module):
         if act == "silu":
             self.w_gate = param(d, ff, dtype=dtype, device=device)
 
-    def reset_parameters(self, draws: NormalDraws) -> None:
-        dense_init(self.w_in, draws)
-        dense_init(self.w_out, draws)
+    def reset_parameters(self, key: torch.Tensor) -> None:
+        """The reference's ``mlp_init``: ``split(key, 3)`` for ``w_in``,
+        ``w_out`` and ``w_gate``."""
+        ks = prng.split(key, 3)
+        dense_init(self.w_in, ks[0])
+        dense_init(self.w_out, ks[1])
         if self.act == "silu":
-            dense_init(self.w_gate, draws)
+            dense_init(self.w_gate, ks[2])
 
 
 def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:

@@ -28,7 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import MLP, NormalDraws, dense_init, mlp, param, torch_dtype
+from ..core import prng
+from .layers import MLP, dense_init, mlp, normal_init, param, torch_dtype
 
 
 class MoE(nn.Module):
@@ -51,14 +52,23 @@ class MoE(nn.Module):
         if e.n_shared_experts:
             self.shared = MLP(d, h * e.n_shared_experts, "silu", **kw)
 
-    def reset_parameters(self, draws: NormalDraws) -> None:
+    def reset_parameters(self, key: torch.Tensor) -> None:
+        """The reference's ``moe_init``: ``split(key, 5)`` for the router,
+        ``w_in``, ``w_gate``, ``w_out`` (each (E, n_in, n_out) at
+        1/√n_in) and the shared experts, whose ``split(ks[4], 3)`` goes to
+        ``w_in``, ``w_gate`` and ``w_out`` in that order (not the
+        ``MLP``'s)."""
         d, h = self.w_in.shape[1:]
-        dense_init(self.router, draws)
-        draws.add(self.w_in, 1.0 / np.sqrt(d))
-        draws.add(self.w_gate, 1.0 / np.sqrt(d))
-        draws.add(self.w_out, 1.0 / np.sqrt(h))
+        ks = prng.split(key, 5)
+        dense_init(self.router, ks[0])
+        normal_init(self.w_in, ks[1], 1.0 / np.sqrt(d))
+        normal_init(self.w_gate, ks[2], 1.0 / np.sqrt(d))
+        normal_init(self.w_out, ks[3], 1.0 / np.sqrt(h))
         if hasattr(self, "shared"):
-            self.shared.reset_parameters(draws)
+            k_in, k_gate, k_out = prng.split(ks[4], 3)
+            dense_init(self.shared.w_in, k_in)
+            dense_init(self.shared.w_gate, k_gate)
+            dense_init(self.shared.w_out, k_out)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return moe_ffn(self, x, self.cfg)

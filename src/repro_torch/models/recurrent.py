@@ -35,8 +35,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import prng
 from ..kernels.rglru_scan.ops import rglru_scan
-from .layers import NormalDraws, dense_init, param, torch_dtype
+from .layers import dense_init, normal_init, param, torch_dtype
 
 _C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -56,15 +57,18 @@ class RGLRU(nn.Module):
         self.lam = param(d, dtype=torch.float32, device=device)
         self.w_out = param(d, d, **kw)
 
-    def reset_parameters(self, draws: NormalDraws) -> None:
-        dense_init(self.w_x, draws)
-        dense_init(self.w_g, draws)
-        draws.add(self.conv_w, 0.1)
-        dense_init(self.w_rg, draws)
-        dense_init(self.w_ig, draws)
+    def reset_parameters(self, key: torch.Tensor) -> None:
+        """The reference's ``rglru_init``: ``split(key, 6)``; the conv taps
+        at 0.1 under the third key, Λ 0.7."""
+        ks = prng.split(key, 6)
+        dense_init(self.w_x, ks[0])
+        dense_init(self.w_g, ks[1])
+        normal_init(self.conv_w, ks[2], 0.1)
+        dense_init(self.w_rg, ks[3])
+        dense_init(self.w_ig, ks[4])
         with torch.no_grad():
             self.lam.fill_(0.7)
-        dense_init(self.w_out, draws)
+        dense_init(self.w_out, ks[5])
 
 
 class RGLRUState(NamedTuple):
@@ -154,10 +158,13 @@ class MLSTM(nn.Module):
                           device=device)
         self.w_down = param(di, d, **kw)
 
-    def reset_parameters(self, draws: NormalDraws) -> None:
-        for w in (self.w_up, self.w_gate_up, self.wq, self.wk, self.wv,
-                  self.w_if, self.w_down):
-            dense_init(w, draws)
+    def reset_parameters(self, key: torch.Tensor) -> None:
+        """The reference's ``mlstm_init``: ``split(key, 7)`` in the order
+        of the parameters."""
+        for w, k in zip((self.w_up, self.w_gate_up, self.wq, self.wk,
+                         self.wv, self.w_if, self.w_down),
+                        prng.split(key, 7)):
+            dense_init(w, k)
 
 
 class MLSTMState(NamedTuple):
@@ -324,13 +331,16 @@ class SLSTM(nn.Module):
         self.b_gates = param(4 * d, dtype=torch.float32, device=device)
         self.w_out = param(d, d, **kw)
 
-    def reset_parameters(self, draws: NormalDraws) -> None:
+    def reset_parameters(self, key: torch.Tensor) -> None:
+        """The reference's ``slstm_init``: ``split(key, 3)`` for
+        ``w_gates``, ``r_gates`` (at 0.5/√d) and ``w_out``."""
         d = self.w_out.shape[0]
-        dense_init(self.w_gates, draws)
-        dense_init(self.r_gates, draws, 0.5 / np.sqrt(d))
+        ks = prng.split(key, 3)
+        dense_init(self.w_gates, ks[0])
+        dense_init(self.r_gates, ks[1], 0.5 / np.sqrt(d))
         with torch.no_grad():
             self.b_gates.zero_()
-        dense_init(self.w_out, draws)
+        dense_init(self.w_out, ks[2])
 
 
 class SLSTMState(NamedTuple):

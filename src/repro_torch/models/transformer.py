@@ -30,11 +30,12 @@ from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
+from ..core import prng
 from . import attention as attn_mod
 from . import recurrent as rec_mod
 from .moe import MoE
-from .layers import MLP, NormalDraws, RMSNorm, dense_init, embedding_init, \
-    mlp, param, rmsnorm, torch_dtype
+from .layers import MLP, RMSNorm, dense_init, embedding_init, mlp, \
+    normal_init, param, rmsnorm, torch_dtype
 
 #: each layer kind's mixer module
 MIXERS = {"attn": attn_mod.Attention, "local": attn_mod.Attention,
@@ -152,26 +153,35 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------ init --
     def init(self, seed: int = 0) -> "LM":
-        """Random weights from ``seed`` at the reference's scales and
-        dtypes, drawn on CPU generators (``layers.NormalDraws``): the same
-        weights on every device, but not the reference's key tree (parity
-        tests load the reference's weights with
-        ``convert.load_lm_reference``)."""
-        draws = NormalDraws(seed)
-        embedding_init(self.embed, draws)
+        """The reference's ``model.init(PRNGKey(seed))``, drawn on the
+        model's device along its key tree: ``split(key, 5)`` for the
+        embedding, head, layers, frontend and encoder; layer ``l = r·P +
+        gi`` under ``fold_in(split(k_layers, repeats)[r], gi)``, split in
+        four (the mixer's key, then the FFN's); the projector and the
+        position table both under the frontend's key, as the reference
+        draws them. The bits are the reference's on every device; erf⁻¹
+        leaves a few ulp (``core/prng.py``)."""
+        cfg, n_pat = self.cfg, len(self.cfg.layer_pattern)
+        k_emb, k_head, k_layers, k_front, _ = prng.split(
+            prng.prng_key(seed, self.device), 5)
+        embedding_init(self.embed, k_emb)
         self.final_norm.reset_parameters()
-        for block in self.layers:
-            for m in (block.norm1, block.mix, getattr(block, "norm2", None),
-                      getattr(block, "ffn", None)):
-                if m is not None:
-                    m.reset_parameters(draws)
-        if not self.cfg.tie_embeddings:
-            dense_init(self.head, draws)
+        layer_keys = prng.split(k_layers, cfg.pattern_repeats)
+        block_keys = [prng.split(prng.fold_in(layer_keys, gi), 4)
+                      for gi in range(n_pat)]        # (repeats, 4, 2) each
+        for l, block in enumerate(self.layers):
+            ks = block_keys[l % n_pat][l // n_pat]
+            block.norm1.reset_parameters()
+            block.mix.reset_parameters(ks[0])
+            if hasattr(block, "ffn"):
+                block.norm2.reset_parameters()
+                block.ffn.reset_parameters(ks[1])
+        if not cfg.tie_embeddings:
+            dense_init(self.head, k_head)
         if hasattr(self, "projector"):
-            dense_init(self.projector, draws)
+            dense_init(self.projector, k_front)
         if hasattr(self, "pos_embed"):
-            draws.add(self.pos_embed, 0.02)
-        draws.run()
+            normal_init(self.pos_embed, k_front, 0.02)
         return self
 
     # --------------------------------------------------------- forward --

@@ -24,8 +24,9 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..core import prng
 from . import attention as attn_mod
-from .layers import MLP, NormalDraws, RMSNorm, embedding_init, mlp, param, \
+from .layers import MLP, RMSNorm, embedding_init, mlp, normal_init, param, \
     rmsnorm, sinusoidal_positions, torch_dtype
 from .transformer import _remat
 
@@ -124,19 +125,28 @@ class EncDecLM(nn.Module):
 
     # ------------------------------------------------------------ init --
     def init(self, seed: int = 0) -> "EncDecLM":
-        """Random weights from ``seed`` at the reference's scales (the
-        position table at 0.02) and dtypes, drawn on CPU generators
-        (``layers.NormalDraws``): the same weights on every device, not
-        the reference's key tree."""
-        draws = NormalDraws(seed)
-        embedding_init(self.embed, draws)
-        draws.add(self.dec_pos, 0.02)
-        for block in (*self.enc_layers, *self.dec_layers):
-            for m in block.children():
-                m.reset_parameters(draws)
-        self.enc_norm.reset_parameters()
-        self.final_norm.reset_parameters()
-        draws.run()
+        """The reference's ``model.init(PRNGKey(seed))``, drawn on the
+        model's device along its key tree: ``split(key, 6)``; encoder block
+        l under ``split(ks[0], encoder_layers)[l]`` split in two (attention,
+        FFN), decoder block l under ``split(ks[1], n_layers)[l]`` split in
+        three (self-attention, cross-attention, FFN); the embedding under
+        ``ks[2]``, ``dec_pos`` at 0.02 under ``ks[3]``."""
+        cfg = self.cfg
+        ks = prng.split(prng.prng_key(seed, self.device), 6)
+        enc = prng.split(prng.split(ks[0], cfg.encoder_layers), 2)
+        dec = prng.split(prng.split(ks[1], cfg.n_layers), 3)
+        for block, (k_attn, k_ffn) in zip(self.enc_layers, enc):
+            block.attn.reset_parameters(k_attn)
+            block.ffn.reset_parameters(k_ffn)
+        for block, (k_attn, k_x, k_ffn) in zip(self.dec_layers, dec):
+            block.attn.reset_parameters(k_attn)
+            block.xattn.reset_parameters(k_x)
+            block.ffn.reset_parameters(k_ffn)
+        for m in self.modules():
+            if isinstance(m, RMSNorm):
+                m.reset_parameters()
+        embedding_init(self.embed, ks[2])
+        normal_init(self.dec_pos, ks[3], 0.02)
         return self
 
     # --------------------------------------------------------- encoder --

@@ -249,23 +249,84 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def test_backward_counts_launches_by_path():
+    """The backward counts its launches by path as the forward does; a
+    CPU tensor takes the plain loop and counts none."""
+    assert set(ops.rglru_scan_bwd.launches_by_path) == set(ops.PATHS)
+    a, b, dh = (torch.from_numpy(x) for x in _inputs((1, 5, 8), seed=2))
+    before = dict(ops.rglru_scan_bwd.launches_by_path)
+    ops.rglru_scan_bwd(a, rglru_scan_ref(a, b), dh)
+    assert ops.rglru_scan_bwd.launches_by_path == before
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 2048, 4096), (4, 2040, 4096),
-                                   (2, 1000, 130), (3, 129, 100),
-                                   (1, 1, 36), (1, 3, 7), (2, 65, 4)])
-def test_backward_kernel_matches_plain_version_on_card(cuda_device, shape):
-    """Bit for bit: the same multiply, then add, in the same order. S of
-    1 and not a multiple of the unroll, D not a multiple of 4 or 32, B =
-    1; one launch a call; and the Function's gradient is the kernel's."""
+@pytest.mark.parametrize("shape,path", [
+    ((2, 2048, 4096), "staged"), ((4, 2040, 4096), "staged"),
+    ((2, 77, 4096), "staged"), ((1, 1, 4096), "staged"),
+    ((3, 129, 100), "staged"), ((2, 77, 100), "staged"),
+    ((1, 2048, 100), "staged"), ((1, 1, 36), "staged"),
+    ((1, 77, 36), "staged"), ((2, 65, 4), "staged"),
+    ((2, 1000, 130), "loop"), ((1, 77, 130), "loop"),
+    ((1, 3, 7), "loop"), ((1, 1, 7), "loop"), ((1, 2048, 7), "loop")])
+def test_backward_kernel_matches_plain_version_on_card(cuda_device, shape,
+                                                       path):
+    """Bit for bit on both paths: the same multiply, then add, in the same
+    order. S of 1, 77 (the staged ring's short last stage) and 2048, D
+    not a multiple of 4 or 32, B = 1; one launch a call on the planned
+    path; and the Function's gradient is the kernel's."""
     a, b, dh = (torch.from_numpy(x).to(cuda_device)
                 for x in _inputs(shape, seed=sum(shape)))
     h = ops.rglru_scan(a, b)
     before = ops.rglru_scan_bwd.launches
+    by_path = dict(ops.rglru_scan_bwd.launches_by_path)
     da, db = ops.rglru_scan_bwd(a, h, dh)
     torch.cuda.synchronize()
     assert ops.rglru_scan_bwd.launches == before + 1
+    assert ops.rglru_scan_bwd.launches_by_path[path] == by_path[path] + 1
     want = rglru_scan_bwd_ref(a, h, dh)
     assert torch.equal(da, want[0]) and torch.equal(db, want[1])
     ta, tb = a.clone().requires_grad_(), b.clone().requires_grad_()
     ops.rglru_scan(ta, tb).backward(dh)
     assert torch.equal(ta.grad, da) and torch.equal(tb.grad, db)
+
+
+@pytest.mark.cuda
+def test_backward_kernel_runs_on_a_new_thread(cuda_device):
+    """The staged backward encodes its tensor maps on the calling thread,
+    which needs a current context: a thread that has made no CUDA call
+    yet (as autograd's may be) launches it all the same."""
+    import threading
+
+    shape = (2, 77, 64)
+    a, b, dh = (torch.from_numpy(x).to(cuda_device)
+                for x in _inputs(shape, seed=9))
+    h = ops.rglru_scan(a, b)
+    out = []
+    worker = threading.Thread(
+        target=lambda: out.append(ops.rglru_scan_bwd(a, h, dh)))
+    worker.start()
+    worker.join()
+    torch.cuda.synchronize()
+    assert len(out) == 1
+    want = rglru_scan_bwd_ref(a, h, dh)
+    assert torch.equal(out[0][0], want[0]) and torch.equal(out[0][1],
+                                                           want[1])
+
+
+@pytest.mark.cuda
+def test_unaligned_backward_takes_the_loop_on_card(cuda_device):
+    """A view one float past an aligned start cannot feed bulk copies: the
+    backward takes the loop there, bit for bit all the same."""
+    shape = (2, 100, 64)
+    a, b, dh = (torch.from_numpy(x).to(cuda_device)
+                for x in _inputs(shape, seed=5))
+    h = ops.rglru_scan(a, b)
+    a1 = torch.empty(a.numel() + 1, device=cuda_device)[1:].view(shape)
+    a1.copy_(a)
+    before = dict(ops.rglru_scan_bwd.launches_by_path)
+    da, db = ops.rglru_scan_bwd(a1, h, dh)
+    torch.cuda.synchronize()
+    assert ops.rglru_scan_bwd.launches_by_path == before | {
+        "loop": before["loop"] + 1}
+    want = rglru_scan_bwd_ref(a, h, dh)
+    assert torch.equal(da, want[0]) and torch.equal(db, want[1])

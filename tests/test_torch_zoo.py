@@ -156,23 +156,6 @@ def test_bias_and_head_round_trip(arch):
         convert.load_lm_reference(port, bad)
 
 
-def test_lm_init_is_independent_of_threads(monkeypatch):
-    """``LM.init`` draws its blocks on a thread pool: the same seed gives
-    the same weights on one thread as on several, and another seed
-    others."""
-    from repro_torch.models import layers
-    cfg = get_config("qwen2-7b").reduced()
-    monkeypatch.setattr(layers.NormalDraws, "BLOCK", 1 << 12)   # many blocks
-    many = build_model(cfg, device="cpu").init(3).state_dict()
-    monkeypatch.setattr(layers.os, "cpu_count", lambda: 1)
-    one = build_model(cfg, device="cpu").init(3).state_dict()
-    other = build_model(cfg, device="cpu").init(4).state_dict()
-    assert all(torch.equal(many[k], one[k]) for k in many)
-    assert not torch.equal(many["embed"], other["embed"])
-    assert float(many["embed"].std()) == pytest.approx(cfg.d_model ** -0.5,
-                                                       rel=0.05)
-
-
 def test_only_standard_rope_runs():
     """Every rope mode runs on an attention stack: "mrope" (text tokens on
     all three tracks) and "none" (the learned position table) build, hold
