@@ -1135,23 +1135,24 @@ def build_main_path(device, seed: int):
     return model, data, hp
 
 
-def make_trainer(model, data, hp, device, seed, scenario=None):
+def make_trainer(model, data, hp, device, seed, scenario=None, **kw):
     from repro_torch.fl.rwsadmm_trainer import RWSADMMTrainer
 
     return RWSADMMTrainer(model, data, hp, batch_size=MAIN["batch"],
                           zone_size=MAIN["zone"], solver="closed_form",
-                          scenario=scenario, seed=seed, device=device)
+                          scenario=scenario, seed=seed, device=device, **kw)
 
 
 def make_fleet(model, data, hp, device, seed, mode="simultaneous",
-               scenario=None):
+               scenario=None, **kw):
     from repro_torch.fl.fleet_trainer import FleetRWSADMMTrainer
 
     return FleetRWSADMMTrainer(
         model, data, hp, n_walkers=FLEET["n_walkers"],
         sync_every=FLEET["sync_every"], fleet_mode=mode,
         batch_size=MAIN["batch"], zone_size=MAIN["zone"],
-        solver="closed_form", scenario=scenario, seed=seed, device=device)
+        solver="closed_form", scenario=scenario, seed=seed, device=device,
+        **kw)
 
 
 def check_run(res, rounds: int, label: str) -> tuple[list, float]:
@@ -2061,8 +2062,8 @@ def phase_twins(device) -> dict:
 # (PERF.md §4): convergence 100 → 15, Fig. 3/4 80 → 20, the comparison
 # 200 → 30, Table 2's rounds a client 8 → 1. The quickstart keeps its 300
 # rounds (its hitting time and MB a round are held to the reference's).
-PAPER = dict(convergence_rounds=15, hyperparam_rounds=20,
-             ablation_rounds=80, comparison_rounds=30,
+PAPER = dict(convergence_rounds=8, hyperparam_rounds=10,
+             ablation_rounds=40, comparison_rounds=15,
              table2_clients=(20, 50, 100), table2_rounds_per_client=1,
              quickstart_rounds=300)
 # The reference's quickstart on the CPU (ROADMAP Queue 1 item 9): its
@@ -2201,11 +2202,11 @@ GATES = dict(n_samples=1200, n_clients=10, clients_per_round=5, rounds=60,
                                       "pfedme": 0.6, "ditto": 0.6,
                                       "apfl": 0.6, "walkman": 0.35})
 # benchmarks/table1.py's grid through its port twin; 120 rounds as there
-# for the kernel's shapes and the plain hold, the grid itself cut to 20
+# for the kernel's shapes and the plain hold, the grid itself cut to 10
 # (it took 144 s of the smoke at 120, ~67 s at 40; the 120-round grid's
 # reading is the twin's own run, PERF.md §6).
 TABLE1_ROUNDS = 120
-TABLE1_GRID_ROUNDS = 20
+TABLE1_GRID_ROUNDS = 10
 #: clients of each Table 1 dataset (``benchmarks/table1_torch.datasets``)
 TABLE1_CLIENTS = {"mnist_like": 10, "synthetic": 20}
 TABLE1_PERSONALIZED = ("perfedavg", "pfedme", "ditto", "apfl", "rwsadmm")
@@ -2224,7 +2225,7 @@ TABLE1_REFERENCE = {"mnist_like/mlr": 98.45, "mnist_like/mlp": 96.57,
 # steps part where a max-pool window holds a near-tie (the probe's
 # gradient mode), and the full-width round equals the reference's in
 # float64 (tests/test_torch_baselines.py).
-CNN_BASELINES = dict(rounds=20, walkman_rounds=80, clients_per_round=10,
+CNN_BASELINES = dict(rounds=10, walkman_rounds=40, clients_per_round=10,
                      lr=0.02, steady_rounds=10, profiled_rounds=3)
 TAKES_LR = ("fedavg", "ditto", "apfl")
 
@@ -3830,7 +3831,8 @@ def phase_lm_kernels(device, card: str) -> dict:
                                "bfloat16", device, card, False),
             *gemma3_flash_checks(device, card),
             *qwen3_flash_checks(device, card),
-            *frontend_flash_checks(device, card)],
+            *frontend_flash_checks(device, card),
+            *kimi_flash_checks(device, card)],
     }
     lap("flash_decode")
     log(f"lm kernels phase seconds by part: {seconds}")
@@ -4783,6 +4785,9 @@ MOE_FP32_LAYERS = 2
 #: 4 × 512 tokens a step, two rounds; the card-vs-CPU step on that cut
 MOE_TRAIN = dict(TRAIN, arch=MOE_ARCH, layers=1, clients=2, seq=512,
                  rounds=2)
+#: the card-vs-CPU fp32 step's tokens (cut from PARITY_STEP's 2 × 256
+#: to keep the smoke in its time)
+MOE_PARITY_SHAPE = (1, 256)
 #: a token whose top-8 set differs between the card and the CPU fails
 #: the routing check when the CPU's gap between its 8th and 9th
 #: probability exceeds this (below it, fp32 rounding may order them
@@ -4992,7 +4997,8 @@ def phase_moe(device) -> dict:
     mark("train")
     out["train"]["parity"] = lm_step_parity(device, MOE_ARCH,
                                             MOE_TRAIN["layers"],
-                                            check=moe_routing_flips)
+                                            check=moe_routing_flips,
+                                            shape=MOE_PARITY_SHAPE)
     mark("train parity")
     out["seconds"] = seconds
     log(f"moe phase seconds by part: {seconds}")
@@ -5349,9 +5355,10 @@ RG_TRAIN = dict(TRAIN, arch=LM_ARCH, cut=RG_CUT, clients=2, batch=2,
                 launches={"rglru_scan": 4, "rglru_scan_bwd": 2})
 #: the backward kernel's shape in that step
 RG_TRAIN_SCAN = (RG_TRAIN["batch"], RG_TRAIN["seq"], 4096)
-#: the card-vs-CPU fp32 step of the same cut on 1 × 128 tokens: the CPU's
-#: time goes to the 256,000-wide logits and the update of 1.55 B params
-RG_PARITY_SHAPE = (1, 128)
+#: the card-vs-CPU fp32 step of the same cut on 1 × 64 tokens (cut from
+#: 128 to keep the smoke in its time): the CPU's time goes to the
+#: 256,000-wide logits and the update of 1.55 B params
+RG_PARITY_SHAPE = (1, 64)
 #: the training driver on the card, on the reduced config (19 layers, 13
 #: of them RG-LRU)
 RG_DRIVER = dict(clients=4, rounds=4, batch=2, seq=64)
@@ -5420,6 +5427,317 @@ def phase_recurrentgemma_train(device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Meshes: the client plane under a one-rank "data" mesh, kimi-k2-1t-a32b
+# cut to one layer at full width under a one-rank ("data", "model") mesh,
+# and the dry-run on a fake 256-rank group. Each part that starts a
+# process group runs in a process of its own.
+KIMI_ARCH = "kimi-k2-1t-a32b"
+#: kimi-k2-1t-a32b at full width (d 7168, H 64 over K 8, hd 112, 384
+#: experts top-8 of width 2048 and one shared expert, vocab 163,840,
+#: bf16) cut to one layer: 19,422,670,848 parameters, 36.2 GiB; served at
+#: batch 1, a 64-token prompt and 8 new tokens
+KIMI = dict(layers=1, batch=1, prompt=64, gen=8, seed=0)
+#: the no-drop teacher pass: capacity factor E/k = 48 makes each
+#: expert's capacity T
+KIMI_NO_DROP = 48.0
+#: the bf16 teacher bound of that pass: twice the reference's own largest
+#: gap on kimi's reduced config with its routing width put back (384
+#: experts, top-8, one shared expert; d 256) at the served depth, one
+#: layer, over seeds 0-4 and the serve's 64 + 8 tokens on the CPU:
+#: 6.08e-3 (seed 1; the others 1.2e-7-1.4e-7)
+#: (``tests/test_torch_moe_probe.py --arch kimi-k2-1t-a32b --layers 1
+#: --prompt 64 --gen 8``). Deeper, the reference's own gap grows: 6.6e-3-
+#: 1.0e-2 at 4 layers, 6.3e-2-6.9e-2 at 16.
+KIMI_BF16_TEACHER = 0.0122
+#: flash decode at kimi's decode shape: B 1, H 64 over K 8 (G = 8), hd
+#: 112, the serve's 72-slot cache
+KIMI_FLASH = dict(b=1, h=64, kv=8, hd=112, s=72)
+#: the dry-run the card's torch runs: qwen3-moe-30b-a3b train_4k on the
+#: (16, 16) fake mesh, and the reference's rule count of its parameters'
+#: bytes a rank
+MESH_DRYRUN = dict(arch="qwen3-moe-30b-a3b", shape="train_4k",
+                   param_bytes_per_rank=285_622_272)
+
+
+def kimi_flash_checks(device, card: str) -> list:
+    """Flash decode at ``KIMI_FLASH`` in bf16 (the serve's last step timed
+    cold and warm beside SDPA and the bound) and fp32, and with ragged
+    lengths; each row marked ``kimi``."""
+    g = KIMI_FLASH
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        for lengths in ([g["s"]], [g["s"] - 9]):
+            timed = dtype == "bfloat16" and lengths[0] == g["s"]
+            rows.append(check_flash_decode(
+                g["b"], g["h"], g["kv"], g["hd"], g["s"], lengths, None,
+                dtype, device, card, timed) | {"kimi": True})
+    return rows
+
+
+def run_worker(part: str, timeout: int = 600) -> dict:
+    """``mesh_worker(part)`` in a process of its own (its process group,
+    its peak memory); returns the JSON object it printed last."""
+    t0 = time.perf_counter()
+    code = ("import sys; sys.path[:0] = ['src', '.']; import chip_smoke; "
+            f"chip_smoke.mesh_worker({part!r})")
+    out = subprocess.run([sys.executable, "-c", code], cwd=HERE,
+                         capture_output=True, text=True, timeout=timeout,
+                         env={**os.environ, "PYTHONPATH":
+                              os.path.join(HERE, "src")})
+    for line in out.stdout.splitlines():
+        if not line.startswith("{"):
+            print(line, flush=True)
+    if out.returncode != 0:
+        raise AssertionError(f"mesh worker {part} failed ({out.returncode})"
+                             f": {out.stdout[-2000:]} {out.stderr[-4000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    row["seconds"] = round(time.perf_counter() - t0, 1)
+    return row
+
+
+def mesh_worker(part: str) -> None:
+    """One part of the mesh phase, in its own process: ``fl`` or
+    ``kimi``. Prints its JSON object last."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda")
+    out = {"fl": mesh_fl, "kimi": mesh_kimi}[part](device)
+    print(json.dumps(out, default=str), flush=True)
+
+
+def end_leaves(trainer) -> list:
+    """A run's end state (the trainer's carry), every tensor."""
+    from repro_torch.fl.rwsadmm_trainer import _leaves
+
+    return _leaves(trainer._carry)
+
+
+def mesh_fl(device) -> dict:
+    """The main path's CNN single walker (``MAIN``: 50 rounds of
+    ``scan_fused`` in one captured window), the K = 3 fleet (``FLEET``'s
+    50 wall steps) and the lazy single walker (capacity 40, 2 windows of
+    4) each run without a mesh and under ``make_data_mesh()``'s one-rank
+    mesh, cuDNN deterministic: round metrics, history and end state
+    equal bit for bit, and the same launches (51 zone or multi-zone
+    updates and 51 draws a run)."""
+    import torch
+
+    from repro_torch.data import factory_from_federated
+    from repro_torch.launch.mesh import make_data_mesh
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    mesh = make_data_mesh()
+    seed = MAIN["seed"]
+    model, data, hp = build_main_path(device, seed)
+    factory = factory_from_federated(main_fed(seed))
+    cells = {
+        "single walker": (lambda **kw: make_trainer(model, data, hp, device,
+                                                    seed, **kw),
+                          MAIN["rounds"], "zone_update", None),
+        "fleet simultaneous": (lambda **kw: make_fleet(
+            model, data, hp, device, seed, **kw), FLEET["wall_steps"],
+            "multizone_update", None),
+        "lazy single walker": (lambda **kw: make_trainer(
+            model, factory, hp, device, seed,
+            store_capacity=LAZY["capacity"], **kw), 2 * LAZY["window"],
+            "zone_update", LAZY["window"])}
+    out = {"world_size": torch.distributed.get_world_size()}
+    for label, (make, rounds, update, window) in cells.items():
+        runs = []
+        for m in (None, mesh):
+            tr = make(mesh=m)
+            res, counts, _, losses, _ = drive(tr, rounds, seed, update,
+                                              f"{label} mesh {m is not None}",
+                                              window=window)
+            runs.append((res, counts, end_leaves(tr)))
+        (r0, c0, s0), (r1, c1, s1) = runs
+        same = {"round_metrics": r0.round_metrics == r1.round_metrics,
+                "history": r0.history == r1.history,
+                "end_state": len(s0) == len(s1) and all(
+                    torch.equal(a, b) for a, b in zip(s0, s1)),
+                "launches": c0["counts"] == c1["counts"]
+                and c0["ran"] == c1["ran"]}
+        out[label] = {"same": same, "launches": c1["counts"],
+                      "launches_run": c1["ran"], "rounds": rounds}
+        log(f"mesh {label}: one-rank mesh vs none over {rounds} rounds: "
+            f"{same}; launches {c1['counts']}, run {c1['ran']}")
+        if not all(same.values()):
+            raise AssertionError(f"mesh {label}: the one-rank mesh differs "
+                                 f"from the meshless run: {same}")
+    return out
+
+
+def mesh_kimi(device) -> dict:
+    """kimi-k2-1t-a32b at full width cut to one layer (``KIMI``), bf16,
+    weights drawn on the card at the seed: served through
+    ``launch/serve.py`` without a mesh and under a one-rank ("data",
+    "model") mesh through ``ShardingCtx`` (ZeRO-3 expert storage, one
+    shard): ids and logits bit for bit equal and 7 flash-decode launches
+    each; then the no-drop teacher check (capacity factor 48) at
+    ``KIMI_BF16_TEACHER``. Init seconds, prefill and decode ms, peak
+    memory."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_data_mesh, make_debug_mesh
+    from repro_torch.models.registry import random_batch
+    from repro_torch.models.transformer import LM, ShardingCtx
+
+    cfg = dataclasses.replace(get_config(KIMI_ARCH), n_layers=KIMI["layers"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = LM(cfg, device=device).init(KIMI["seed"])
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    b, prompt, gen = KIMI["batch"], KIMI["prompt"], KIMI["gen"]
+    max_len = prompt + gen
+    batch = random_batch(cfg, b, prompt, seed=KIMI["seed"], device=device)
+    e = cfg.moe
+    log(f"kimi: {KIMI_ARCH} cut to {cfg.n_layers} layer at full width (d "
+        f"{cfg.d_model}, H {cfg.n_heads} over K {cfg.n_kv_heads}, hd "
+        f"{cfg.hd}, {e.n_experts} experts top-{e.top_k} width "
+        f"{e.d_expert}, {e.n_shared_experts} shared, vocab {cfg.vocab}), "
+        f"{n_params:,} params, {cfg.dtype}, drawn in {init_s:.2f} s, "
+        f"{weights_gib:.2f} GiB")
+
+    def serve_once(m, label):
+        for _ in serve.generate(m, {"tokens": batch["tokens"][:, :8]}, 2,
+                                10):
+            pass    # warm-up, uncounted
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        steps = serve.generate(m, batch, gen, max_len)
+        first = next(steps)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        rest = list(steps)
+        torch.cuda.synchronize()
+        t_total = time.perf_counter() - t0
+        counts = launch_counts()
+        ids = torch.cat([first[0]] + [t for t, _ in rest], 1)
+        logits = torch.stack([first[1]] + [lg for _, lg in rest], 1)
+        row = {"prefill_ms": t_prefill * 1e3,
+               "decode_ms_per_step": (t_total - t_prefill) / (gen - 1) * 1e3,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": counts, "ids": ids[0].tolist()}
+        want = {n: 0 for n in counts} | {"flash_decode": gen - 1}
+        log(f"kimi {label}: prefill {b}x{prompt} in {row['prefill_ms']:.1f}"
+            f" ms, {gen - 1} decode steps at {row['decode_ms_per_step']:.2f}"
+            f" ms a step, peak {row['peak_gib']:.2f} GiB, launches {counts},"
+            f" ids {row['ids']}")
+        if counts != want or not bool(logits.isfinite().all()):
+            raise AssertionError(f"kimi {label}: launches {counts} (want "
+                                 f"{want}), finite "
+                                 f"{bool(logits.isfinite().all())}")
+        return row, ids, logits
+
+    out = {"params": n_params, "init_s": init_s, "weights_gib": weights_gib}
+    out["meshless"], ids0, logits0 = serve_once(model, "no mesh")
+    make_data_mesh()          # the one-rank NCCL group
+    ctx = ShardingCtx(mesh=make_debug_mesh(1, 1), zero3_moe=True)
+    par = LM(cfg, ctx, device="meta")
+    par.load_state_dict(model.state_dict(), assign=True)
+    out["mesh"], ids1, logits1 = serve_once(par, "(1, 1) mesh")
+    out["mesh_equal"] = bool(torch.equal(ids0, ids1)
+                             and torch.equal(logits0, logits1))
+    if not out["mesh_equal"]:
+        raise AssertionError("kimi: the (1, 1) mesh's ids or logits differ "
+                             "from the meshless serve's")
+    del par, logits1
+    nd = with_capacity_factor(model, KIMI_NO_DROP)
+    row, ids, logits = serve_once(nd, f"capacity factor {KIMI_NO_DROP}")
+    out["no_drop"] = row
+    out["teacher"] = teacher_forced_errors(nd, batch["tokens"], ids, logits)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    hold_teacher(out["teacher"], cfg.dtype, max_len, KIMI_BF16_TEACHER)
+    return out
+
+
+def start_dryrun(out_dir: str) -> subprocess.Popen:
+    """``python -m repro_torch.launch.dryrun`` at ``MESH_DRYRUN`` in its
+    own process (the fake 256-rank group, on the host's CPU only), started
+    now and read by :func:`mesh_dryrun`."""
+    g = MESH_DRYRUN
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         g["arch"], "--shape", g["shape"], "--out", out_dir],
+        cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": os.path.join(HERE, "src")})
+
+
+def mesh_dryrun(proc: subprocess.Popen, out_dir: str, t0: float) -> dict:
+    """The dry-run :func:`start_dryrun` started at ``t0``: the parameters'
+    bytes a rank equal the reference's rule count, the record holds the
+    expert partials' reduction over "model" and the ZeRO-3 gathers, and
+    no CUDA context was made."""
+    g = MESH_DRYRUN
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if proc.returncode != 0:
+        raise AssertionError(f"dry-run failed ({proc.returncode}): "
+                             f"{stdout[-2000:]} {stderr[-3000:]}")
+    with open(os.path.join(out_dir, f"{g['arch']}__{g['shape']}__pod1.json")
+              ) as f:
+        rec = json.load(f)
+    moe = rec["moe_collectives"]
+    row = {k: rec[k] for k in ("n_chips", "flops", "flops_per_rank",
+                               "param_bytes_per_rank",
+                               "argument_bytes_per_rank", "collectives",
+                               "moe_collectives", "device_type",
+                               "cuda_initialized", "peak_rss_bytes")}
+    row["run_seconds"] = rec["seconds"]
+    row["seconds"] = round(time.perf_counter() - t0, 1)
+    log(f"dry-run {g['arch']} {g['shape']} on {rec['n_chips']} fake ranks "
+        f"({rec['device_type']} group, torch here): params "
+        f"{rec['param_bytes_per_rank']:,} B a rank (reference "
+        f"{g['param_bytes_per_rank']:,}), arguments "
+        f"{rec['argument_bytes_per_rank']}, flops {rec['flops']:.4e} "
+        f"global, {rec['flops_per_rank']:.4e} a rank, collectives "
+        f"{rec['collectives']}, of them in the MoE layers {moe}, CUDA "
+        f"context made: {rec['cuda_initialized']}, peak RSS "
+        f"{rec['peak_rss_bytes']} B (VmHWM; None: not reported), "
+        f"{row['seconds']} s")
+    if (rec["param_bytes_per_rank"] != g["param_bytes_per_rank"]
+            or not moe.get("all-reduce", {}).get("count")
+            or not moe.get("all-gather", {}).get("count")
+            or rec["cuda_initialized"]):
+        raise AssertionError(f"dry-run record fails its gates: {row}")
+    return row
+
+
+def phase_mesh(device) -> dict:
+    """The mesh phase: the dry-run (host CPU only) started in its own
+    process, ``mesh_fl`` and ``mesh_kimi`` in processes of their own
+    meanwhile, then the dry-run's record read."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as td:
+        t0 = time.perf_counter()
+        dry = start_dryrun(td)
+        try:
+            out = {"fl": run_worker("fl"), "kimi": run_worker("kimi", 900)}
+        except BaseException:
+            dry.kill()
+            dry.wait()
+            raise
+        out["dryrun"] = mesh_dryrun(dry, td, t0)
+    return out
+
+
 _RW_SOURCE = "src/repro_torch/kernels/rwsadmm_update/csrc/zone_update.cu"
 _TF_SOURCE = "src/repro_torch/kernels/threefry/csrc/threefry.cu"
 SOURCE = {"zone_update": _RW_SOURCE, "multizone_update": _RW_SOURCE,
@@ -5557,6 +5875,8 @@ def main() -> int:
     paths["vlm"] = run_phase("vlm", phase_vlm, device)
     paths["recurrentgemma_train"] = run_phase(
         "recurrentgemma train", phase_recurrentgemma_train, device)
+    torch.cuda.empty_cache()
+    paths["mesh"] = run_phase("mesh", phase_mesh, device)
     # the scan's backward on its main path: the full-width training run,
     # driven with the counts at 0 (the forward's: the serve path's)
     rg_train = paths["recurrentgemma_train"]
@@ -5585,6 +5905,18 @@ def main() -> int:
            for path in ("recompute", "projected")},
         VLM_ARCH: vl["launches"]["flash_decode"],
         f"{VLM_ARCH}-fp32": vl["float32"]["launches"]["flash_decode"]}
+    # the mesh phase's runs, each driven with the counts at 0 in its own
+    # process: the client plane without and under the one-rank mesh, and
+    # kimi-k2-1t-a32b's serves
+    mesh = paths["mesh"]
+    mesh_launches = {
+        f"{label} {k}": mesh["fl"][label][k][update]
+        for label, update in (("single walker", "zone_update"),
+                              ("fleet simultaneous", "multizone_update"),
+                              ("lazy single walker", "zone_update"))
+        for k in ("launches", "launches_run")}
+    kimi_launches = {f"{KIMI_ARCH}-1l-{k}": mesh["kimi"][k]["launches"][
+        "flash_decode"] for k in ("meshless", "mesh", "no_drop")}
 
     # Every kernel's "ms" is its device time per call with a cold L2.
     extra = ("ms_warm", "graph_ms", "graph_ms_warm", "library_ms_warm",
@@ -5615,6 +5947,10 @@ def main() -> int:
             row["ptxas"] = {e: v for e, v in ptxas.items()
                             if e.startswith(kernel) and (
                                 kernel != "rglru_scan" or "_bwd" not in e)}
+        if kernel in ("zone_update", "multizone_update"):
+            row["launches_mesh"] = {k: v for k, v in mesh_launches.items()
+                                    if ("fleet" in k) == (
+                                        kernel == "multizone_update")}
         if kernel in ("rglru_scan", "rglru_scan_bwd"):
             row["launches_train"] = rg_train["launches"][kernel]
             row["launches_train_driver"] = rg_train["driver"]["launches"][
@@ -5643,7 +5979,10 @@ def main() -> int:
             row["launches_zoo"] = zoo_launches
             row["launches_moe"] = moe_launches
             row["launches_frontends"] = frontend_launches
-            shapes = [("gemma3_shape", g3), ("qwen3_shape", q3)] + [
+            row["launches_kimi"] = kimi_launches
+            k3 = next(r for r in checks if r.get("kimi") and "ms" in r)
+            shapes = [("gemma3_shape", g3), ("qwen3_shape", q3),
+                      ("kimi_shape", k3)] + [
                 (f"{key}_shape", next(r for r in checks
                                       if r.get(key) and "ms" in r))
                 for key in FRONTEND_FLASH]

@@ -17,3 +17,13 @@ REGISTRY = {
     "walkman": WalkmanTrainer,
 }
 
+
+
+def get_baseline(name: str):
+    """The trainer class of baseline ``name`` (any case)."""
+    try:
+        return REGISTRY[name.lower()]
+    except KeyError as e:
+        raise ValueError(
+            f"unknown baseline {name!r}; options: {sorted(REGISTRY)}"
+        ) from e

@@ -32,11 +32,12 @@ class APFLTrainer(CohortTrainer):
     def __init__(self, model, data, *, alpha: float = 0.5, lr: float = 0.05,
                  local_steps: int = 10, clients_per_round: int = 10,
                  batch_size: int = 20, device=None, scenario=None,
-                 seed: int = 0, telemetry=None, **unported):
+                 seed: int = 0, telemetry=None, mesh=None, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
                          scenario=scenario, seed=seed,
-                         telemetry=telemetry)
+                         telemetry=telemetry,
+                         mesh=mesh)
         self.m = int(min(clients_per_round, self.n_clients))
         self.alpha, self.lr = alpha, lr
         self.local_steps = local_steps

@@ -32,11 +32,12 @@ class DittoTrainer(CohortTrainer):
                  local_steps: int = 10, personal_steps: int = 5,
                  clients_per_round: int = 10, batch_size: int = 20,
                  device=None, scenario=None, seed: int = 0, telemetry=None,
-                 **unported):
+                 mesh=None, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
                          scenario=scenario, seed=seed,
-                         telemetry=telemetry)
+                         telemetry=telemetry,
+                         mesh=mesh)
         self.m = int(min(clients_per_round, self.n_clients))
         self.lam, self.lr = lam, lr
         self.local_steps, self.personal_steps = local_steps, personal_steps

@@ -41,11 +41,12 @@ class PerFedAvgTrainer(CohortTrainer):
                  clients_per_round: int = 10,
                  batch_size: int = 20, device=None, scenario=None,
                  seed: int = 0, telemetry=None, store_capacity: int = 4096,
-                 prefetch: bool = False, **unported):
+                 prefetch: bool = False, mesh=None, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
                          scenario=scenario, seed=seed, telemetry=telemetry,
-                         store_capacity=store_capacity, prefetch=prefetch)
+                         store_capacity=store_capacity, prefetch=prefetch,
+                         mesh=mesh)
         self.alpha, self.beta = alpha, beta
         self.local_steps = local_steps
         self.m = int(min(clients_per_round, self.n_clients))

@@ -32,10 +32,11 @@ class WalkmanTrainer(TrainerBase):
     def __init__(self, model, data, *, beta: float = 3.0,
                  min_degree: int = 5, regen_every: int = 10,
                  batch_size: int = 20, scenario=None, seed: int = 0,
-                 device=None, telemetry=None, **unported):
+                 device=None, telemetry=None, mesh=None, **unported):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
-                         telemetry=telemetry)
+                         telemetry=telemetry,
+                         mesh=mesh)
         self.beta = beta
         self._seed = int(seed)
         self._min_degree = int(min_degree)

@@ -1,7 +1,7 @@
 """Architecture configs the port runs (a copy of the JAX package's config
 system, registering the architectures whose layers the port has)."""
-from .base import ModelConfig, MoESpec, get_config, list_archs, \
-    register  # noqa: F401
+from .base import INPUT_SHAPES, LONG_OK, InputShape, ModelConfig, \
+    MoESpec, get_config, list_archs, register  # noqa: F401
 # Importing these modules registers them.
 from . import (  # noqa: F401,E402
     gemma3_12b,
@@ -15,3 +15,17 @@ from . import (  # noqa: F401,E402
     xlstm_350m,
     yi_34b,
 )
+
+#: every registered architecture, in the reference's order
+ALL_ARCHS = [
+    "qwen2-7b",
+    "xlstm-350m",
+    "whisper-large-v3",
+    "kimi-k2-1t-a32b",
+    "tinyllama-1.1b",
+    "recurrentgemma-9b",
+    "gemma3-12b",
+    "qwen2-vl-2b",
+    "yi-34b",
+    "qwen3-moe-30b-a3b",
+]

@@ -179,6 +179,32 @@ class ModelConfig:
         )
 
 
+# ---------------------------------------------------------------- shapes --
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    """One input shape of the dry-run (``launch/dryrun.py``): a training
+    step, a prefill or a decode step at ``global_batch`` × ``seq_len``
+    (for decode, the KV caches' length)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
+#: the architectures the dry-run takes to long_500k: the sub-quadratic
+#: mixers (recurrent, or sliding-window attention in most layers); a full
+#: attention stack and whisper's 448-token decoder are skipped there
+LONG_OK = {"xlstm-350m", "recurrentgemma-9b", "gemma3-12b"}
+
+
 _REGISTRY: dict[str, ModelConfig] = {}
 
 

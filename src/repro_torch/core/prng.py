@@ -116,15 +116,17 @@ def normal_blocks(key: torch.Tensor, shape, block: int = NORMAL_BLOCK):
     time: yields ``(r0, r1, rows)``, ``rows`` the draw's rows ``r0:r1``
     along its last axis (``(r1 − r0, shape[-1])``; a 0- or 1-D shape is
     one row), at most ``block`` values unless one row holds more. Element
-    i of a draw hashes the counter i, its row-major index, so rows r0:r1
-    are the counters from r0·row on, and no block makes the whole
-    draw's bits."""
+    i of a draw hashes the counter i, its row-major index as a 64-bit
+    (high, low) word pair (JAX's partitionable threefry), so rows r0:r1
+    are the counters from r0·row on, a draw may pass 2^32 values (kimi's
+    (384, 7168, 2048) experts), and no block makes the whole draw's
+    bits."""
     shape = tuple(shape)
     if key.shape != (2,):
         raise ValueError(f"one key (2,), got {tuple(key.shape)}")
     total, row = math.prod(shape), (shape[-1] if shape else 1)
-    if total >= 2**32:
-        raise ValueError(f"a draw of {total} values passes the 32-bit "
+    if total > 2**64:
+        raise ValueError(f"a draw of {total} values passes the 64-bit "
                          f"counters")
     rows = total // row if row else 0
     step = max(1, block // max(row, 1))

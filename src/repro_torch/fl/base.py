@@ -133,10 +133,8 @@ def gather_batch(data: DeviceData, clients: torch.Tensor,
 EVAL_CHUNK = 32
 
 #: the reference trainers' arguments the port does not take yet, and the
-#: ROADMAP Queue 1 item that brings each
-UNPORTED = {
-    "mesh": "item 8.7 (mesh and sharding)",
-}
+#: ROADMAP Queue 1 item that brings each (none left)
+UNPORTED: dict[str, str] = {}
 
 
 def reject_unported(kwargs: dict) -> None:
@@ -183,7 +181,7 @@ class TrainerBase:
 
     def __init__(self, model: SmallModel, data, batch_size: int = 20, *,
                  device=None, telemetry=None, store_capacity: int = 4096,
-                 prefetch: bool = False):
+                 prefetch: bool = False, mesh=None):
         self.device = resolve_device(device)
         lazy = not isinstance(data, DeviceData)
         if lazy and not self.lazy_capable:
@@ -199,18 +197,37 @@ class TrainerBase:
                              f"on {self.device}")
         self.model = model
         self.client_plane = "lazy" if lazy else "dense"
+        # The sharded client plane (fl/sharding.py): with a mesh, each rank
+        # holds its block of the leading client (dense) or capacity (lazy)
+        # axis; ``plane`` does the rows' gathers and writes. None: every
+        # row here, every op the plain one.
+        self.fl_sharding = None
+        self.plane = None
+        if mesh is not None:
+            from .sharding import FLSharding
+
+            self.fl_sharding = (mesh if isinstance(mesh, FLSharding)
+                                else FLSharding(mesh))
         self.store = None
         if lazy:
             from .client_store import ClientStore
 
             self.store = ClientStore(data, int(store_capacity),
-                                     device=self.device, prefetch=prefetch)
+                                     device=self.device, prefetch=prefetch,
+                                     sharding=self.fl_sharding)
             # Rounds index the store's packed block by slot; the block is
             # allocated once and written in place, so this binding (and
             # every captured window that reads it) stays valid.
             self.data = self.store.data
+            self.plane = self.store.plane
         else:
             self.data = data
+            if self.fl_sharding is not None:
+                self.plane = self.fl_sharding.plane(data.n_clients)
+                # the (n,) counts stay whole: every rank draws the batches
+                self.data = DeviceData(*(
+                    col if name == "n_train" else self.plane.local(col)
+                    for name, col in zip(DeviceData._fields, data)))
         self.batch_size = int(batch_size)
         self.n_clients = data.n_clients
         self.layout = ParamLayout.from_module(model)
@@ -349,11 +366,41 @@ class TrainerBase:
         return self.batch_draws(clients, prng.split(key, clients.shape[0]),
                                 split=steps)
 
+    # -- the client plane's rows (plain ops without a sharded plane) ------
+    def take_rows(self, t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        """Rows ``idx`` (client ids, or store slots) of a plane leaf."""
+        return t[idx] if self.plane is None else self.plane.take(t, idx)
+
+    def add_rows_(self, t: torch.Tensor, idx: torch.Tensor,
+                  values: torch.Tensor) -> torch.Tensor:
+        """``t.index_add_(0, idx, values)`` on a plane leaf."""
+        if self.plane is None:
+            return t.index_add_(0, idx, values)
+        return self.plane.index_add_(t, idx, values)
+
+    def local_rows(self, rows: slice) -> slice:
+        """A slice of global rows of this rank's block as a slice of its
+        plane leaves."""
+        if self.plane is None or not self.plane.sharded:
+            return rows
+        return slice(rows.start - self.plane.lo, rows.stop - self.plane.lo)
+
+    def whole_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """A plane leaf whole, every rank's block gathered."""
+        return t if self.plane is None else self.plane.whole(t)
+
+    def _gather_batch(self, clients: torch.Tensor, idx: torch.Tensor):
+        if self.plane is None:
+            return gather_batch(self.data, clients, idx)
+        rows = clients.unsqueeze(-1)
+        return (self.plane.take2(self.data.x_train, rows, idx),
+                self.plane.take2(self.data.y_train, rows, idx))
+
     def zone_loss_and_grad(self, x: torch.Tensor, clients: torch.Tensor,
                            idx: torch.Tensor, keep=None):
         """Per-client training loss and gradient at the zone's rows.
         ``x``: ``(Z, P)`` flat params; returns ``(losses (Z,), g (Z, P))``."""
-        xb, yb = gather_batch(self.data, clients, idx)
+        xb, yb = self._gather_batch(clients, idx)
         params = self.layout.views(x)
         grads, losses = self._grad_zone(params, xb, yb, keep)
         return losses, self.layout.flatten(grads, batch_dims=1)
@@ -389,16 +436,21 @@ class TrainerBase:
 
     def _eval_rows(self, state, pers_rows):
         """Per-row test accuracy and loss of the personalized models
-        (``pers_rows(rows)`` → ``(rows, P)`` or None) and the global model
-        over ``self.data``'s rows, in chunks of ``EVAL_CHUNK`` to bound
-        activation memory: ``(pers (acc, loss) or None, glob or None)``."""
+        (``pers_rows(rows)`` → ``(rows, P)`` or None, ``rows`` a slice of
+        global rows) and the global model over the plane's rows, in chunks
+        of ``EVAL_CHUNK`` to bound activation memory: ``(pers (acc, loss)
+        or None, glob or None)``. On a sharded plane each rank takes its
+        block's rows and the results are gathered whole."""
         d = self.data
-        rows_n = d.n_clients
+        lo, hi = 0, d.x_test.shape[0]
+        if self.plane is not None and self.plane.sharded:
+            lo, hi = self.plane.lo, self.plane.hi
         pers_acc, pers_loss, glob_acc, glob_loss = [], [], [], []
         glob = self.global_params(state)
-        for c0 in range(0, rows_n, EVAL_CHUNK):
-            rows = slice(c0, min(c0 + EVAL_CHUNK, rows_n))
-            cols = (d.x_test[rows], d.y_test[rows], d.mask_test[rows])
+        for c0 in range(lo, hi, EVAL_CHUNK):
+            rows = slice(c0, min(c0 + EVAL_CHUNK, hi))
+            here = self.local_rows(rows)
+            cols = (d.x_test[here], d.y_test[here], d.mask_test[here])
             pers = pers_rows(rows)
             if pers is not None:
                 a, l_ = self._eval_stacked(self.layout.views(pers), *cols)
@@ -409,7 +461,10 @@ class TrainerBase:
                 glob_acc.append(a)
                 glob_loss.append(l_)
         def cat(acc, loss):
-            return (torch.cat(acc), torch.cat(loss)) if acc else None
+            if not acc:
+                return None
+            return (self.whole_rows(torch.cat(acc)),
+                    self.whole_rows(torch.cat(loss)))
         return cat(pers_acc, pers_loss), cat(glob_acc, glob_loss)
 
     @torch.no_grad()
@@ -448,7 +503,7 @@ class TrainerBase:
         pers_all = self._lazy_personalized_rows(state)
         pers, glob = self._eval_rows(
             state, lambda rows: None if pers_all is None
-            else pers_all[rows])
+            else pers_all[self.local_rows(rows)])
 
         def stats(pair):
             return tuple(t.cpu().numpy()[occ] for t in pair)
@@ -555,10 +610,11 @@ class CohortTrainer(TrainerBase):
 
     def __init__(self, model: SmallModel, data, batch_size: int = 20, *,
                  device=None, scenario=None, seed: int = 0, telemetry=None,
-                 store_capacity: int = 4096, prefetch: bool = False):
+                 store_capacity: int = 4096, prefetch: bool = False,
+                 mesh=None):
         super().__init__(model, data, batch_size, device=device,
                          telemetry=telemetry, store_capacity=store_capacity,
-                         prefetch=prefetch)
+                         prefetch=prefetch, mesh=mesh)
         if scenario is not None:
             self.attach_scenario(scenario, seed=seed)
 

@@ -125,10 +125,16 @@ class ClientStore:
         device runs; the next :meth:`ensure` joins the thread and takes
         the staged rows. The factory is pure, so prefetch on ≡ off bit
         for bit.
+    sharding: an ``fl.sharding.FLSharding`` (or None): each rank then
+        holds its block of the capacity axis, of the packed state and of
+        the data block (``n_train`` whole), and reads and writes rows
+        through ``plane``; the host map, LRU order and spill are the same
+        on every rank.
     """
 
     def __init__(self, factory: ClientDataFactory, capacity: int, *,
-                 device: torch.device, prefetch: bool = False):
+                 device: torch.device, prefetch: bool = False,
+                 sharding=None):
         self.factory = factory
         self.capacity = int(capacity)
         self.n_clients = int(factory.n_clients)
@@ -139,13 +145,16 @@ class ClientStore:
         self.telemetry = None   # set by the owning trainer
         self._template: tuple | None = None
         self._uploads = _Uploads(device)
+        self.plane = (None if sharding is None
+                      else sharding.plane(self.capacity))
         # The packed data block, allocated once: captured windows read it
         # by address, so reset() and ensure() write it in place.
         f, cap = factory, self.capacity
+        rows = self.local_capacity
         feat = tuple(f.feature_shape)
-        shapes = ((cap, f.max_train) + feat, (cap, f.max_train), (cap,),
-                  (cap, f.max_test) + feat, (cap, f.max_test),
-                  (cap, f.max_test))
+        shapes = ((rows, f.max_train) + feat, (rows, f.max_train), (cap,),
+                  (rows, f.max_test) + feat, (rows, f.max_test),
+                  (rows, f.max_test))
         self.data = DeviceData(*(torch.zeros(s, dtype=d, device=device)
                                  for s, d in zip(shapes, _DATA_DTYPES)))
         # id → slot (-1 = not resident), slot → id (-1 = free)
@@ -169,6 +178,21 @@ class ClientStore:
         return STORE_COUNTERS + (PREFETCH_COUNTERS
                                  if self.prefetch_enabled else ())
 
+    @property
+    def local_capacity(self) -> int:
+        """The slots this rank holds rows of."""
+        return (self.capacity if self.plane is None
+                else self.plane.hi - self.plane.lo)
+
+    def _copy_rows_(self, t: torch.Tensor, idx: torch.Tensor,
+                    rows: torch.Tensor) -> None:
+        """``t.index_copy_(0, idx, rows)`` on a leaf of the capacity axis
+        (this rank's rows of it when sharded)."""
+        if self.plane is None:
+            t.index_copy_(0, idx, rows)
+        else:
+            self.plane.index_copy_(t, idx, rows)
+
     # ------------------------------------------------------------- init --
     def reset(self, template):
         """(Re)initialize for a fresh run: remember the single-client init
@@ -191,7 +215,7 @@ class ClientStore:
         for col in self.data:
             col.zero_()
         self.data.n_train.fill_(1)
-        return _like(template, (t.expand(self.capacity, -1).clone()
+        return _like(template, (t.expand(self.local_capacity, -1).clone()
                                 for t in self._template))
 
     # ------------------------------------------------------ introspection --
@@ -341,7 +365,8 @@ class ClientStore:
         on the current stream, copied into pinned memory, read after an
         event recorded behind them."""
         idx = torch.as_tensor(slots, device=self.device)
-        rows = [leaf.index_select(0, idx) for leaf in clients]
+        rows = [leaf.index_select(0, idx) if self.plane is None
+                else self.plane.take(leaf, idx) for leaf in clients]
         if self.device.type != "cuda":
             return [r.numpy() for r in rows]
         host = [torch.empty(r.shape, dtype=r.dtype, pin_memory=True)
@@ -375,14 +400,14 @@ class ClientStore:
         if len(fresh):
             idx = torch.as_tensor(fresh, device=self.device)
             for leaf, row in zip(clients, self._template):
-                leaf.index_copy_(0, idx, row.expand(len(fresh), -1))
+                self._copy_rows_(leaf, idx, row.expand(len(fresh), -1))
         sp_ids = ids[restored]
         if len(sp_ids):
             idx = torch.as_tensor(slots[restored], device=self.device)
             for j, leaf in enumerate(clients):
                 rows = np.stack([self._spill[int(i)][j] for i in sp_ids])
                 self.restored_bytes += rows.nbytes
-                leaf.index_copy_(0, idx, self._uploads.put(
+                self._copy_rows_(leaf, idx, self._uploads.put(
                     f"state{j}", rows, leaf.dtype))
             for i in sp_ids:
                 del self._spill[int(i)]
@@ -390,9 +415,13 @@ class ClientStore:
     def _write_data_rows(self, ids: np.ndarray, slots: np.ndarray) -> None:
         rows = self._materialize_rows(ids)
         idx = torch.as_tensor(slots, device=self.device)
-        for j, (col, r) in enumerate(zip(self.data, rows)):
-            col.index_copy_(0, idx, self._uploads.put(f"data{j}", r,
-                                                      col.dtype))
+        for j, (name, col, r) in enumerate(zip(DeviceData._fields,
+                                               self.data, rows)):
+            up = self._uploads.put(f"data{j}", r, col.dtype)
+            if name == "n_train":     # whole on every rank
+                col.index_copy_(0, idx, up)
+            else:
+                self._copy_rows_(col, idx, up)
 
     def _materialize_rows(self, ids: np.ndarray):
         """Dataset rows for ``ids`` in order: from the staging buffer

@@ -163,7 +163,8 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         hp = self.hp
         k_walkers, zone = idx.shape
         flat_idx, flat_mask = idx.reshape(-1), mask.reshape(-1)
-        act_x, act_z = clients.x[flat_idx], clients.z[flat_idx]
+        act_x = self.take_rows(clients.x, flat_idx)
+        act_z = self.take_rows(clients.z, flat_idx)
         if batch_idx is None:
             batch_idx, keep = self.zone_batch_indices(flat_idx, key)
         losses, grads = self.zone_loss_and_grad(act_x, flat_idx, batch_idx,
@@ -189,10 +190,10 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         # One scatter for all K zones: the planner keeps them disjoint,
         # and padding repeats id 0 with a zero delta.
         m = flat_mask.unsqueeze(-1)
-        clients.x.index_add_(0, flat_idx,
-                             m * (x_new.reshape(act_x.shape) - act_x))
-        clients.z.index_add_(0, flat_idx,
-                             m * (z_new.reshape(act_z.shape) - act_z))
+        self.add_rows_(clients.x, flat_idx,
+                       m * (x_new.reshape(act_x.shape) - act_x))
+        self.add_rows_(clients.z, flat_idx,
+                       m * (z_new.reshape(act_z.shape) - act_z))
         tokens = _rendezvous(y_new, sync)
         served = torch.zeros(self.n_clients, device=self.device)
         visited = state.base.visited | (served.index_add_(

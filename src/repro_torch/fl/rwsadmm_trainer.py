@@ -187,12 +187,14 @@ class RWSADMMTrainer(TrainerBase):
         telemetry=None,                   # TelemetryRun or None (off)
         seed: int = 0,
         device=None,
+        mesh=None,                        # DeviceMesh / FLSharding:
+                                          # client rows over "data"
         **unported,
     ):
         reject_unported(unported)
         super().__init__(model, data, batch_size, device=device,
                          telemetry=telemetry, store_capacity=store_capacity,
-                         prefetch=prefetch)
+                         prefetch=prefetch, mesh=mesh)
         if solver not in SOLVERS:
             raise ValueError(f"solver must be one of {SOLVERS}, got {solver}")
         self.hp = hp
@@ -252,7 +254,8 @@ class RWSADMMTrainer(TrainerBase):
                 "histograms of the dense client plane; the lazy plane "
                 "never materializes them")
         hist = partition.padded_label_histograms(
-            self.data.y_train.cpu().numpy(), self.data.n_train.cpu().numpy())
+            self.whole_rows(self.data.y_train).cpu().numpy(),
+            self.data.n_train.cpu().numpy())
         return partition.label_skew_weights(hist, gamma=self.walk_bias)
 
     def _price(self, graph, i_k, idx, mask):
@@ -286,6 +289,8 @@ class RWSADMMTrainer(TrainerBase):
         else:
             clients, server = rwsadmm.init_states(params, self.hp,
                                                   self.n_clients)
+        if self.store is None and self.fl_sharding is not None:
+            clients = self.fl_sharding.shard_rows(clients)
         visited = torch.zeros(self.n_clients, dtype=torch.bool,
                               device=self.device)
         return RWSADMMState(clients=clients, server=server, visited=visited)
@@ -321,7 +326,8 @@ class RWSADMMTrainer(TrainerBase):
         and the zone's mean training loss as a 0-d device tensor."""
         clients, server = state.clients, state.server
         hp, kappa, y = self.hp, server.kappa, server.y
-        act = ClientState(x=clients.x[zone_idx], z=clients.z[zone_idx])
+        act = ClientState(x=self.take_rows(clients.x, zone_idx),
+                          z=self.take_rows(clients.z, zone_idx))
         steps = None if self.solver == "closed_form" else self.inner_steps
         if batch_idx is None:
             batch_idx, keep = self.zone_batch_indices(zone_idx, key, steps)
@@ -379,8 +385,8 @@ class RWSADMMTrainer(TrainerBase):
 
         # Scatter the active deltas back in place (zone ids are unique;
         # padded slots add m·Δ = ±0.0 to client 0's row, as the reference).
-        clients.x.index_add_(0, zone_idx, m * (x_new - act.x))
-        clients.z.index_add_(0, zone_idx, m * (z_new - act.z))
+        self.add_rows_(clients.x, zone_idx, m * (x_new - act.x))
+        self.add_rows_(clients.z, zone_idx, m * (z_new - act.z))
         server = rwsadmm.server_round_done(server, y_new, hp)
         # Padding repeats id 0, so mark by summing the mask per client
         # (order-free) rather than by a racy scatter of booleans.
@@ -627,7 +633,8 @@ class RWSADMMTrainer(TrainerBase):
                           "(resident-set metrics) or read trainer.store")
         base = getattr(state, "base", state)
         v = base.visited[rows].unsqueeze(-1)
-        return torch.where(v, base.clients.x[rows], self._eval_token(state))
+        return torch.where(v, base.clients.x[self.local_rows(rows)],
+                           self._eval_token(state))
 
     def _refuse_lazy(self, why: str) -> None:
         if self.store is not None:
@@ -648,6 +655,8 @@ class RWSADMMTrainer(TrainerBase):
         ids = torch.as_tensor(np.where(occ, store.gid_of, 0),
                               device=self.device)
         v = base.visited[ids] & torch.as_tensor(occ, device=self.device)
+        if self.plane is not None and self.plane.sharded:
+            v = v[self.plane.lo:self.plane.hi]
         return torch.where(v.unsqueeze(-1), base.clients.x,
                            self._eval_token(state))
 
@@ -669,6 +678,9 @@ class RWSADMMTrainer(TrainerBase):
         self._refuse_lazy("lyapunov iterates all n clients' data, a "
                           "dense-plane diagnostic; run it on a dense twin "
                           "at small n")
+        if self.plane is not None and self.plane.sharded:
+            raise NotImplementedError("lyapunov reads every client's rows "
+                                      "on one rank; run it without a mesh")
         clients = torch.arange(self.n_clients, device=self.device)
         idx, _ = prng.draws(key.expand(self.n_clients, 2),
                             batch=self.batch_size, spans=self.data.n_train,

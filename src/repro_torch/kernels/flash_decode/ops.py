@@ -18,7 +18,7 @@ from pathlib import Path
 
 import torch
 
-from .. import _build, refuse_grad
+from .. import _build, is_dtensor, local_call, refuse_grad
 from .ref import flash_decode_ref
 
 _SOURCE = Path(__file__).parent / "csrc" / "flash_decode.cu"
@@ -104,6 +104,13 @@ def flash_decode(q, k, v, length, *, window: int | None = None):
     its KV head in k/v (B, S, K, hd): key t of batch b is valid when
     t < length[b] and, with a window, t ≥ length[b] − window. Returns
     (B, H, hd) in q's dtype."""
+    if is_dtensor(q):
+        return local_call(
+            lambda *t: flash_decode(*t, window=window), (q, k, v, length),
+            keep={0}, out_shapes=(q.shape,))
+    if q.device.type == "meta":
+        return torch.ops.repro_torch.flash_decode(q, k, v, length,
+                                                  window or 0)
     _check(q, k, v, length, window)
     if q.device.type == "cpu":
         return flash_decode_ref(q, k, v, length, window=window)
@@ -137,3 +144,20 @@ def flash_decode(q, k, v, length, *, window: int | None = None):
 
 
 flash_decode.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_decode", mutates_args=())
+def _flash_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     length: torch.Tensor, window: int) -> torch.Tensor:
+    """:func:`flash_decode` as an op (``window`` 0: none), for shapes
+    only: meta tensors reach it."""
+    return flash_decode(q, k, v, length, window=window or None)
+
+
+@_flash_decode_op.register_fake
+def _(q, k, v, length, window):
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q must be (B, H, hd) and k, v (B, S, K, hd), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    return torch.empty_like(q)

@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-from .. import _build
+from .. import _build, is_dtensor, local_call
 from .ref import rglru_scan_bwd_ref, rglru_scan_ref
 
 _SOURCE = Path(__file__).parent / "csrc" / "rglru_scan.cu"
@@ -151,6 +151,11 @@ def rglru_scan_bwd(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
     device → (da, db), the gradients of Σ dh ⊙ h: g_t = dh_t +
     a_{t+1} g_{t+1} from g_{S−1} = dh_{S−1}, db = g, da_t = g_t h_{t−1}
     (da_0 = 0)."""
+    if is_dtensor(a):
+        return local_call(rglru_scan_bwd, (a, h, dh), keep={0, 2},
+                          out_shapes=(a.shape, a.shape))
+    if a.device.type == "meta":
+        return torch.ops.repro_torch.rglru_scan_bwd(a, h, dh)
     _check(a=a, h=h, dh=dh)
     if a.device.type == "cpu":
         return rglru_scan_bwd_ref(a, h, dh)
@@ -190,8 +195,49 @@ class _Scan(torch.autograd.Function):
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: (B, S, D) fp32, contiguous, on one device → h (B, S, D) with
     h_t = a_t h_{t−1} + b_t and h_{−1} = 0; differentiable in a and b."""
+    if is_dtensor(a):
+        return local_call(rglru_scan, (a, b), keep={0, 2},
+                          out_shapes=(a.shape,))
+    if a.device.type == "meta":
+        return torch.ops.repro_torch.rglru_scan(a, b)
     _check(a=a, b=b)
     return _Scan.apply(a, b)
+
+
+# Shapes only (meta tensors): the scan and its backward as ops with fake
+# implementations and the scan's autograd.
+
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _scan_op(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return _forward(a, b)
+
+
+@_scan_op.register_fake
+def _(a, b):
+    return torch.empty_like(a)
+
+
+@torch.library.custom_op("repro_torch::rglru_scan_bwd", mutates_args=())
+def _scan_bwd_op(a: torch.Tensor, h: torch.Tensor, dh: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    return rglru_scan_bwd(a, h, dh)
+
+
+@_scan_bwd_op.register_fake
+def _(a, h, dh):
+    return torch.empty_like(a), torch.empty_like(a)
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(inputs[0], output)
+
+
+def _scan_backward(ctx, dh):
+    a, h = ctx.saved_tensors
+    return torch.ops.repro_torch.rglru_scan_bwd(a, h, dh.contiguous())
+
+
+_scan_op.register_autograd(_scan_backward, setup_context=_scan_setup)
 
 
 rglru_scan.launches = 0

@@ -21,7 +21,7 @@ from torch import nn
 from ..core import prng
 from ..kernels.flash_decode.ops import flash_decode
 from .layers import apply_mrope, apply_rope, dense_init, param, \
-    text_mrope_positions, torch_dtype
+    reshape, text_mrope_positions, torch_dtype
 
 NEG_INF = -1e30
 
@@ -65,8 +65,8 @@ def _project_qkv(p, x, x_kv, cfg):
     q, k, v = x @ p.wq, x_kv @ p.wk, x_kv @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return (q.reshape(b, s, h, hd), k.reshape(b, t, kv, hd),
-            v.reshape(b, t, kv, hd))
+    return (reshape(q, (b, s, h, hd)), reshape(k, (b, t, kv, hd)),
+            reshape(v, (b, t, kv, hd)))
 
 
 def _rope_qk(q, k, positions, cfg):
@@ -93,7 +93,7 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int | None,
     t, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     scale = 1.0 / np.sqrt(hd)
-    qg = q.reshape(b, s, kvh, g, hd)
+    qg = reshape(q, (b, s, kvh, g, hd))
     kf, vf = k.float(), v.float()
     kpos = torch.arange(t, device=q.device)
     outs = []
@@ -109,7 +109,7 @@ def _chunked_attention(q, k, v, *, causal: bool, window: int | None,
         scores = torch.where(mask, scores, NEG_INF)
         w = torch.softmax(scores, dim=-1)
         outs.append(torch.einsum("bkgqt,btkh->bqkgh", w, vf).to(q.dtype))
-    return torch.cat(outs, dim=1).reshape(b, s, h * hd)
+    return reshape(torch.cat(outs, dim=1), (b, s, h * hd))
 
 
 def attention(p, x, positions, cfg, *, kind: str = "attn", x_kv=None,
@@ -195,7 +195,7 @@ def decode_attention(p, x, cache: KVCache, cfg, *, kind: str = "attn"):
     n_valid = min(pos + 1, size) if kind == "local" else pos + 1
     length = torch.full((b,), n_valid, dtype=torch.int32, device=x.device)
     out = flash_decode(q[:, 0].contiguous(), cache.k, cache.v, length)
-    out = out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype)
+    out = reshape(out, (b, 1, cfg.n_heads * cfg.hd)).to(x.dtype)
     return out @ p.wo, KVCache(k=cache.k, v=cache.v, length=pos + 1)
 
 
@@ -207,7 +207,7 @@ def cross_kv(p, enc: torch.Tensor, cfg) -> tuple[torch.Tensor, torch.Tensor]:
     if cfg.qkv_bias:
         k, v = k + p.bk, v + p.bv
     shape = (b, t, cfg.n_kv_heads, cfg.hd)
-    return k.reshape(shape), v.reshape(shape)
+    return reshape(k, shape), reshape(v, shape)
 
 
 def cross_decode_attention(p, x, k, v, cfg) -> torch.Tensor:
@@ -219,8 +219,8 @@ def cross_decode_attention(p, x, k, v, cfg) -> torch.Tensor:
     q = x @ p.wq
     if cfg.qkv_bias:
         q = q + p.bq
-    q = q.reshape(b, cfg.n_heads, cfg.hd)
+    q = reshape(q, (b, cfg.n_heads, cfg.hd))
     length = torch.full((b,), k.shape[1], dtype=torch.int32,
                         device=x.device)
     out = flash_decode(q, k, v, length)
-    return out.reshape(b, 1, cfg.n_heads * cfg.hd).to(x.dtype) @ p.wo
+    return reshape(out, (b, 1, cfg.n_heads * cfg.hd)).to(x.dtype) @ p.wo

@@ -146,3 +146,148 @@ def mlp(p, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = F.gelu(h, approximate="tanh")   # jax.nn.gelu's default
     return h @ p.w_out
+
+
+def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` of an embedding table: ``table[ids]``; a DTensor
+    table (the dry-run) through :func:`_dt_lookup`."""
+    if hasattr(table, "device_mesh"):
+        return _dt_lookup(table, ids)
+    return table[ids]
+
+
+def _dt_lookup(table, ids):
+    """A vocab-parallel lookup (Megatron's): the table's width gathered,
+    its vocab rows left split; each rank looks up the ids its rows hold,
+    zeros elsewhere, and the partial rows are summed over the vocab's
+    mesh dims. Written out in local ops, since DTensor's own rules for an
+    index (its backward's ``index_put``) and for ``embedding`` (its
+    masked partial) fail on some torch versions (2.11)."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    rows = [i for i, pl in enumerate(table.placements)
+            if isinstance(pl, Shard) and pl.dim % 2 == 0]
+    table = table.redistribute(mesh, [Shard(0) if i in rows else Replicate()
+                                      for i in range(mesh.ndim)])
+    if not isinstance(ids, DTensor):
+        ids = DTensor.from_local(ids, mesh, [Replicate()] * mesh.ndim,
+                                 run_check=False)
+    id_pls = [Replicate() if i in rows else pl
+              for i, pl in enumerate(ids.placements)]
+    ids = ids.redistribute(mesh, id_pls)
+    local, idx = table.to_local(), ids.to_local()
+    n = local.shape[0]
+    lo = 0
+    for i in rows:      # the block of the vocab this rank holds
+        lo = lo * mesh.size(i) + mesh.get_local_rank(i)
+    lo *= n
+    own = (idx >= lo) & (idx < lo + n)
+    out = F.embedding((idx - lo).clamp(0, n - 1), local) \
+        * own.unsqueeze(-1).to(local.dtype)
+    out_pls = [Partial() if i in rows else pl for i, pl in enumerate(id_pls)]
+    shape = tuple(ids.shape) + (table.shape[1],)
+    return DTensor.from_local(
+        out, mesh, out_pls, run_check=False, shape=shape,
+        stride=torch.empty(shape, device="meta").stride()).redistribute(
+            mesh, id_pls)
+
+
+def batch_split_only(t: torch.Tensor) -> torch.Tensor:
+    """``t``; a DTensor (the dry-run) with every split but that of its
+    batch (dim 0) gathered. DTensor's einsum merges batch and head dims
+    into one; where its parts are split over different mesh dims and the
+    heads do not divide (4 xLSTM heads over a model axis of 16), the
+    backward's view back to (batch, head) takes a wrong local shape."""
+    if not hasattr(t, "device_mesh"):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+
+    return t.redistribute(t.device_mesh, [
+        pl if isinstance(pl, Shard) and pl.dim % t.ndim == 0
+        else Replicate() for pl in t.placements])
+
+
+def _dim_groups(src: tuple, dst: tuple) -> list[tuple[list, list]]:
+    """The dims of ``src`` and ``dst`` (same numel) that a reshape maps
+    onto each other, as (source dims, destination dims) groups."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        gi, gj = [i], [j]
+        a = src[i] if i < len(src) else 1
+        b = dst[j] if j < len(dst) else 1
+        while a != b:
+            if a < b:
+                i += 1
+                gi.append(i)
+                a *= src[i]
+            else:
+                j += 1
+                gj.append(j)
+                b *= dst[j]
+        groups.append(([d for d in gi if d < len(src)],
+                       [d for d in gj if d < len(dst)]))
+        i, j = i + 1, j + 1
+    return groups
+
+
+def _dt_reshape(t, shape):
+    """A DTensor reshaped, its split dims first gathered where DTensor's
+    view rule cannot keep them: a split dim must go to the first factor
+    of a split (which must divide by the split) or lead a merge (and
+    divide by the split); otherwise it is gathered whole first, as GSPMD
+    regathers it (4 KV heads over a model axis of 16)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, pls = t.device_mesh, list(t.placements)
+    split = {}
+    for i, pl in enumerate(pls):
+        if isinstance(pl, Shard):
+            split.setdefault(pl.dim % t.ndim, []).append(i)
+    gather = set()
+    for src, dst in _dim_groups(tuple(t.shape), tuple(shape)):
+        if len(src) == 1 and len(dst) == 1:
+            continue
+        for d in src:
+            if d not in split:
+                continue
+            m = 1
+            for i in split[d]:
+                m *= mesh.size(i)
+            ok = ((len(src) == 1 and shape[dst[0]] % m == 0)
+                  or (len(dst) == 1 and d == src[0]
+                      and t.shape[d] % m == 0))
+            if not ok:
+                gather.add(d)
+    if gather:
+        t = t.redistribute(mesh, [
+            Replicate() if isinstance(pl, Shard) and pl.dim % t.ndim
+            in gather else pl for pl in pls])
+    return t.reshape(shape)
+
+
+class _DTReshape(torch.autograd.Function):
+    """:func:`_dt_reshape` forward and backward (a gradient's split dims
+    can meet the same view rule going back)."""
+
+    @staticmethod
+    def forward(ctx, t, shape):
+        ctx.shape = tuple(t.shape)
+        return _dt_reshape(t, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _dt_reshape(g, ctx.shape), None
+
+
+def reshape(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t.reshape(shape)``; a DTensor (the dry-run) through
+    :func:`_dt_reshape`."""
+    if not hasattr(t, "device_mesh"):
+        return t.reshape(shape)
+    shape = tuple(shape)
+    if -1 in shape:
+        known = int(np.prod([d for d in shape if d != -1]))
+        shape = tuple(t.numel() // known if d == -1 else d for d in shape)
+    return _DTReshape.apply(t, shape)

@@ -37,7 +37,8 @@ from torch import nn
 
 from ..core import prng
 from ..kernels.rglru_scan.ops import rglru_scan
-from .layers import dense_init, normal_init, param, torch_dtype
+from .layers import batch_split_only, dense_init, normal_init, param, \
+    reshape, torch_dtype
 
 _C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness
 
@@ -189,9 +190,9 @@ def _qkv(p, u: torch.Tensor, nh: int):
     fp32 before the divide, not after."""
     hd = u.shape[-1] // nh
     shape = u.shape[:-1] + (nh, hd)
-    q = (u @ p.wq).reshape(shape).float()
-    k = (u @ p.wk).reshape(shape).float() / float(np.float32(np.sqrt(hd)))
-    v = (u @ p.wv).reshape(shape).float()
+    q = reshape(u @ p.wq, shape).float()
+    k = reshape(u @ p.wk, shape).float() / float(np.float32(np.sqrt(hd)))
+    v = reshape(u @ p.wv, shape).float()
     return q, k, v
 
 
@@ -221,11 +222,12 @@ def mlstm_block(p, x: torch.Tensor, cfg, chunk: int = 256,
     gate = F.silu(x @ p.w_gate_up)
     q, k, v = _qkv(p, u, cfg.n_heads)
     log_i, log_f = _mlstm_gates(p, u)                          # (B, S, H)
+    q, k, v, log_i, log_f = map(batch_split_only, (q, k, v, log_i, log_f))
     if s <= chunk and not return_state:
         h = _mlstm_quadratic(q, k, v, log_i, log_f)
     else:
         h, state = _mlstm_chunked(q, k, v, log_i, log_f, min(chunk, s))
-    out = (h.reshape(b, s, -1).to(x.dtype) * gate) @ p.w_down
+    out = (reshape(h, (b, s, -1)).to(x.dtype) * gate) @ p.w_down
     if return_state:
         return out, state
     return out
@@ -311,7 +313,7 @@ def mlstm_decode_step(p, x: torch.Tensor, state: MLSTMState, cfg):
     n = f_sc * state.n + i_sc * k
     num = torch.einsum("bhde,bhd->bhe", c, q)
     den = torch.maximum(torch.einsum("bhj,bhj->bh", n, q).abs(), _one(n))
-    h = (num / den[..., None]).reshape(b, -1)
+    h = reshape(num / den[..., None], (b, -1))
     out = ((h.to(x.dtype) * gate) @ p.w_down)[:, None]
     return out, MLSTMState(c=c, n=n, m=m_new)
 

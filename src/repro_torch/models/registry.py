@@ -7,17 +7,37 @@ import torch
 
 from .. import resolve_device
 from .layers import torch_dtype
-from .transformer import LM
+from .transformer import LM, ShardingCtx
 from .whisper import EncDecLM
 
 
-def build_model(cfg, *, device=None) -> LM | EncDecLM:
+def build_model(cfg, ctx: ShardingCtx | None = None, *, device=None
+                ) -> LM | EncDecLM:
     """The config's model with uninitialised weights on ``device``
-    (``cuda`` unless given): an ``EncDecLM`` when it has an encoder, else
-    an ``LM``."""
+    (``cuda`` unless given; ``meta`` for shapes only) under ``ctx`` (None:
+    no mesh): an ``EncDecLM`` when it has an encoder, else an ``LM``."""
     if cfg.encoder_layers > 0:
-        return EncDecLM(cfg, device=device)
-    return LM(cfg, device=device)
+        return EncDecLM(cfg, ctx, device=device)
+    return LM(cfg, ctx, device=device)
+
+
+def batch_spec(cfg, batch: int, seq: int, kind: str = "train") -> dict:
+    """Meta tensors standing for every model input (the dry-run): token
+    ids (batch, seq) int32 and a stub frontend's ``patches`` (batch,
+    n_patches, d) or ``frames`` (batch, encoder_seq, d) in the config's
+    dtype; token ids (batch, 1) alone for ``kind="decode"``."""
+    if kind == "decode":
+        return {"tokens": torch.empty(batch, 1, dtype=torch.int32,
+                                      device="meta")}
+    out = {"tokens": torch.empty(batch, seq, dtype=torch.int32,
+                                 device="meta")}
+    stubs = {"vision_stub": ("patches", cfg.n_patches),
+             "audio_stub": ("frames", cfg.encoder_seq)}
+    if cfg.frontend in stubs:
+        name, n = stubs[cfg.frontend]
+        out[name] = torch.empty(batch, n, cfg.d_model,
+                                dtype=torch_dtype(cfg), device="meta")
+    return out
 
 
 def random_batch(cfg, batch: int, seq: int, seed: int = 0,

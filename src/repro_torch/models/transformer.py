@@ -1,7 +1,7 @@
 """Decoder-only LM of the model zoo (the JAX package's
-``models/transformer.py``, without the mesh), also the backbone of the
-vision stub (Qwen2-VL: projected patch embeddings ahead of the text,
-M-RoPE positions).
+``models/transformer.py``), also the backbone of the vision stub
+(Qwen2-VL: projected patch embeddings ahead of the text, M-RoPE
+positions).
 
 A model is ``layer_pattern`` repeated ``pattern_repeats`` times; each
 layer is a mixer (global "attn", sliding-window "local", or recurrent
@@ -18,8 +18,18 @@ Positions: RoPE by index (``rope="standard"``); M-RoPE's three tracks
 (``"mrope"``: a patch at (0, row, col) on a g × g grid, g = ⌊√n_patches⌋,
 a text token at its global index on all three); or, for a rope-less
 attention stack, a learned table ``pos_embed`` added to the inputs.
+
+Distribution (``ShardingCtx``): DTensor placements of the parameters and
+inputs (``launch/sharding.py``) carry every layer but the MoE FFN, which
+runs expert parallel over the mesh's model axis (``moe.moe_parallel``,
+the reference's ``shard_map`` island). The reference's ``unroll`` exists
+to correct XLA's cost count of a scanned layer stack; the port runs its
+layers in a Python loop, so it has no counterpart.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -34,8 +44,21 @@ from ..core import prng
 from . import attention as attn_mod
 from . import recurrent as rec_mod
 from .moe import MoE
-from .layers import MLP, RMSNorm, dense_init, embedding_init, mlp, \
-    normal_init, param, rmsnorm, torch_dtype
+from .layers import MLP, RMSNorm, dense_init, embedding_init, lookup, \
+    mlp, normal_init, param, rmsnorm, torch_dtype
+
+@dataclasses.dataclass(frozen=True)
+class ShardingCtx:
+    """How the model uses a mesh (None: single-device math): the mesh
+    (a ``DeviceMesh``), its batch axes, its model axis, and whether MoE
+    experts are stored ZeRO-3 (hidden dim over "data", gathered per
+    layer)."""
+
+    mesh: Any = None
+    data_axes: tuple[str, ...] = ("data",)
+    model_axis: str = "model"
+    zero3_moe: bool = False
+
 
 #: each layer kind's mixer module
 MIXERS = {"attn": attn_mod.Attention, "local": attn_mod.Attention,
@@ -123,7 +146,8 @@ class LM(nn.Module):
     computes the training loss (:meth:`loss`), so ``functional_call``
     takes gradients at any params; :meth:`apply` gives the logits."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, ctx: Optional[ShardingCtx] = None, *,
+                 device=None):
         super().__init__()
         device = resolve_device(device)
         if not set(cfg.layer_pattern) <= set(KINDS):
@@ -146,6 +170,10 @@ class LM(nn.Module):
             Block(cfg, cfg.layer_pattern[l % len(cfg.layer_pattern)],
                   device=device)
             for l in range(cfg.pattern_repeats * len(cfg.layer_pattern)))
+        self.ctx = ctx
+        if cfg.moe is not None:
+            for block in self.layers:
+                block.ffn.ctx = ctx
 
     @property
     def device(self) -> torch.device:
@@ -206,7 +234,7 @@ class LM(nn.Module):
         n_patches + S."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        h = self.embed[tokens]
+        h = lookup(self.embed, tokens)
         offset = 0
         if cfg.frontend == "vision_stub":
             patches = batch["patches"].to(h.dtype) @ self.projector
@@ -309,7 +337,7 @@ class LM(nn.Module):
     def decode_step(self, cache: dict, tokens: torch.Tensor):
         """tokens: (B, 1) → (logits (B, vocab) fp32, cache). Attention
         layers write their KV caches in place."""
-        h = self.embed[tokens]
+        h = lookup(self.embed, tokens)
         if needs_pos_table(self.cfg):
             h = h + self.pos_embed[cache["step"]].to(h.dtype)
         new_layers = []

@@ -26,8 +26,8 @@ from torch import nn
 from .. import resolve_device
 from ..core import prng
 from . import attention as attn_mod
-from .layers import MLP, RMSNorm, embedding_init, mlp, normal_init, param, \
-    rmsnorm, sinusoidal_positions, torch_dtype
+from .layers import MLP, RMSNorm, embedding_init, lookup, mlp, normal_init, \
+    param, rmsnorm, sinusoidal_positions, torch_dtype
 from .transformer import _remat
 
 
@@ -97,7 +97,7 @@ class EncDecLM(nn.Module):
     ``functional_call`` takes gradients at any params; :meth:`apply`
     gives the logits."""
 
-    def __init__(self, cfg, *, device=None):
+    def __init__(self, cfg, ctx=None, *, device=None):
         super().__init__()
         if cfg.encoder_layers < 1:
             raise ValueError(f"{cfg.arch_id}: an encoder-decoder needs "
@@ -107,6 +107,7 @@ class EncDecLM(nn.Module):
                              f"global attention and a dense FFN only")
         device = resolve_device(device)
         self.cfg = cfg
+        self.ctx = ctx   # a ShardingCtx; DTensor placements carry it
         dt = torch_dtype(cfg)
         self.embed = param(cfg.vocab, cfg.d_model, dtype=dt, device=device)
         self.dec_pos = param(cfg.max_pos, cfg.d_model, dtype=dt,
@@ -175,7 +176,8 @@ class EncDecLM(nn.Module):
         enc = self.encode(batch["frames"])
         tokens = batch["tokens"]
         b, s = tokens.shape
-        h = self.embed[tokens] + self.dec_pos[:s][None].to(self.embed.dtype)
+        h = lookup(self.embed, tokens) + self.dec_pos[:s][None].to(
+            self.embed.dtype)
         positions = torch.arange(s, device=h.device).expand(b, s)
         remat = torch.is_grad_enabled()
         for block in self.dec_layers:
@@ -215,7 +217,7 @@ class EncDecLM(nn.Module):
         """tokens: (B, 1) → (logits (B, vocab) fp32, cache). The
         self-attention caches are written in place."""
         cfg = self.cfg
-        h = self.embed[tokens] + self.dec_pos[cache["step"]].to(
+        h = lookup(self.embed, tokens) + self.dec_pos[cache["step"]].to(
             self.embed.dtype)
         enc = cache["enc_out"]
         positions = torch.zeros(h.shape[:2], dtype=torch.int64,

@@ -45,6 +45,7 @@ from repro_torch.fl.base import step_keys, to_device_data, \
     validate_round_metrics
 from repro_torch.fl.simulation import run_simulation
 from repro_torch.models.small import CNN, get_model
+from _torch_dist import run_ranks
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 N_SAMPLES, N_CLIENTS, SHAPE, BATCH = 400, 8, (28, 28, 1), 20
@@ -341,15 +342,71 @@ def test_run_matches_reference(name, kind, feds):
         res.final, r_res.final)
 
 
-# ---------------------------------------------------- refused arguments --
+# ------------------------------------------- mesh= and unknown arguments --
+#: one round of a baseline with and without a one-rank "data" mesh, in a
+#: process of its own (a process group is global to a process)
+ONE_RANK_ROUND = """
+import numpy as np
+from repro_torch import baselines as TB
+from repro_torch.data import build_federated, make_mnist_like, \\
+    pathological_split
+from repro_torch.fl.base import to_device_data
+from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.models.small import get_model
+init_group()
+name = sys.argv[1]
+imgs, labels = make_mnist_like(%d, seed=0)
+data = to_device_data(build_federated(
+    imgs, labels, pathological_split(labels, %d, seed=0)), "cpu")
+out = []
+for mesh in (None, make_data_mesh()):
+    kw = {} if name == "walkman" else {"clients_per_round": 4}
+    tr = TB.REGISTRY[name](get_model("mlr", (28, 28, 1)), data,
+                           batch_size=%d, device="cpu", mesh=mesh, **kw)
+    state, metrics = tr.round(tr.init_state(0), 0,
+                              np.random.default_rng(0))
+    leaves = [t for t in state if isinstance(t, torch.Tensor)] + [
+        t for sub in state if not isinstance(sub, torch.Tensor)
+        for t in sub]
+    out.append((leaves, metrics))
+(a, ma), (b, mb) = out
+emit({"same": len(a) == len(b) and all(torch.equal(x, y)
+                                       for x, y in zip(a, b)),
+      "metrics": ma == mb, "leaves": len(a)})
+""" % (N_SAMPLES, N_CLIENTS, BATCH)
+
+
 @pytest.mark.parametrize("arg,item", [("mesh", "item 8.7")])
 @pytest.mark.parametrize("name", ALGOS)
-def test_unported_arguments_are_refused(name, arg, item, feds):
-    model = get_model("mlr", SHAPE)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 {item}"):
-        TB.REGISTRY[name](model, feds[0], device="cpu", **{arg: object()})
+def test_unported_arguments_are_refused(name, arg, item, feds, tmp_path):
+    """``mesh=`` (ROADMAP Queue 1 item 8.7, once refused) is taken: on a
+    one-rank mesh a round equals the meshless one bit for bit; an
+    unknown keyword is still refused."""
+    (out,) = run_ranks(ONE_RANK_ROUND.replace("sys.argv[1]", repr(name)),
+                       1, tmp_path)
+    assert out["same"] and out["metrics"] and out["leaves"] > 0, out
     with pytest.raises(TypeError, match="no_such_argument"):
-        TB.REGISTRY[name](model, feds[0], device="cpu", no_such_argument=1)
+        TB.REGISTRY[name](get_model("mlr", SHAPE), feds[0], device="cpu",
+                          no_such_argument=1)
+
+
+@pytest.mark.parametrize("name", ALGOS + ["FedAvg", "WALKMAN", "fedprox"])
+def test_get_baseline(name):
+    """``get_baseline`` as the reference's: any case; an unknown name
+    raises ``ValueError`` listing the options."""
+    from repro import baselines as RBL
+
+    if name.lower() in TB.REGISTRY:
+        assert TB.get_baseline(name) is TB.REGISTRY[name.lower()]
+        assert TB.get_baseline(name).__name__ == \
+            RBL.get_baseline(name).__name__
+        return
+    with pytest.raises(ValueError) as got:
+        TB.get_baseline(name)
+    with pytest.raises(ValueError) as want:
+        RBL.get_baseline(name)
+    assert str(got.value) == str(want.value)
+    assert "options" in str(got.value)
 
 
 @pytest.mark.parametrize("name", ALGOS)

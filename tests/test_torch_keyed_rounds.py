@@ -40,6 +40,7 @@ from repro_torch.fl import FleetRWSADMMTrainer, RWSADMMTrainer, \
     run_simulation, to_device_data
 from repro_torch.fl.base import UNPORTED
 from repro_torch.models.small import CNN, MLP, MLR
+from _torch_dist import run_ranks
 from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 SHAPE, N_CLIENTS, ZONE, BATCH, STEPS = (8, 8, 1), 10, 4, 6, 3
@@ -214,22 +215,57 @@ def test_eager_mlr_run_follows_the_reference(feds):
                                atol=RUN_LOSS_TOL, rtol=RUN_LOSS_TOL)
 
 
+#: one eager round of the single walker or the fleet with and without a
+#: one-rank "data" mesh, in a process of its own (a process group is
+#: global to a process)
+ONE_RANK_ROUND = """
+import numpy as np
+from repro_torch.data import build_federated, make_image_dataset, \\
+    pathological_split
+from repro_torch.fl import FleetRWSADMMTrainer, RWSADMMTrainer
+from repro_torch.fl.base import to_device_data
+from repro_torch.launch.mesh import make_data_mesh
+from repro_torch.models.small import MLR
+init_group()
+cls = FleetRWSADMMTrainer if sys.argv[1] == "fleet" else RWSADMMTrainer
+imgs, labels = make_image_dataset(300, shape=%r, seed=0)
+data = to_device_data(build_federated(
+    imgs, labels, pathological_split(labels, %d, seed=0), seed=0), "cpu")
+out = []
+for mesh in (None, make_data_mesh()):
+    tr = cls(MLR(%r), data, device="cpu", zone_size=%d, batch_size=%d,
+             solver="closed_form", mesh=mesh)
+    state, metrics = tr.round(tr.init_state(0), 0,
+                              np.random.default_rng(0))
+    base = getattr(state, "base", state)
+    leaves = [base.clients.x, base.clients.z, base.server.y,
+              base.server.kappa, base.visited]
+    out.append((leaves, metrics))
+(a, ma), (b, mb) = out
+emit({"same": all(torch.equal(x, y) for x, y in zip(a, b)),
+      "metrics": ma == mb})
+""" % (SHAPE, N_CLIENTS, SHAPE, ZONE, BATCH)
+
+
 @pytest.mark.parametrize("fleet", [False, True])
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_keywords_name_their_item(feds, name, fleet):
+@pytest.mark.parametrize("name", ["mesh"])
+def test_unported_keywords_name_their_item(feds, name, fleet, tmp_path):
+    """``mesh=``, the last keyword the port refused (ROADMAP Queue 1 item
+    8.7), is taken: on a one-rank mesh a round equals the meshless one
+    bit for bit; an unknown keyword is still refused."""
+    (out,) = run_ranks(ONE_RANK_ROUND.replace(
+        "sys.argv[1]", repr("fleet" if fleet else "single")), 1, tmp_path)
+    assert out["same"] and out["metrics"], out
     cls = FleetRWSADMMTrainer if fleet else RWSADMMTrainer
-    item = UNPORTED[name].split(" (")[0]
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1 {item}"):
-        cls(MLR(SHAPE), feds[1], device="cpu", **{name: object()})
     with pytest.raises(TypeError, match="no_such_argument"):
         cls(MLR(SHAPE), feds[1], device="cpu", no_such_argument=1)
 
 
 def test_only_mesh_is_unported():
-    """Telemetry, the lazy plane's store and prefetch, and DP uploads are
-    ported; only the mesh waits."""
-    assert set(UNPORTED) == {"mesh"}
+    """Telemetry, the lazy plane's store and prefetch, DP uploads and,
+    since the mesh, every argument of the reference's trainers are
+    ported: nothing is left unported."""
+    assert UNPORTED == {}
 
 
 #: each walk keyword with a value that moves the walker off the default

@@ -15,6 +15,9 @@ layer) pairs' top-8 sets differ between the two paths in the port.
     PYTHONPATH=src JAX_PLATFORMS=cpu python tests/test_torch_moe_probe.py \\
         --layers 48 --prompt 2040 --gen 16 --batch 1 --dtype bfloat16
 
+``--arch kimi-k2-1t-a32b`` takes kimi's reduced config with its routing
+width put back (384 experts, top-8, one shared expert; factor 48).
+
 prints one JSON line per (layers, seed). Under pytest it runs 4 layers
 at 64 tokens on the CPU: in fp32 both packages' gaps stay at float
 rounding and the port's decode routes every token as its teacher-forced
@@ -43,9 +46,9 @@ from _torch_threads import one_torch_thread  # noqa: F401  (autouse)
 ARCH = "qwen3-moe-30b-a3b"
 
 
-def _pair(layers: int, dtype: str, seed: int):
+def _pair(layers: int, dtype: str, seed: int, arch: str = ARCH):
     out = []
-    for c in (ref_config(ARCH), get_config(ARCH)):
+    for c in (ref_config(arch), get_config(arch)):
         red = c.reduced()
         out.append(dataclasses.replace(
             red, n_layers=layers, dtype=dtype, moe=dataclasses.replace(
@@ -82,8 +85,8 @@ def _routes(port, tokens, run) -> list:
 
 
 def teacher(layers: int, prompt: int, gen: int, batch: int, dtype: str,
-            seed: int) -> dict:
-    ref, params, port = _pair(layers, dtype, seed)
+            seed: int, arch: str = ARCH) -> dict:
+    ref, params, port = _pair(layers, dtype, seed, arch)
     tok = np.random.default_rng(seed).integers(0, port.cfg.vocab,
                                                (batch, prompt + gen))
     full_r = np.asarray(jax.jit(ref.apply)(params, {"tokens": tok}))
@@ -114,7 +117,7 @@ def teacher(layers: int, prompt: int, gen: int, batch: int, dtype: str,
             gap_p.append(_rel(lg.numpy(), full_p[:, t]))
             flips += sum(int((r.reshape(batch, -1) != f[:, t - prompt])
                              .any(-1).sum()) for r, f in zip(routes, forced))
-    return {"layers": layers, "prompt": prompt, "gen": gen, "batch": batch,
+    return {"arch": arch, "layers": layers, "prompt": prompt, "gen": gen, "batch": batch,
             "dtype": dtype, "seed": seed, "reference_rel_rms": gap_r,
             "port_rel_rms": gap_p,
             "port_route_flips": flips,
@@ -148,11 +151,13 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--arch", default=ARCH)
     args = ap.parse_args(argv)
     for layers in args.layers:
         for seed in args.seeds:
             print(json.dumps(teacher(layers, args.prompt, args.gen,
-                                     args.batch, args.dtype, seed)),
+                                     args.batch, args.dtype, seed,
+                                     args.arch)),
                   flush=True)
 
 
