@@ -218,6 +218,15 @@ Phases (each prints its own lines; any failure exits non-zero):
    that cut card against CPU on 1 × 128 tokens; ``python -m
    repro_torch.launch.train --arch recurrentgemma-9b --reduced`` (its
    ``main``) on the card, its scan launches gated exactly.
+8g. mesh — the client plane under a one-rank mesh bit for bit,
+   kimi-k2-1t-a32b cut to one layer, the dry-run on the card's torch
+   (its record's temporaries and bytes accessed gated non-null, its
+   roofline row at the H100's constants printed) (``phase_mesh``).
+8h. analysis — the capture budget's smoke cells captured on the card
+   against ``analysis/capture_budget_torch.json`` (6 captures, each
+   window's captured kernel counts), the carry check, a profiled replay
+   with no device-to-host copy, ``LiveBytes`` against the allocator on
+   a real step (``phase_analysis``).
 
 Ends with a ``{"kernels": [...]}`` line, the paths' summaries, each
 model's init seconds, each phase's seconds, the ``nvidia-smi`` line and,
@@ -5693,12 +5702,20 @@ def mesh_dryrun(proc: subprocess.Popen, out_dir: str, t0: float) -> dict:
     with open(os.path.join(out_dir, f"{g['arch']}__{g['shape']}__pod1.json")
               ) as f:
         rec = json.load(f)
+    from repro_torch.launch.roofline_report import roofline_row
+
     moe = rec["moe_collectives"]
-    row = {k: rec[k] for k in ("n_chips", "flops", "flops_per_rank",
-                               "param_bytes_per_rank",
-                               "argument_bytes_per_rank", "collectives",
-                               "moe_collectives", "device_type",
-                               "cuda_initialized", "peak_rss_bytes")}
+    row = {k: rec.get(k) for k in (
+        "n_chips", "dtype", "flops", "flops_per_rank", "param_bytes_per_rank",
+        "argument_bytes_per_rank", "temp_bytes_per_rank",
+        "peak_bytes_per_rank", "bytes_accessed_per_rank", "collectives",
+        "moe_collectives", "device_type", "cuda_initialized",
+        "peak_rss_bytes")}
+    roof = roofline_row(rec)
+    row["roofline"] = {k: roof[k] for k in (
+        "t_compute_s", "t_compute_even_s", "t_memory_s", "t_collective_s",
+        "dominant", "useful_ratio", "step_time_s", "peak_flops", "hbm_bw",
+        "link_bw")}
     row["run_seconds"] = rec["seconds"]
     row["seconds"] = round(time.perf_counter() - t0, 1)
     log(f"dry-run {g['arch']} {g['shape']} on {rec['n_chips']} fake ranks "
@@ -5711,7 +5728,14 @@ def mesh_dryrun(proc: subprocess.Popen, out_dir: str, t0: float) -> dict:
         f"context made: {rec['cuda_initialized']}, peak RSS "
         f"{rec['peak_rss_bytes']} B (VmHWM; None: not reported), "
         f"{row['seconds']} s")
-    if (rec["param_bytes_per_rank"] != g["param_bytes_per_rank"]
+    log(f"dry-run {g['arch']} {g['shape']}: temporaries "
+        f"{rec.get('temp_bytes_per_rank')} B a rank, peak "
+        f"{rec.get('peak_bytes_per_rank')} B, bytes accessed "
+        f"{rec.get('bytes_accessed_per_rank')} a rank; roofline at the "
+        f"H100's constants: {row['roofline']}")
+    if (not rec.get("temp_bytes_per_rank")
+            or not rec.get("bytes_accessed_per_rank")
+            or rec["param_bytes_per_rank"] != g["param_bytes_per_rank"]
             or not moe.get("all-reduce", {}).get("count")
             or not moe.get("all-gather", {}).get("count")
             or rec["cuda_initialized"]):
@@ -5735,6 +5759,134 @@ def phase_mesh(device) -> dict:
             dry.wait()
             raise
         out["dryrun"] = mesh_dryrun(dry, td, t0)
+    return out
+
+
+#: the analysis phase's real step for ``LiveBytes``: tinyllama-1.1b's
+#: reduced config, fp32, a (batch, seq) token block
+ANALYSIS_STEP = dict(arch="tinyllama-1.1b", batch=8, seq=1024, seed=0)
+
+
+def storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of the tensors in ``tree``."""
+    from torch.utils._pytree import tree_leaves
+
+    sizes = {}
+    for t in tree_leaves(tree):
+        if hasattr(t, "untyped_storage"):
+            s = t.untyped_storage()
+            sizes[s._cdata] = s.nbytes()
+    return sum(sizes.values())
+
+
+def live_bytes_step(device) -> dict:
+    """``LiveBytes`` on one real RWSADMM step on the card (``ANALYSIS_STEP``,
+    after a warm-up step) beside the allocator's peak, both above what was
+    allocated before the step: the tracker's peak must not exceed the
+    allocator's (each storage is one allocation, rounded up)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.rwsadmm import RWSADMMHparams
+    from repro_torch.launch.dryrun import LiveBytes
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models.registry import build_model
+
+    g = ANALYSIS_STEP
+    cfg = dataclasses.replace(get_config(g["arch"]).reduced(),
+                              dtype="float32")
+    model = build_model(cfg, device=device).init(g["seed"])
+    hp = RWSADMMHparams(beta=10.0)
+    params = {k: v.detach() for k, v in model.named_parameters()}
+    tokens = np.random.default_rng(g["seed"]).integers(
+        0, cfg.vocab, (g["batch"], g["seq"]))
+    batch = {"tokens": torch.as_tensor(tokens, device=device)}
+    step = make_train_step(model, hp)
+    step(init_train_state(params, hp), batch)        # warm-up, unmeasured
+    state = init_train_state(params, hp)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with LiveBytes(device) as live:
+        new, loss = step(state, batch)
+        torch.cuda.synchronize()
+    allocator = torch.cuda.max_memory_allocated() - base
+    row = {"step": f"{g['arch']} reduced fp32, {g['batch']} x {g['seq']} "
+                   "tokens", "argument_bytes": storage_bytes((state, batch)),
+           "tracker_peak_bytes": live.peak, "allocator_peak_bytes": allocator,
+           "tracker_over_allocator": live.peak / allocator,
+           "storages": live.created, "loss": float(loss)}
+    log(f"analysis LiveBytes: {row['step']}: tracker peak {live.peak:,} B "
+        f"above the arguments ({row['argument_bytes']:,} B), allocator "
+        f"peak {allocator:,} B above what was allocated before; ratio "
+        f"{row['tracker_over_allocator']:.4f}; {live.created} storages")
+    if not live.peak <= allocator or not math.isfinite(row["loss"]):
+        raise AssertionError(f"LiveBytes reads above the allocator: {row}")
+    return row
+
+
+def profiled_replay(trainer) -> dict:
+    """One more replay of the trainer's ``scan_fused`` window under the
+    profiler: the device activity it shows, and no device-to-host copy."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis.registry import CHUNK_ROUNDS
+
+    state = trainer.init_state(0)
+    sched = trainer.schedule(CHUNK_ROUNDS, np.random.default_rng(1))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trainer.run_chunk(state, sched, engine="scan_fused")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    dtoh = [n for n in names if "DtoH" in n or "Device -> Host" in n
+            or "Device -> Pageable" in n or "Device -> Pinned" in n]
+    return {"device_events": len(names), "dtoh_copies": len(dtoh),
+            "memcpy": sorted({n for n in names if "Memcpy" in n})}
+
+
+def phase_analysis(device) -> dict:
+    """The static analysis on the card: the capture budget's smoke cells
+    (``repro_torch.analysis.capture_budget.measure_card``: each window
+    captured once and replayed) against ``analysis/capture_budget_torch.
+    json``, its captures and each window's captured kernel counts; the
+    carry check over two more replays of each ``scan_fused`` window; one
+    replay under the profiler with no device-to-host copy; ``LiveBytes``
+    on a real step against the allocator."""
+    from repro_torch.analysis import capture_budget as cb
+    from repro_torch.analysis.registry import drive
+    from repro_torch.analysis.window_audit import carry_aliasing
+
+    golden = cb.load_golden(os.path.join(HERE, "analysis",
+                                         "capture_budget_torch.json"))
+    card = cb.measure_card(device)
+    problems = (cb.compare_budget(card["captures"], golden["captures"])
+                + cb.compare_windows(card["windows"], golden["windows"]))
+    carry = []
+    for spec, trainer in card["trainers"]:
+        states = [drive(trainer, "scan_fused") for _ in range(2)]
+        carry += [f.render() for f in carry_aliasing(trainer, states)]
+    replay = profiled_replay(card["trainers"][0][1])
+    out = {"captures": card["captures"], "golden": golden["captures"],
+           "windows": card["windows"], "problems": problems,
+           "carry_aliasing": carry, "profiled_replay": replay,
+           "live_bytes": live_bytes_step(device)}
+    log(f"analysis: captures {card['captures']} (golden "
+        f"{golden['captures']}), windows {card['windows']}, drift "
+        f"{problems or 'none'}; carry {carry or 'aliased in every replay'}; "
+        f"profiled replay: {replay['device_events']} device events, "
+        f"{replay['dtoh_copies']} device-to-host copies, memcpy kinds "
+        f"{replay['memcpy']}")
+    if (problems or carry or replay["dtoh_copies"]
+            or not replay["device_events"]):
+        raise AssertionError(f"analysis phase fails its gates: {out}")
     return out
 
 
@@ -5877,6 +6029,7 @@ def main() -> int:
         "recurrentgemma train", phase_recurrentgemma_train, device)
     torch.cuda.empty_cache()
     paths["mesh"] = run_phase("mesh", phase_mesh, device)
+    paths["analysis"] = run_phase("analysis", phase_analysis, device)
     # the scan's backward on its main path: the full-width training run,
     # driven with the counts at 0 (the forward's: the serve path's)
     rg_train = paths["recurrentgemma_train"]

@@ -44,7 +44,8 @@ def main(argv=None) -> int:
     if args.cuda:
         import torch
 
-        a = torch.randn(4096, 4096, device="cuda")
+        a = torch.randn(4096, 4096, device="cuda",
+                        generator=torch.Generator("cuda").manual_seed(0))
         (a @ a).sum().item()
     # _run_once reads bench.time.perf_counter; all three clocks at once
     bench.time = types.SimpleNamespace(perf_counter=lambda: np.array(

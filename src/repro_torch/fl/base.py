@@ -14,6 +14,7 @@ from the gradient step, so a caller can hand in its own indices.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -159,6 +160,20 @@ def step_keys(keys: torch.Tensor, steps: int) -> torch.Tensor:
     """Each row's ``split(key, steps)``, step-major: ``(m, 2)`` →
     ``(steps, m, 2)``, as a ``lax.scan`` over the split keys walks them."""
     return prng.split(keys, steps).transpose(0, 1)
+
+
+def snapshot(tree):
+    """``tree`` (tensors in tuples, NamedTuples, lists and dicts) with
+    every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(snapshot(v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(snapshot(v) for v in tree)
+    if isinstance(tree, dict):
+        return {k: snapshot(v) for k, v in tree.items()}
+    return tree
 
 
 def cohort_mean(rows: torch.Tensor) -> torch.Tensor:
@@ -564,6 +579,30 @@ class TrainerBase:
             return
         for k, v in stats.items():
             self.telemetry.counter(f"client_store_{k}", int(v))
+
+    # -- static-analysis capture (repro_torch.analysis) -----------------------
+    #: the armed capture's entries, or None: capture is off
+    _audit_entries: list | None = None
+
+    def _audit_record(self, name: str, fn, args, kwargs=None) -> None:
+        """Record one round or window call for the window auditor, with
+        its arguments as they stand before the call (cloned: the call
+        consumes the state in place). Nothing unless armed."""
+        if self._audit_entries is not None:
+            self._audit_entries.append((name, fn, snapshot(tuple(args)),
+                                        snapshot(dict(kwargs or {}))))
+
+    @contextlib.contextmanager
+    def capture_rounds(self):
+        """Arm the capture: every round and window call made inside the
+        context is recorded as ``(name, fn, args, kwargs)`` (the reference's
+        ``capture_jitted``); ``analysis/window_audit.py`` traces these on
+        the CPU and checks what a captured window must not hold."""
+        self._audit_entries = []
+        try:
+            yield self._audit_entries
+        finally:
+            self._audit_entries = None
 
     # -- telemetry ------------------------------------------------------------
     def set_telemetry(self, run) -> None:

@@ -231,10 +231,11 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
         latency_s, energy_j = self._price(graph, i_k, idx, mask)
         key = self.round_key(markov.round_key_seed(rng))
         zone_idx, gid = self._zone_rows(state, idx)
-        state, loss = self._rr_step(
-            state, zone_idx, torch.as_tensor(mask, device=self.device),
-            torch.tensor(k, device=self.device), self._sync_flag(rnd), key,
-            self._visit_weight([walker]), gid)
+        args = (state, zone_idx, torch.as_tensor(mask, device=self.device),
+                torch.tensor(k, device=self.device), self._sync_flag(rnd),
+                key, self._visit_weight([walker]), gid)
+        self._audit_record("round:roundrobin", self._rr_step, args)
+        state, loss = self._rr_step(*args)
         metrics = {
             "round": rnd, "walker": k, "client": int(i_k),
             "zone": n_active, "n_i": int(n_i),
@@ -257,10 +258,11 @@ class FleetRWSADMMTrainer(RWSADMMTrainer):
             avail=self.scenario.availability())
         key = self.round_key(markov.round_key_seed(rng))
         zone_idx, gid = self._zone_rows(state, idx)
-        state, loss = self._sim_step(
-            state, zone_idx, torch.as_tensor(mask, device=self.device),
-            self._sync_flag(rnd), key, self._visit_weight(self.walkers),
-            gid)
+        args = (state, zone_idx, torch.as_tensor(mask, device=self.device),
+                self._sync_flag(rnd), key, self._visit_weight(self.walkers),
+                gid)
+        self._audit_record("round:simultaneous", self._sim_step, args)
+        state, loss = self._sim_step(*args)
         lat_kw, en_kw = self._price_fleet_schedule(
             [graph], positions[None], idx[None], mask[None])
         active = mask.sum(axis=1).astype(int)

@@ -409,9 +409,10 @@ class RWSADMMTrainer(TrainerBase):
         latency_s, energy_j = self._price(graph, i_k, idx, mask)
         key = self.round_key(markov.round_key_seed(rng))
         zone_idx, gid = self._zone_rows(state, idx)
-        state, zone_loss = self._round_impl(
-            state, zone_idx, torch.as_tensor(mask, device=self.device), key,
-            self._visit_weight([self.walker]), gid)
+        args = (state, zone_idx, torch.as_tensor(mask, device=self.device),
+                key, self._visit_weight([self.walker]), gid)
+        self._audit_record("round", self._round_impl, args)
+        state, zone_loss = self._round_impl(*args)
         metrics = {
             "round": rnd,
             "client": int(i_k),
@@ -513,6 +514,10 @@ class RWSADMMTrainer(TrainerBase):
         if self.device.type != "cuda":
             ins = {k: torch.as_tensor(v, device=self.device)
                    for k, v in cols.items()}
+            mode = key[2]      # the fleet's mode; None for one walker
+            self._audit_record(
+                f"chunk:{mode}:{engine}" if mode else f"chunk:{engine}",
+                self._window, (state, ins, use_fused))
             state, losses, kappas = self._window(state, ins, use_fused)
         else:
             state, losses, kappas = self._replay(state, cols, key,

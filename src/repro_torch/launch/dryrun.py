@@ -28,16 +28,29 @@ What it records:
 * ``argument_bytes_per_rank``: the local shards' bytes of the params (or
   the train state), the batch and the cache, exactly; ``param_bytes_per_
   rank`` the params' alone.
-* ``collectives``: per kind (the reference's names), the count and the
-  bytes of the results a rank receives, read from the functional
-  collectives DTensor issues; ``moe_collectives`` those of the MoE layers'
+* ``collectives``: per kind (the reference's names), the count, the
+  bytes of the results a rank receives (``bytes``) and of the inputs it
+  hands in (``bytes_in``), read from the functional collectives DTensor
+  issues: the full buffer a reader multiplies is the larger of the two
+  (a reduce-scatter's input, an all-gather's output); ``moe_collectives``
+  those of the MoE layers'
   forward (the ZeRO-3 gathers of the experts and the sum of the expert
   partials over "model", with the shared expert's redistribution). The kinds depend on the group's device
   type: the CPU's has no all-to-all, so a redistribution that would use
   one gathers instead; ``device_type`` says which ran.
-* ``temp_bytes_per_rank``: null. The reference's ``memory_analysis``
-  temporaries have no meta counterpart, and no tracker measures them
-  here yet (ROADMAP).
+* ``bytes_accessed_per_rank``: for each local op rank 0 runs, the bytes
+  of its tensor inputs plus its outputs; views (``view``, ``t``,
+  ``expand``, ``as_strided``, ``detach``, the ``_unsafe_view`` family) and
+  the collectives (the collective term's) move none here. Every op is
+  counted on its own, so this is an unfused upper bound: XLA's ``bytes
+  accessed`` is counted after fusion and reads lower.
+* ``temp_bytes_per_rank``: the peak of the live local storages created
+  inside the step, above its arguments (:class:`LiveBytes`, the
+  counterpart of the reference's ``memory_analysis`` temporaries; the
+  tensors autograd saves for backward count, they are real memory), and
+  ``peak_bytes_per_rank`` = ``argument_bytes_per_rank["total"]`` + that
+  (the reference's ``peak_memory_in_bytes``).
+* ``dtype``: the config's parameter dtype (a reader's compute peak).
 * ``seconds`` and the process's ``peak_rss_bytes`` (its ``VmHWM``, null
   where the system reports none); ``cuda_initialized``
   (False: no CUDA context was made, so the card holds nothing of it).
@@ -65,11 +78,13 @@ import json
 import os
 import time
 import traceback
+import weakref
 
 import numpy as np
 import torch
 import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 from torch.utils.flop_counter import FlopCounterMode, flop_registry
 
 from ..configs import ALL_ARCHS, INPUT_SHAPES, LONG_OK, get_config
@@ -126,20 +141,102 @@ def _bytes(t) -> int:
     return t.numel() * t.element_size()
 
 
+def _tensors(tree) -> list:
+    """The plain tensors among ``tree``'s leaves."""
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+#: ops that move no bytes without declaring a view in their schema
+_NO_BYTES = {"t", "expand", "as_strided", "detach", "_unsafe_view",
+             "_reshape_alias", "alias", "lift_fresh", "wait_tensor"}
+
+
+def moves_bytes(func) -> bool:
+    """Whether ``func`` reads or writes memory: not a view."""
+    return not (getattr(func, "is_view", False)
+                or func._overloadpacket.__name__ in _NO_BYTES)
+
+
+class LiveBytes(TorchDispatchMode):
+    """The peak bytes of the storages that ops create inside the region,
+    above what existed before it (the step's arguments).
+
+    A storage is new when an op returns it and none of the op's inputs
+    holds it (a view or an in-place result is its input's); its
+    ``nbytes()`` is added when it first appears. A finalizer on the
+    storage's Python object (which torch keeps for as long as the storage
+    lives) drops it the moment it is freed, when
+    ``torch.multiprocessing.reductions.StorageWeakRef`` would turn
+    ``expired()``, so every addition reads the true live total with no
+    sweep. Storages that autograd saves for backward stay live until
+    backward frees them. Works on meta tensors (the dry-run) and on real
+    ones; with ``device`` only that device type's storages count. Use as a
+    dispatch mode (``with LiveBytes() as live``), or feed it ops from
+    another mode through :meth:`note`."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        self.device_type = None if device is None else torch.device(
+            device).type
+        self.current = 0          # bytes live now
+        self.peak = 0             # the most live at once
+        self.created = 0          # storages created
+        self._live: dict[int, int] = {}
+
+    def _drop(self, key: int) -> None:
+        self.current -= self._live.pop(key, 0)
+
+    def note(self, args, kwargs, out) -> None:
+        """Account the outputs ``out`` of one op on ``args``/``kwargs``."""
+        held = None
+        for t in _tensors(out):
+            if type(t) is not torch.Tensor:
+                continue          # a subclass: its local ops come here
+            if self.device_type and t.device.type != self.device_type:
+                continue
+            storage = t.untyped_storage()
+            key = storage._cdata
+            if key in self._live:
+                continue
+            if held is None:
+                held = {a.untyped_storage()._cdata
+                        for a in _tensors((args, kwargs))
+                        if type(a) is torch.Tensor}
+            if key in held:
+                continue
+            n = storage.nbytes()
+            self._live[key] = n
+            self.created += 1
+            self.current += n
+            self.peak = max(self.peak, self.current)
+            weakref.finalize(storage, self._drop, key)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        self.note(args, kwargs, out)
+        return out
+
+
 class RankCounter(TorchDispatchMode):
     """Counts what one rank runs: a DTensor op is handed back to DTensor
     (``NotImplemented``), which turns it into local ops and functional
     collectives; those come through here with local shapes. ``flops``
     sums ``flop_registry``'s formulas over the local ops,
     ``local_region_flops`` the part run in the MoE local-shard region
-    (``moe.moe_ffn`` on local tensors), and ``collectives`` counts each
-    kind with its results' bytes, ``moe_collectives`` those issued in an
-    ``MoE`` module's forward. :meth:`attributing` marks the regions."""
+    (``moe.moe_ffn`` on local tensors), ``bytes_accessed`` the inputs'
+    and outputs' bytes of every local op that moves any, ``live`` the
+    peak of the storages they create (:class:`LiveBytes`), and
+    ``collectives`` counts each kind with its results' and its inputs'
+    bytes, ``moe_collectives`` those issued in an ``MoE`` module's
+    forward. :meth:`attributing` marks the regions."""
 
     def __init__(self):
         super().__init__()
         self.flops = 0
         self.local_region_flops = 0
+        self.bytes_accessed = 0
+        self.live = LiveBytes()
         self.collectives: dict[str, dict] = {}
         self.moe_collectives: dict[str, dict] = {}
         self.depth = {"moe": 0, "local": 0}
@@ -191,22 +288,28 @@ class RankCounter(TorchDispatchMode):
             return NotImplemented
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        self.live.note(args, kwargs, out)
         packet = func._overloadpacket
         kind = COLLECTIVES.get(packet.__name__)
         if kind is not None and "c10d" in func.namespace:
-            outs = out if isinstance(out, (list, tuple)) else [out]
             tallies = [self.collectives]
             if self.depth["moe"]:
                 tallies.append(self.moe_collectives)
             for tally in tallies:
-                rec = tally.setdefault(kind, {"count": 0, "bytes": 0})
+                rec = tally.setdefault(kind, {"count": 0, "bytes": 0,
+                                              "bytes_in": 0})
                 rec["count"] += 1
-                rec["bytes"] += sum(_bytes(t) for t in outs)
-        elif packet in flop_registry:
+                rec["bytes"] += sum(_bytes(t) for t in _tensors(out))
+                rec["bytes_in"] += sum(_bytes(t) for t in _tensors(args))
+            return out
+        if packet in flop_registry:
             n = int(flop_registry[packet](*args, **kwargs, out_val=out))
             self.flops += n
             if self.depth["local"]:
                 self.local_region_flops += n
+        if moves_bytes(func):
+            self.bytes_accessed += sum(
+                _bytes(t) for t in _tensors((args, kwargs, out)))
         return out
 
 
@@ -308,6 +411,7 @@ def _analyze_one(cfg, shape, mesh, dp, hp, *, options: dict | None = None
     meta_params = {k: v.detach() for k, v in model.named_parameters()}
     params = _distribute(meta_params, p_specs, mesh)
     rec = {"n_chips": world, "kind": shape.kind, "mesh": mesh_shape,
+           "dtype": cfg.dtype,
            "run_mesh": dict(zip(mesh.mesh_dim_names,
                                 list(mesh.mesh.shape))),
            "device_type": device_type(), "plan": "dtensor",
@@ -385,7 +489,9 @@ def _analyze_one(cfg, shape, mesh, dp, hp, *, options: dict | None = None
     rec["moe_collectives"] = counter.moe_collectives
     rec["comm_counts"] = {str(k): int(v)
                           for k, v in comm.get_comm_counts().items()}
-    rec["temp_bytes_per_rank"] = None
+    rec["bytes_accessed_per_rank"] = float(counter.bytes_accessed)
+    rec["temp_bytes_per_rank"] = counter.live.peak
+    rec["peak_bytes_per_rank"] = args["total"] + counter.live.peak
     rec["peak_rss_bytes"] = peak_rss_bytes()
     rec["cuda_initialized"] = torch.cuda.is_initialized()
     return rec

@@ -95,8 +95,10 @@ def test_kernels_refuse_grad_on_card(cuda_device):
         torch.testing.assert_close(g, want, **TOL)
     with torch.no_grad():
         rglru_scan(a, b)                       # inference is untouched
-    q = torch.rand(1, 2, 64, device=cuda_device, requires_grad=True)
-    k = torch.rand(1, 16, 1, 64, device=cuda_device)
+    q = torch.tensor(rng.random((1, 2, 64), dtype=np.float32),
+                     device=cuda_device, requires_grad=True)
+    k = torch.tensor(rng.random((1, 16, 1, 64), dtype=np.float32),
+                     device=cuda_device)
     length = torch.tensor([16], device=cuda_device, dtype=torch.int32)
     with pytest.raises(RuntimeError, match="flash_decode has no backward"):
         flash_decode(q, k, k, length)

@@ -96,6 +96,12 @@ def test_imports_with_jax_and_reference_blocked():
         "import repro_torch.models.moe\n"
         "import repro_torch.launch.train, repro_torch.optim\n"
         "import examples.serve_personalized_torch\n"
+        "import repro_torch.analysis, repro_torch.analysis.check\n"
+        "import repro_torch.analysis.registry\n"
+        "import repro_torch.analysis.capture_budget\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.roofline_report\n"
+        "import repro_torch.launch.perf_iterations\n"
+        "import repro_torch.launch.fill_experiments\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
         "               for m, v in sys.modules.items() if v is not None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -153,6 +153,7 @@ def test_normal_blocks_equal_one_draw(shape, block):
     key = prng.prng_key(11)
     whole = prng.normal(key, shape).reshape(-1, shape[-1])
     rows = [(r0, r1, draw) for r0, r1, draw
+            # repro_torch: allow(prng-key-reuse) -- one draw of the key
             in prng.normal_blocks(key, shape, block)]
     assert rows[0][0] == 0 and rows[-1][1] == whole.shape[0]
     assert all(a[1] == b[0] for a, b in zip(rows, rows[1:]))

@@ -91,6 +91,7 @@ def test_batched_keys_draw_per_row():
     want = np.stack([_words(jax.random.randint(k, (20,), 0, int(s)))
                      for k, s in zip(keys, spans)]).reshape(2, 4, 20)
     assert np.array_equal(got.numpy(), want)
+    # repro_torch: allow(prng-key-reuse) -- the reference's keys again, as its draws take them
     masks = prng.bernoulli(tkeys, 0.5, (20, 32))
     want = np.stack([np.asarray(jax.random.bernoulli(k, 0.5, (20, 32)))
                      for k in keys]).reshape(2, 4, 20, 32)

@@ -65,7 +65,7 @@ def test_scan_properties():
 
 
 def test_scan_rejects_what_the_kernel_does_not_take():
-    a = torch.rand(2, 5, 4)
+    a = torch.rand(2, 5, 4, generator=torch.Generator().manual_seed(0))
     with pytest.raises(TypeError, match="float32"):
         ops.rglru_scan(a.double(), a.double())
     with pytest.raises(ValueError, match="shape"):
