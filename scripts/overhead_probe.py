@@ -10,7 +10,9 @@ time).
 ``--cuda`` first makes a CUDA context and runs one matmul on the card,
 as ``chip_smoke.py``'s process holds one when it reaches the twin. For
 each clock it prints the pairs' on/off ratios less one, their spread,
-and the median over the first 10, 20 and all pairs; then one JSON line.
+the median over the first 10, 20 and all pairs, and the recorded arm's
+trace alone (the visit events built and streamed) over the unrecorded
+round (the benchmark's ``trace_pct``); then one JSON line.
 A wall spread well above the CPU clocks' says the host took the time
 from the process (other work on a shared host), not the arms' own work.
 """
@@ -52,7 +54,7 @@ def main(argv=None) -> int:
         [time.perf_counter(), time.process_time(), time.thread_time()]))
     n, rounds, zone = args.clients, args.rounds, 8
     bench._run_once(n, rounds, zone, None)          # untimed first run
-    off, on = [], []
+    off, on, trace = [], [], []
     with tempfile.TemporaryDirectory() as td:
         for rep in range(args.pairs):
             for arm in ("off", "on") if rep % 2 == 0 else ("on", "off"):
@@ -62,10 +64,11 @@ def main(argv=None) -> int:
                     continue
                 with TelemetryRun(f"{td}/run{rep}", seed=rep,
                                   config={"bench": "probe"}) as tel:
-                    on.append(bench._run_once(n, rounds, zone, tel,
-                                              seed=rep)[0])
-    off, on = np.array(off), np.array(on)           # (pairs, clock)
-    pct = (on / off - 1.0) * 100.0
+                    sec, tr = bench._run_once(n, rounds, zone, tel, seed=rep)
+                on.append(sec)
+                trace.append(tr)
+    off, on, trace = np.array(off), np.array(on), np.array(trace)
+    pct = (on / off - 1.0) * 100.0                  # (pairs, clock)
     out = {"pairs": args.pairs, "rounds": rounds, "cuda": args.cuda}
     for c, name in enumerate(CLOCKS):
         p = pct[:, c]
@@ -76,13 +79,16 @@ def main(argv=None) -> int:
                "median_10": float(np.median(p[:10])),
                "median_20": float(np.median(p[:20])),
                "median_all": float(np.median(p)),
+               "trace_pct": float(np.median(trace[:, c] / off[:, c]))
+               * 100.0,
                "pair_pct": [round(float(x), 2) for x in p]}
         out[name] = row
         print(f"{name}: off {row['off_us']:.0f} µs a round (arms' cv "
               f"{row['arm_cv_pct']:.2f} %), pairs' sd {row['pair_sd_pct']:.2f}"
               f" %, medians over 10/20/{args.pairs} pairs "
               f"{row['median_10']:+.2f}/{row['median_20']:+.2f}/"
-              f"{row['median_all']:+.2f} %; pairs {row['pair_pct']}",
+              f"{row['median_all']:+.2f} %, trace {row['trace_pct']:.2f} %;"
+              f" pairs {row['pair_pct']}",
               flush=True)
     print(json.dumps(out))
     return 0

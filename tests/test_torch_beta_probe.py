@@ -11,9 +11,15 @@ whose training loss is not finite (null if none), and the losses.
         --package reference
 
 ``port`` runs ``repro_torch`` on ``--device`` (default ``cuda``);
-``reference`` runs the JAX package on its default backend. The two
-packages draw minibatches and dropout from different random streams, so
-their trajectories match in distribution only, not round for round.
+``reference`` runs the JAX package on its default backend. Both packages
+start a seed from the same weights and draw the same minibatches and
+dropout masks (the port's threefry is the reference's), so in fp32 they
+follow one trajectory until the last bits of their gradients (XLA and
+torch sum the convolutions in other orders) grow at max-pool near-ties;
+from then on the two runs are samples of one distribution, as the
+reference's own run is against itself started one ulp away
+(``test_torch_cnn_baselines_probe.py --perturb``). The float64 run tier
+(``test_torch_run_float64*.py``) holds the round itself seed for seed.
 Defaults are the main path of ``chip_smoke.py`` (n = 100 clients, 12,000
 samples, zone 8, batch 20); run it at that size on a machine with the
 memory for it (x and z alone take 0.86 GB). Under pytest the probe runs

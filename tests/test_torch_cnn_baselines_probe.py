@@ -18,13 +18,20 @@ not finite (null if none).
 off); ``lockstep`` runs both round by round on the reference's draws;
 ``gradient`` compares one minibatch gradient on the CPU (and the
 port's fp32 against its float64) and counts max-pool near-ties;
-``reference`` runs the JAX package on its default backend. The packages
-draw minibatches and dropout from different random streams, so their
-trajectories match in distribution only. ``--lrs`` sets the SGD steps of
-the baselines that take ``lr`` (FedAvg, Ditto, APFL; the reference's
-default is 0.05) and leaves the others at their defaults. Run the full
-size on a machine with the memory for it; under pytest the probe runs
-once per package at a tiny scale on the CPU, so the script keeps working.
+``inject`` runs the reference's fp32 rounds up to ``--rounds`` − 1, then
+round ``--rounds`` from that state in both packages, in float64 (held as
+the float64 run tier holds a round) and in fp32; ``reference`` runs the
+JAX package on its default backend. Both packages start a seed from the
+same weights and draw the same minibatches and dropout masks, so in fp32
+they follow one trajectory until the last bits of their gradients grow
+(max-pool near-ties at full width); ``--perturb EPS`` starts a run from
+its initial state scaled by the fp32 number nearest 1 + EPS, which
+measures how far a package parts from itself over the same rounds.
+``--lrs`` sets the SGD steps of the baselines that take ``lr`` (FedAvg,
+Ditto, APFL; the reference's default is 0.05) and leaves the others at
+their defaults. Run the full size on a machine with the memory for it;
+under pytest the probe runs at a tiny scale on the CPU, so the script
+keeps working.
 """
 from __future__ import annotations
 
@@ -65,6 +72,7 @@ def run_port(args, algo, lr, seed):
     c1, c2, fc = args.widths
     trainer = REGISTRY[algo](CNN((32, 32, 3), c1=c1, c2=c2, fc=fc), data,
                              device=args.device, **_kwargs(algo, lr))
+    perturb_init(trainer, args.perturb, "port")
     rounds = args.rounds * (4 if algo == "walkman" else 1)
     return run_simulation(trainer, rounds=rounds,
                           eval_every=args.eval_every, seed=seed)
@@ -85,9 +93,39 @@ def run_reference(args, algo, lr, seed):
     c1, c2, fc = args.widths
     trainer = REGISTRY[algo](make_cnn((32, 32, 3), c1=c1, c2=c2, fc=fc),
                              data, **_kwargs(algo, lr))
+    perturb_init(trainer, args.perturb, "reference")
     rounds = args.rounds * (4 if algo == "walkman" else 1)
     return run_simulation(trainer, rounds=rounds,
                           eval_every=args.eval_every, seed=seed)
+
+
+def perturb_init(trainer, eps: float, package: str) -> None:
+    """Scale every floating leaf of the trainer's initial state by the
+    fp32 number nearest 1 + ``eps`` (1 ± 1e-7 is one ulp of 1 either
+    way), so that a run starts one rounding away from its seed's state:
+    the spread of such runs is the package's own sensitivity."""
+    if not eps:
+        return
+    import numpy as np
+
+    factor, init = np.float32(1.0 + eps), trainer.init_state
+    if package == "port":
+        import torch
+
+        def scale(tree):
+            if isinstance(tree, torch.Tensor):
+                return tree * float(factor) if tree.is_floating_point() \
+                    else tree
+            return type(tree)(*(scale(t) for t in tree))
+    else:
+        import jax
+        import jax.numpy as jnp
+
+        def scale(tree):
+            return jax.tree_util.tree_map(
+                lambda a: a * factor if jnp.issubdtype(a.dtype, jnp.floating)
+                else a, tree)
+    trainer.init_state = lambda *a, **kw: scale(init(*a, **kw))
 
 
 def run_lockstep(args, algo, lr, seed):
@@ -160,6 +198,100 @@ def run_lockstep(args, algo, lr, seed):
                          "reference_finite": bool(np.isfinite(want).all())}
         rows.append(row)
     return rows
+
+
+def run_inject(args, algo, lr, seed):
+    """The reference's own fp32 run (its ``round``, as ``run_simulation``
+    draws cohorts and round keys) for ``--rounds`` − 1 rounds, then round
+    ``--rounds`` from that state in both packages on the CPU: in fp32 (the
+    port handed the fp32 draws) and in float64 (the port handed the
+    reference's 64-bit draws; the largest gap of each leaf as the float64
+    run tier reads it, against its ``TOL``), and the port's float64 round
+    on the fp32 draws (whether those batches blow the round up without
+    fp32 rounding). Per round before, the reference's largest |w| and
+    whether w is finite."""
+    import dataclasses
+
+    import jax
+    import numpy as np
+    import torch
+
+    import test_torch_baselines as tier
+    from test_torch_run_float64 import TOL, _double, _ref_step, _widen, \
+        gap, rows64
+    from repro.baselines import REGISTRY as REF
+    from repro.fl.base import to_device_data as ref_device_data
+    from repro.models.small import make_cnn
+    from repro_torch import convert
+    from repro_torch.baselines import REGISTRY
+    from repro_torch.data import build_federated, pathological_split
+    from repro_torch.data.synthetic_images import make_cifar_like
+    from repro_torch.fl.base import to_device_data
+    from repro_torch.models.small import CNN
+
+    if algo == "walkman":
+        raise ValueError("the inject mode runs the cohort baselines")
+    imgs, labels = make_cifar_like(args.samples, seed=seed)
+    fed = build_federated(imgs, labels,
+                          pathological_split(labels, args.clients, seed=seed))
+    c1, c2, fc = args.widths
+    kw = _kwargs(algo, lr)
+    ref = REF[algo](make_cnn((32, 32, 3), c1=c1, c2=c2, fc=fc),
+                    ref_device_data(fed), **kw)
+    r_state = ref.init_state(jax.random.PRNGKey(seed))
+    rng = np.random.default_rng(seed)
+    before = []
+    for r in range(args.rounds - 1):
+        r_state, _ = ref.round(r_state, r, rng)
+        w = rows64(r_state.w, 0)
+        before.append({"round": r + 1, "max_abs_w": float(np.abs(w).max()),
+                       "finite": bool(np.isfinite(w).all())})
+    sel = ref.select_clients(args.rounds - 1, rng, ref.m)
+    key = jax.random.PRNGKey(rng.integers(2**31 - 1))
+    keep_shapes = ((tier.BATCH, 16, 16, c1), (tier.BATCH, fc))
+    n_train = fed.mask_train.sum(axis=1).astype(np.int64)
+    state = convert.baseline_state_from_reference(
+        algo, jax.tree_util.tree_map(np.asarray, r_state))
+    out = {"round": args.rounds, "rounds_before": before}
+    for dtype in ("float32", "float64"):
+        wide = dtype == "float64"
+        data = to_device_data(fed, "cpu")
+        model = CNN((32, 32, 3), c1=c1, c2=c2, fc=fc)
+        if wide:
+            data = data._replace(x_train=data.x_train.double())
+            model = model.double()
+        port = REGISTRY[algo](model, data, device="cpu", **kw)
+        with jax.enable_x64(wide):
+            ref_r = REF[algo](make_cnn((32, 32, 3), c1=c1, c2=c2, fc=fc),
+                              ref_device_data(dataclasses.replace(
+                                  fed, x_train=fed.x_train.astype(
+                                      np.float64))), **kw) if wide else ref
+            draws = tier.ref_draws(algo, port, key, sel, n_train,
+                                   keep_shapes)
+            want = _ref_step(algo, ref_r, _widen(r_state) if wide
+                             else r_state, sel, key)
+        got = port._round_impl(_double(state) if wide else state,
+                               torch.as_tensor(sel), draws)
+        if wide:
+            # the fp32 run's own batches (the x64 key chain draws others)
+            w = port._round_impl(_double(state), torch.as_tensor(sel),
+                                 fp32_draws).w
+            out["float64_on_fp32_draws"] = {
+                "max_abs": float(w.abs().max()),
+                "finite": bool(torch.isfinite(w).all())}
+        fp32_draws = draws
+        row = {}
+        for leaf, lead in (("w", 0), ("v", 1))[:len(got)]:
+            g, w = getattr(got, leaf), rows64(getattr(want, leaf), lead)
+            row[leaf] = {"gap": gap(g.double(), w),
+                         "max_abs": float(np.abs(w).max()),
+                         "port_finite": bool(torch.isfinite(g).all()),
+                         "reference_finite": bool(np.isfinite(w).all())}
+        out[dtype] = row
+    out["float64_within_tol"] = all(
+        v["gap"] <= TOL for v in out["float64"].values())
+    out["tol"] = TOL
+    return out
 
 
 def run_gradient(args, seed, lr):
@@ -288,7 +420,8 @@ def _near_ties(params, xb, keep, F, jax, jnp, np, torch) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--package", choices=("port", "reference", "lockstep",
-                                          "gradient"), required=True)
+                                          "gradient", "inject"),
+                    required=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--algos", nargs="+", choices=ALGOS, default=ALGOS)
     ap.add_argument("--lrs", type=float, nargs="+", default=[None],
@@ -297,6 +430,9 @@ def main(argv=None) -> None:
     ap.add_argument("--seeds", type=int, nargs="+", default=[0])
     ap.add_argument("--rounds", type=int, default=20)
     ap.add_argument("--eval-every", type=int, default=5)
+    ap.add_argument("--perturb", type=float, default=0.0, metavar="EPS",
+                    help="scale the initial state by the fp32 number "
+                    "nearest 1 + EPS (port and reference runs)")
     ap.add_argument("--steps", type=int, default=1,
                     help="SGD steps of the gradient mode")
     ap.add_argument("--clients", type=int, default=100)
@@ -316,6 +452,12 @@ def main(argv=None) -> None:
     for algo in args.algos:
         for lr in args.lrs if algo in TAKES_LR else [None]:
             for seed in args.seeds:
+                if args.package == "inject":
+                    print(json.dumps({"package": "inject", "algo": algo,
+                                      "lr": lr, "seed": seed,
+                                      **run_inject(args, algo, lr, seed)}),
+                          flush=True)
+                    continue
                 if run is None:
                     print(json.dumps({"package": "lockstep", "algo": algo,
                                       "lr": lr, "seed": seed,
@@ -333,6 +475,7 @@ def main(argv=None) -> None:
                            None)
                 print(json.dumps({"package": args.package, "algo": algo,
                                   "lr": lr, "seed": seed,
+                                  "perturb": args.perturb,
                                   "clients": args.clients,
                                   "first_nonfinite_eval_round": bad,
                                   "evals": evals}), flush=True)
@@ -378,6 +521,41 @@ def test_gradient_mode_reports(capsys):
             assert "card_grad_gap" not in step
 
 
+@pytest.fixture
+def one_thread():
+    """One torch thread, as the other port test modules run (this module
+    keeps the default for its gradient check, which reads 1.2e-6 on one
+    thread against its 1e-6)."""
+    threads = torch_threads()
+    yield
+    torch_threads(threads)
+
+
+def torch_threads(n=None) -> int:
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(1 if n is None else n)
+    return before
+
+
+def test_inject_mode_holds_the_round_in_float64(capsys, one_thread):
+    """The inject mode at a tiny width: the reference's state after one
+    fp32 round, the second round in both packages in float64 within the
+    run tier's ``TOL`` (and in fp32 at the round tier's 1e-6)."""
+    main(["--package", "inject", "--device", "cpu", "--algos", "fedavg",
+          "--lrs", "0.05", "--rounds", "2", "--clients", "6",
+          "--samples", "300", "--widths", "4", "8", "32"])
+    (row,) = [json.loads(line) for line in
+              capsys.readouterr().out.splitlines()]
+    assert row["round"] == 2 and [r["round"] for r in
+                                  row["rounds_before"]] == [1]
+    assert row["float64_within_tol"], row
+    assert row["float32"]["w"]["gap"] <= 1e-6, row
+    assert row["float32"]["w"]["port_finite"]
+    assert row["float64_on_fp32_draws"]["finite"]
+
+
 @pytest.mark.parametrize("package", ["port", "reference"])
 def test_probe_reports_each_run(package, capsys):
     main(["--package", package, "--device", "cpu", "--algos", "fedavg",
@@ -390,6 +568,25 @@ def test_probe_reports_each_run(package, capsys):
     assert [e["round"] for e in rows[0]["evals"]] == [2]
     assert [e["round"] for e in rows[1]["evals"]] == [2, 4, 6, 8]
     assert all(r["first_nonfinite_eval_round"] is None for r in rows)
+
+
+
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_probe_perturbs_the_initial_state(package, capsys, one_thread):
+    """``--perturb``: the run starts from its seed's state scaled by
+    1 + EPS (in fp32), so its losses move, and its line says so."""
+    args = ["--package", package, "--device", "cpu", "--algos", "fedavg",
+            "--rounds", "2", "--eval-every", "2", "--clients", "6",
+            "--samples", "300", "--widths", "4", "8", "32"]
+    main(args)
+    main(args + ["--perturb", "1e-3"])
+    rows = [json.loads(line) for line in
+            capsys.readouterr().out.splitlines()]
+    assert [r["perturb"] for r in rows] == [0.0, 1e-3]
+    (a,), (b,) = (r["evals"] for r in rows)
+    assert math.isfinite(a["loss_global"]) and \
+        math.isfinite(b["loss_global"])
+    assert a["loss_global"] != b["loss_global"]
 
 
 if __name__ == "__main__":
